@@ -1,0 +1,100 @@
+"""Generation operators: seeded sampling and KV-cache writes.
+
+Counterpart of ``mxnet_tpu/ops/generation_ops.py``.
+
+- Sampling takes an explicit ``torch.Generator``: the same generator state
+  and the same logits give the same tokens. (It does not give the JAX
+  package's tokens: ``jax.random`` and ``torch.Generator`` draw different
+  numbers from one seed. Greedy rows match exactly.)
+- Per-row ``temperature <= 0`` selects greedy for that row.
+- The cache writes update their target in place and return it: the
+  reference returns a new buffer (XLA makes that an in-place
+  ``dynamic_update_slice``); here the in-place write is what saves
+  copying the arena.
+"""
+from __future__ import annotations
+
+import torch
+
+__all__ = ["sample_temperature", "sample_top_k", "generation_sample",
+           "kv_cache_update", "arena_update", "arena_slice"]
+
+_NEG_INF = -1e9  # large-negative fill that stays finite in fp16/bf16
+
+
+def sample_temperature(logits, generator=None, temperature=1.0):
+    """Categorical sample from ``softmax(logits / temperature)``.
+
+    ``temperature`` is a scalar or a per-row ``(B,)`` tensor over
+    ``logits (B, V)``; rows with ``temperature <= 0`` take the argmax (the
+    first maximum on ties, as ``jnp.argmax``). Draws nothing when every row
+    is greedy."""
+    temp = torch.as_tensor(temperature, dtype=torch.float32,
+                           device=logits.device)
+    greedy = torch.argmax(logits, dim=-1)
+    cold = temp <= 0.0
+    if bool(cold.all()):
+        return greedy
+    t = temp[:, None] if temp.dim() == 1 else temp
+    probs = torch.softmax(logits.float() / t.clamp_min(1e-6), dim=-1)
+    flat = probs.reshape(-1, probs.shape[-1])
+    sampled = torch.multinomial(flat, 1, generator=generator)
+    sampled = sampled.reshape(greedy.shape)
+    return torch.where(cold, greedy, sampled)
+
+
+def _top_k_filter(logits, k):
+    """Keep the k largest logits per row; fill the rest with -1e9."""
+    if k <= 0 or k >= logits.shape[-1]:
+        return logits
+    kth = torch.topk(logits, k, dim=-1).values[..., -1:]
+    return torch.where(logits >= kth, logits,
+                       torch.full_like(logits, _NEG_INF))
+
+
+def sample_top_k(logits, generator=None, k=0, temperature=1.0):
+    """Top-k filtered temperature sampling (``k <= 0``: no filter)."""
+    return sample_temperature(_top_k_filter(logits, int(k)), generator,
+                              temperature)
+
+
+def generation_sample(logits, generator, temperatures, k=0):
+    """The serving sampler: per-row temperatures ``(B,)`` over ``logits
+    (B, V)`` (0 = greedy for that row) with an optional top-k."""
+    return sample_top_k(logits, generator, k=int(k), temperature=temperatures)
+
+
+def kv_cache_update(cache, new, positions):
+    """Write ``new (B, n, ...)`` into ``cache (B, S, ...)`` at per-row
+    offsets ``positions (B,)`` along axis 1, in place; returns ``cache``.
+    Offsets clamp to ``[0, S - n]`` as ``dynamic_update_slice`` does."""
+    B, n = new.shape[0], new.shape[1]
+    pos = torch.as_tensor(positions, device=cache.device).long().reshape(B)
+    pos = pos.clamp(0, cache.shape[1] - n)
+    rows = torch.arange(B, device=cache.device).reshape(B, 1)
+    cols = pos.reshape(B, 1) + torch.arange(n, device=cache.device)
+    cache[rows, cols] = new.to(cache.dtype)
+    return cache
+
+
+def _clamped(index, arena, size, axis):
+    return max(0, min(int(index), arena.shape[axis] - size))
+
+
+def arena_slice(arena, index, size=1, axis=1):
+    """A view of ``size`` rows of ``arena`` at ``index`` on ``axis`` (full
+    extent elsewhere); the index clamps into range."""
+    return arena.narrow(axis, _clamped(index, arena, size, axis), size)
+
+
+def arena_update(arena, block, index, axis=1):
+    """Write ``block`` into ``arena`` at ``index`` on ``axis`` and at 0 on
+    every other axis, in place; returns ``arena``. ``block`` has the
+    arena's rank; the index clamps into range."""
+    size = block.shape[axis]
+    dst = arena.narrow(axis, _clamped(index, arena, size, axis), size)
+    for ax in range(arena.dim()):
+        if ax != axis:
+            dst = dst.narrow(ax, 0, block.shape[ax])
+    dst.copy_(block)
+    return arena

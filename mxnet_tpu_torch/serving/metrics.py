@@ -1,0 +1,141 @@
+"""Generation-serving metrics.
+
+Counterpart of the ``GenerationMetrics`` subset of
+``mxnet_tpu/serving/metrics.py``: time to first token (submit -> first
+streamed token: queue wait + prefill), prefill time, decode step time and
+emitted tokens, and the admit/step/retire ledger. :meth:`snapshot` is the
+``/metrics`` ``"generation"`` section of ``ModelServer``. Percentiles are
+nearest-rank over a sliding window of recent requests.
+"""
+from __future__ import annotations
+
+import math
+import threading
+from collections import deque
+
+__all__ = ["GenerationMetrics"]
+
+
+def _percentiles(values, qs=(50, 95, 99), scale=1e3):
+    """Nearest-rank percentiles (seconds -> ms by default); zeros when
+    empty."""
+    vals = sorted(values)
+    if not vals:
+        return {("p%d" % q): 0.0 for q in qs}
+    out = {}
+    for q in qs:
+        idx = min(len(vals) - 1, max(0, math.ceil(q / 100.0 * len(vals)) - 1))
+        out["p%d" % q] = vals[idx] * scale
+    return out
+
+
+class GenerationMetrics:
+    """TTFT and per-slot decode-rate percentiles, prefill and step times,
+    and the request/token counters of one generation lane."""
+
+    def __init__(self, window=2048, name="generation"):
+        self.name = name
+        self._lock = threading.Lock()
+        self._ttft = deque(maxlen=window)       # seconds
+        self._tps = deque(maxlen=window)        # per-request tokens/s
+        self._c = {"requests": 0, "ok": 0, "errors": 0, "rejected": 0,
+                   "expired": 0, "prefills": 0, "steps": 0,
+                   "step_failures": 0, "tokens_out": 0, "retired_eos": 0,
+                   "retired_length": 0, "retired_max_seq": 0}
+        self._ttft_total = 0.0
+        self._step_time = 0.0
+        self._prefill_time = 0.0
+        self._step_slots = 0
+        self._queue_depth_fn = None
+        self._engine = None
+
+    # ---- recording (scheduler hot path) -----------------------------------
+    def record_rejected(self):
+        with self._lock:
+            self._c["rejected"] += 1
+
+    def record_expired(self):
+        with self._lock:
+            self._c["expired"] += 1
+
+    def record_ttft(self, seconds):
+        with self._lock:
+            self._ttft.append(seconds)
+            self._ttft_total += seconds
+
+    def record_prefill(self, seconds):
+        with self._lock:
+            self._c["prefills"] += 1
+            self._prefill_time += seconds
+
+    def record_step(self, live_slots, seconds):
+        """One decode iteration over ``live_slots`` sequences."""
+        with self._lock:
+            self._c["steps"] += 1
+            self._c["tokens_out"] += live_slots
+            self._step_slots += live_slots
+            self._step_time += seconds
+
+    def record_step_failure(self):
+        with self._lock:
+            self._c["step_failures"] += 1
+
+    def record_done(self, n_tokens, reason, gen_seconds):
+        """A sequence retired cleanly after ``n_tokens`` in ``gen_seconds``
+        (first token -> done); its rate counts the ``n_tokens - 1`` decode
+        intervals, so a 1-token sequence records none."""
+        with self._lock:
+            self._c["requests"] += 1
+            self._c["ok"] += 1
+            key = "retired_%s" % reason
+            if key in self._c:
+                self._c[key] += 1
+            if n_tokens > 1:
+                self._tps.append((n_tokens - 1) / max(gen_seconds, 1e-9))
+
+    def record_error(self):
+        with self._lock:
+            self._c["requests"] += 1
+            self._c["errors"] += 1
+
+    # ---- hookups ----------------------------------------------------------
+    def set_queue_depth_fn(self, fn):
+        self._queue_depth_fn = fn
+
+    def set_engine(self, engine):
+        """Wire a ``DecodeEngine`` so snapshots carry its cache occupancy
+        and prefill/step counters."""
+        self._engine = engine
+
+    # ---- reading ----------------------------------------------------------
+    def snapshot(self):
+        with self._lock:
+            c = dict(self._c)
+            ttft = list(self._ttft)
+            tps = list(self._tps)
+            ttft_total = self._ttft_total
+            step_time = self._step_time
+            prefill_time = self._prefill_time
+            step_slots = self._step_slots
+        ttft_ms = _percentiles(ttft)
+        ttft_ms["mean"] = (ttft_total / len(ttft) * 1e3 if ttft else 0.0)
+        out = {
+            "name": self.name,
+            "ttft_ms": ttft_ms,
+            "tokens_s_per_slot": _percentiles(tps, scale=1.0),
+            "decode_tokens_s": (c["tokens_out"] / step_time
+                                if step_time > 0 else 0.0),
+            "prefill_ms_mean": (prefill_time / c["prefills"] * 1e3
+                                if c["prefills"] else 0.0),
+            "step_ms_mean": (step_time / c["steps"] * 1e3
+                             if c["steps"] else 0.0),
+            "avg_step_occupancy": (step_slots / c["steps"]
+                                   if c["steps"] else 0.0),
+        }
+        out.update(c)
+        if self._queue_depth_fn is not None:
+            out["queue_depth"] = self._queue_depth_fn()
+        if self._engine is not None:
+            out["kvcache"] = self._engine.cache.stats()
+            out["engine"] = self._engine.stats()
+        return out

@@ -1,0 +1,261 @@
+"""ModelServer: stdlib HTTP front end for generation serving.
+
+Counterpart of ``mxnet_tpu/serving/server.py`` in its generation-only mode
+(``ModelServer(None, generator=sched)``). Endpoints (JSON):
+
+- ``POST /generate``: body ``{"prompt": [token ids], "max_new_tokens": n,
+  "temperature": t, "eos_id": id, "timeout_ms": ms, "stream": true}``.
+  With ``stream`` (default) the reply is ``Transfer-Encoding: chunked``
+  NDJSON, one ``{"token", "index"}`` line per generated token as the
+  scheduler produces it, closed by a ``{"done": true, "reason", "n_tokens"}``
+  line. ``stream=false`` returns ``{"tokens": [...], "reason": ...}``.
+  Failures before the first token keep typed codes: malformed body or
+  prompt 400, ``ServerBusy``/``ServerClosed``/draining 503 (with
+  ``Retry-After``), queue ``DeadlineExceeded`` 504. A fault after the
+  first token becomes an in-band ``{"error": ...}`` line.
+- ``GET /healthz``: ``{"status": "ok"}``, or ``"draining"`` during
+  shutdown.
+- ``GET /metrics``: the scheduler's ``GenerationMetrics.snapshot()`` under
+  ``"generation"``.
+
+``/predict``, the fleet registry, the circuit breaker, telemetry and the
+gateway are not ported yet.
+"""
+from __future__ import annotations
+
+import json
+import threading
+import uuid
+from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+from .batcher import DeadlineExceeded, ServerBusy, ServerClosed, ServingError
+
+__all__ = ["ModelServer"]
+
+# the reference's MXNET_HTTP_MAX_BODY default: larger bodies are refused
+_MAX_BODY = 8 * 1024 * 1024
+
+
+class _Handler(BaseHTTPRequestHandler):
+    server_version = "mxnet_tpu_torch_serving/0.1"
+    protocol_version = "HTTP/1.1"
+
+    def log_message(self, fmt, *args):  # quiet: /metrics replaces access logs
+        pass
+
+    def _reply(self, code, payload, headers=None):
+        body = json.dumps(payload).encode("utf-8")
+        self.send_response(code)
+        self.send_header("Content-Type", "application/json")
+        self.send_header("Content-Length", str(len(body)))
+        rid = getattr(self, "_request_id", None)
+        if rid is not None:
+            self.send_header("X-Request-Id", rid)
+        for k, v in (headers or {}).items():
+            self.send_header(k, v)
+        self.end_headers()
+        self.wfile.write(body)
+
+    def do_GET(self):  # noqa: N802 (http.server API)
+        self._request_id = None
+        srv = self.server.model_server
+        path = self.path.partition("?")[0]
+        if path == "/healthz":
+            self._reply(200, srv.health())
+        elif path == "/metrics":
+            self._reply(200, srv.metrics_snapshot())
+        else:
+            self._reply(404, {"error": "unknown path %s" % self.path})
+
+    def do_POST(self):  # noqa: N802
+        rid = self.headers.get("X-Request-Id") or uuid.uuid4().hex[:16]
+        self._request_id = rid
+        try:
+            length = int(self.headers.get("Content-Length", 0))
+            if length < 0:
+                raise ValueError("negative Content-Length")
+        except (TypeError, ValueError):
+            self.close_connection = True
+            self._reply(400, {"error": "bad Content-Length"})
+            return
+        if length > _MAX_BODY:
+            self.close_connection = True
+            self._reply(413, {"error": "request body %d bytes exceeds %d"
+                                       % (length, _MAX_BODY)})
+            return
+        body = self.rfile.read(length)
+        if self.path.partition("?")[0] != "/generate":
+            self._reply(404, {"error": "unknown path %s" % self.path})
+            return
+        self._handle_generate(rid, self.server.model_server, body)
+
+    def _write_chunk(self, payload):
+        """One HTTP/1.1 chunk carrying one NDJSON line."""
+        data = (json.dumps(payload) + "\n").encode("utf-8")
+        self.wfile.write(b"%x\r\n" % len(data))
+        self.wfile.write(data)
+        self.wfile.write(b"\r\n")
+        self.wfile.flush()
+
+    def _handle_generate(self, rid, srv, body):
+        if srv.draining:
+            self._reply(503, {"error": "server draining"},
+                        headers={"Retry-After": "1"})
+            return
+        try:
+            payload = json.loads(body or b"{}")
+            prompt = payload["prompt"]
+            if (not isinstance(prompt, list) or not prompt
+                    or not all(isinstance(t, int) for t in prompt)):
+                raise ValueError('"prompt" must be a non-empty list of '
+                                 'token ids')
+            max_new = payload.get("max_new_tokens")
+            max_new = None if max_new is None else int(max_new)
+            temperature = float(payload.get("temperature", 0.0))
+            eos_id = payload.get("eos_id")
+            eos_id = None if eos_id is None else int(eos_id)
+            timeout_ms = payload.get("timeout_ms")
+            timeout_ms = None if timeout_ms is None else float(timeout_ms)
+            stream = bool(payload.get("stream", True))
+        except (ValueError, TypeError, KeyError, AttributeError) as e:
+            self._reply(400, {"error": str(e)})
+            return
+        try:
+            req = srv.generator.submit(
+                prompt, max_new_tokens=max_new, temperature=temperature,
+                eos_id=eos_id, timeout_ms=timeout_ms, request_id=rid)
+        except (ServerBusy, ServerClosed) as e:
+            self._reply(503, {"error": str(e)}, headers={"Retry-After": "1"})
+            return
+        except ServingError as e:  # PromptTooLong / bad request shape
+            self._reply(400, {"error": str(e)})
+            return
+        if not stream:
+            try:
+                toks = req.result()
+            except DeadlineExceeded as e:
+                self._reply(504, {"error": str(e)})
+            except ServerClosed as e:
+                self._reply(503, {"error": str(e)},
+                            headers={"Retry-After": "1"})
+            except Exception as e:  # noqa: BLE001 — model fault
+                self._reply(500, {"error": "%s: %s" % (type(e).__name__, e)})
+            else:
+                self._reply(200, {"tokens": toks,
+                                  "reason": req.finish_reason})
+            return
+        # hold the status line until the first event, so failures before
+        # the first token keep their typed codes
+        kind, val = req.next_event()
+        if kind == "error":
+            if isinstance(val, DeadlineExceeded):
+                self._reply(504, {"error": str(val)})
+            elif isinstance(val, (ServerBusy, ServerClosed)):
+                self._reply(503, {"error": str(val)},
+                            headers={"Retry-After": "1"})
+            else:
+                self._reply(500, {"error": "%s: %s"
+                                  % (type(val).__name__, val)})
+            return
+        self.send_response(200)
+        self.send_header("Content-Type", "application/x-ndjson")
+        self.send_header("X-Request-Id", rid)
+        self.send_header("Transfer-Encoding", "chunked")
+        self.end_headers()
+        try:
+            if kind == "token":
+                self._write_chunk({"token": val, "index": 0})
+                for i, tok in enumerate(req.tokens(), start=1):
+                    self._write_chunk({"token": tok, "index": i})
+            self._write_chunk({"done": True, "request_id": rid,
+                               "n_tokens": len(req.tokens_out),
+                               "reason": req.finish_reason})
+            self.wfile.write(b"0\r\n\r\n")
+        except Exception as e:  # noqa: BLE001 — fault mid-stream
+            # the consumer is gone or the sequence failed: retire it at
+            # the next iteration instead of decoding to budget for nobody
+            req.cancel()
+            try:
+                self._write_chunk({"error": "%s: %s"
+                                   % (type(e).__name__, e)})
+                self.wfile.write(b"0\r\n\r\n")
+            except Exception:  # noqa: BLE001
+                pass
+            self.close_connection = True
+
+
+class _QuietThreadingHTTPServer(ThreadingHTTPServer):
+    """No traceback spam when a client disconnects mid-reply."""
+
+    def handle_error(self, request, client_address):
+        import sys
+        if isinstance(sys.exc_info()[1],
+                      (BrokenPipeError, ConnectionResetError)):
+            return
+        super().handle_error(request, client_address)
+
+
+class ModelServer:
+    """HTTP listener over a ``GenerationScheduler``.
+
+    ``model`` must be None (the ``/predict`` path is not ported yet);
+    ``generator`` backs ``POST /generate`` and is closed with the server.
+    ``port=0`` picks an ephemeral port."""
+
+    def __init__(self, model=None, host="127.0.0.1", port=8080,
+                 generator=None):
+        if model is not None:
+            raise NotImplementedError("/predict serving is not ported yet: "
+                                      "pass model=None and generator=")
+        if generator is None:
+            raise ValueError("need a generator")
+        self.generator = generator
+        self._draining = False
+        self._httpd = _QuietThreadingHTTPServer((host, port), _Handler)
+        self._httpd.daemon_threads = True
+        self._httpd.model_server = self
+        self._thread = None
+
+    @property
+    def draining(self):
+        return self._draining
+
+    def health(self):
+        return {"status": "draining" if self._draining else "ok"}
+
+    def metrics_snapshot(self):
+        out = {"scheduler": self.generator.stats()}
+        if self.generator.metrics is not None:
+            out["generation"] = self.generator.metrics.snapshot()
+        return out
+
+    @property
+    def address(self):
+        """(host, port) actually bound; resolves port=0."""
+        return self._httpd.server_address[:2]
+
+    @property
+    def url(self):
+        host, port = self.address
+        return "http://%s:%d" % (host, port)
+
+    def start(self):
+        """Serve in a background thread; returns self."""
+        if self._thread is None:
+            self._thread = threading.Thread(
+                target=self._httpd.serve_forever, daemon=True,
+                name="model-server")
+            self._thread.start()
+        return self
+
+    def stop(self, drain=True, timeout=10.0):
+        """Shut down: flip to draining (new POSTs get 503), let the
+        scheduler finish (``drain``) or fail its work, then close the
+        listener."""
+        self._draining = True
+        self.generator.close(drain=drain, timeout=timeout)
+        self._httpd.shutdown()
+        self._httpd.server_close()
+        if self._thread is not None:
+            self._thread.join(5.0)
+            self._thread = None

@@ -85,6 +85,10 @@ def pytest_configure(config):
         "chaos: tests that arm fault-injection points "
         "(mxnet_tpu.resilience.chaos) — deselect with -m 'not chaos' when "
         "debugging unrelated failures")
+    config.addinivalue_line(
+        "markers",
+        "cuda: tests that need a CUDA card (kernels of mxnet_tpu_torch); "
+        "they skip where none is present")
 
 
 @pytest.fixture(autouse=True)
