@@ -34,29 +34,35 @@ Builds the package's CUDA kernels from the sources in this checkout
    ``random.seed`` are run twice and must give bitwise-equal losses (no
    atomics anywhere on the path).
 3. **Forward kernel phase.** At the serving shapes (B 1, H 12, D 64, S 128
-   and 1024; causal with a key mask; both layouts; fp32 and bf16; one
-   dropout case) and the training shape (B 32, S 512, causal), each kernel
-   call is held against ``flash_attention_plain`` on the card (fp32
-   atol/rtol 2e-4: sums in another order; bf16 2e-2: P is rounded to bf16
-   before PV) and timed with CUDA events, beside the plain version and
-   ``torch.nn.functional.scaled_dot_product_attention`` with the same
-   boolean mask (the yardstick only; the package never calls it).
+   and 1024; causal with a key mask; both layouts; fp32 and bf16; a
+   dropout case in each type) and the training shape (B 32, S 512, causal),
+   each kernel call is held against ``flash_attention_plain`` on the card
+   (fp32 atol/rtol 2e-4: sums in another order; bf16 2e-2: P is rounded to
+   bf16 before PV) and timed with CUDA events, beside the plain version and
+   ``torch.nn.functional.scaled_dot_product_attention`` (the yardstick only;
+   the package never calls it): with ``is_causal=True`` and no mask where
+   the case has no key mask, so that SDPA can take its flash backend, and
+   with the same boolean mask where it has one.
 4. **Backward kernel phase.** At B 8, S 512, H 12, D 64, causal with a key
-   mask (both layouts, fp32 and bf16, one dropout case, one D 32 and one
-   D 128 case) and at the training shape (B 32, S 512, causal; fp32 and
-   bf16), the dQ and the dK/dV kernels are held against
+   mask (both layouts, fp32 and bf16, a dropout case in each type, D 32 and
+   D 128 cases in each type) and at the training shape (B 32, S 512,
+   causal; fp32 and bf16), the dQ and the dK/dV kernels are held against
    ``flash_attention_bwd_plain`` on the card (the largest error at most
    2e-4 of the largest |value| in fp32, 2e-2 in bf16) and timed eager and
    from a CUDA graph, beside their bound, the plain backward and
-   ``torch.autograd.grad`` through SDPA with the forward outside the timed
-   region (the yardstick only).
+   ``torch.autograd.grad`` through SDPA (the yardstick only; SDPA called
+   as in phase 3): eager with the forward outside the timed region, and
+   from a CUDA graph as the graph time of forward + backward less that of
+   the forward alone.
 
-With ``--profile`` the burst is served a second time, and two fp32 training
-steps are run, under ``torch.profiler`` (after the checked runs) to print the
-device's busy share and its top kernels.
+With ``--profile`` the burst is served a second time, and two fp32 and two
+bf16 training steps are run, under ``torch.profiler`` (after the checked
+runs) to print the device's busy share and its top kernels.
 
-Prints the serving and training numbers, one ``{"kernels": [...]}`` line,
-the card's name and power limit, and last ``{"ok": true, "device": {...}}``.
+Prints the serving and training numbers, one ``{"kernels": [...]}`` line
+(the numbers of the training shape in fp32, and under ``*_bf16`` keys in
+bf16), the card's name and power limit, and last ``{"ok": true,
+"device": {...}}``.
 Any failure exits non-zero before that line. Without CUDA it exits 2.
 """
 from __future__ import annotations
@@ -398,11 +404,12 @@ def train_phase(args, torch):
         fail("dropout steps are not repeatable: %r != %r" % tuple(runs))
     out["dropout_losses"] = runs[0]
     if args.profile:
-        tr = trainer(model)
-        tr.step(x, y)
-        out["profile"] = profile(torch, lambda: train_steps(torch, tr, x, y,
-                                                            2))
-        del tr
+        for dname in ("float32", "bfloat16"):
+            tr = trainer(model, None if dname == "float32" else dname)
+            tr.step(x, y)
+            out["profile_" + dname] = profile(
+                torch, lambda: train_steps(torch, tr, x, y, 2))
+            del tr
     del net, model
     torch.cuda.empty_cache()
     return out
@@ -476,11 +483,17 @@ def attention_inputs(torch, g, B, S, H, D, layout, dt, n, masked):
     return xs, mask
 
 
-def sdpa_mask(torch, B, S, mask):
+def sdpa(torch, F, B, S, mask):
+    """The causal SDPA call for (B, H, S, D) inputs: ``is_causal=True``
+    without a mask where there is no key mask (its flash backend can run),
+    else the causal and key masks as one boolean mask."""
+    if mask is None:
+        return lambda q, k, v: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True)
     keep = torch.ones((S, S), dtype=torch.bool, device="cuda").tril()
-    if mask is not None:
-        keep = keep & mask.bool().reshape(B, 1, 1, S)
-    return keep
+    keep = keep & mask.bool().reshape(B, 1, 1, S)
+    return lambda q, k, v: F.scaled_dot_product_attention(q, k, v,
+                                                          attn_mask=keep)
 
 
 def kernel_phase(torch):
@@ -493,7 +506,8 @@ def kernel_phase(torch):
     specs = [(1, S, layout, dt, 0.0, True) for S in (128, 1024)
              for layout in ("BSHD", "BHSD")
              for dt in (torch.float32, torch.bfloat16)]
-    specs.append((1, 1024, "BSHD", torch.float32, 0.1, True))
+    specs += [(1, 1024, "BSHD", dt, 0.1, True)
+              for dt in (torch.float32, torch.bfloat16)]
     specs += [(TRAIN_BATCH, TRAIN_SEQ, "BSHD", dt, 0.0, False)
               for dt in (torch.float32, torch.bfloat16)]
     for B, S, layout, dt, drop, masked in specs:
@@ -519,12 +533,9 @@ def kernel_phase(torch):
         if drop == 0.0:
             qb, kb, vb = ((x.transpose(1, 2) if layout == "BSHD" else x)
                           for x in (q, k, v))
-            keep = sdpa_mask(torch, B, S, mask)
-            lib_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
-                qb, kb, vb, attn_mask=keep))
-            lib_graph_ms = graph_ms(
-                torch, lambda: F.scaled_dot_product_attention(
-                    qb, kb, vb, attn_mask=keep))
+            lib = sdpa(torch, F, B, S, mask)
+            lib_ms = time_ms(torch, lambda: lib(qb, kb, vb))
+            lib_graph_ms = graph_ms(torch, lambda: lib(qb, kb, vb))
         dname = str(dt).replace("torch.", "")
         b_ms, b_by = bound(B, H, S, D, dname, True)
         cases.append({"B": B, "S": S, "H": H, "D": D, "layout": layout,
@@ -546,9 +557,9 @@ def bwd_phase(torch):
     specs = [(8, 512, 64, layout, dt, 0.0, True)
              for layout in ("BSHD", "BHSD")
              for dt in (torch.float32, torch.bfloat16)]
-    specs += [(8, 512, 64, "BSHD", torch.float32, 0.1, True),
-              (8, 512, 32, "BSHD", torch.float32, 0.0, True),
-              (8, 512, 128, "BSHD", torch.float32, 0.0, True)]
+    specs += [(8, 512, D, "BSHD", dt, drop, True)
+              for dt in (torch.float32, torch.bfloat16)
+              for D, drop in ((64, 0.1), (32, 0.0), (128, 0.0))]
     specs += [(TRAIN_BATCH, TRAIN_SEQ, 64, "BSHD", dt, 0.0, False)
               for dt in (torch.float32, torch.bfloat16)]
     for B, S, D, layout, dt, drop, masked in specs:
@@ -587,16 +598,27 @@ def bwd_phase(torch):
                            "bound_ms": b_ms, "bound_by": b_by}
         plain_ms = time_ms(torch, lambda: fa.flash_attention_bwd_plain(
             q, k, v, mask, seed, o, lse, do, True, drop, layout), iters=5)
-        lib_ms = None
+        lib_ms = lib_graph_ms = None
         if drop == 0.0:
             leaves = [(x.transpose(1, 2) if layout == "BSHD" else x)
                       .detach().requires_grad_() for x in (q, k, v)]
-            keep = sdpa_mask(torch, B, S, mask)
-            lib_out = F.scaled_dot_product_attention(*leaves, attn_mask=keep)
+            lib = sdpa(torch, F, B, S, mask)
+            lib_out = lib(*leaves)
             lib_do = do.transpose(1, 2) if layout == "BSHD" else do
             lib_ms = time_ms(torch, lambda: torch.autograd.grad(
                 lib_out, leaves, lib_do, retain_graph=True))
-            del lib_out, leaves
+            # fresh leaves, so that no autograd node made on the default
+            # stream outside the capture is still alive in it
+            del lib_out
+            leaves = [x.detach().requires_grad_() for x in leaves]
+
+            def fwd_bwd():
+                torch.autograd.grad(lib(*leaves), leaves, lib_do)
+
+            with torch.no_grad():
+                fwd_graph = graph_ms(torch, lambda: lib(*leaves))
+            lib_graph_ms = graph_ms(torch, fwd_bwd) - fwd_graph
+            del leaves
         cases.append({"B": B, "S": S, "H": H, "D": D, "layout": layout,
                       "dtype": str(dt).replace("torch.", ""),
                       "dropout": drop, "causal": True, "key_mask": masked,
@@ -605,7 +627,8 @@ def bwd_phase(torch):
                       "max_err_rel_to_max": {n: e[1]
                                              for n, e in errs.items()},
                       "dq": times["dq"], "dkv": times["dkv"],
-                      "plain_bwd_ms": plain_ms, "library_bwd_ms": lib_ms})
+                      "plain_bwd_ms": plain_ms, "library_bwd_ms": lib_ms,
+                      "library_bwd_graph_ms": lib_graph_ms})
         del q, k, v, do, o, lse, delta, dq, dk, dv, ref
         torch.cuda.empty_cache()
     return cases
@@ -621,18 +644,24 @@ def ptxas_summary(_build, name):
 
 def kernel_entries(serving, training, fwd_cases, bwd_cases):
     """The ``{"kernels": [...]}`` entries: numbers of the main path's
-    training shape (B 32, S 512, H 12, D 64, BSHD, causal, fp32)."""
-    def main(cases):
+    training shape (B 32, S 512, H 12, D 64, BSHD, causal) in fp32, and
+    under ``*_bf16`` keys in bf16."""
+    def main(cases, dtype="float32"):
         return next(c for c in cases if c["B"] == TRAIN_BATCH
-                    and c["layout"] == "BSHD" and c["dtype"] == "float32")
+                    and c["layout"] == "BSHD" and c["dtype"] == dtype)
 
-    fm = main(fwd_cases)
-    timed = "B=%d S=%d H=12 D=64 BSHD float32 causal" % (TRAIN_BATCH,
-                                                         TRAIN_SEQ)
+    fm, fb = main(fwd_cases), main(fwd_cases, "bfloat16")
+    timed = "B=%d S=%d H=12 D=64 BSHD causal, float32 (*_bf16: bfloat16)" \
+        % (TRAIN_BATCH, TRAIN_SEQ)
     entries = [{
         "name": "flash_attn_fwd", "ms": fm["ms"], "graph_ms": fm["graph_ms"],
         "plain_ms": fm["plain_ms"], "bound_ms": fm["bound_ms"],
         "bound_by": fm["bound_by"], "library_ms": fm["library_ms"],
+        "library_graph_ms": fm["library_graph_ms"],
+        "ms_bf16": fb["ms"], "graph_ms_bf16": fb["graph_ms"],
+        "plain_ms_bf16": fb["plain_ms"], "bound_ms_bf16": fb["bound_ms"],
+        "bound_by_bf16": fb["bound_by"], "library_ms_bf16": fb["library_ms"],
+        "library_graph_ms_bf16": fb["library_graph_ms"],
         "max_abs_err": max(c["max_abs_err"] for c in fwd_cases),
         "launches": serving["flash_launches"]
         + training["launches"]["flash_attn_fwd"],
@@ -640,7 +669,7 @@ def kernel_entries(serving, training, fwd_cases, bwd_cases):
             "serving": serving["flash_launches"],
             "training": training["launches"]["flash_attn_fwd"]},
         "cases": fwd_cases}]
-    bm = main(bwd_cases)
+    bm, bb = main(bwd_cases), main(bwd_cases, "bfloat16")
     for name, part in (("flash_attn_bwd_dq", "dq"),
                        ("flash_attn_bwd_dkv", "dkv")):
         errs = [c["max_abs_err"][n] for c in bwd_cases
@@ -650,7 +679,15 @@ def kernel_entries(serving, training, fwd_cases, bwd_cases):
             "graph_ms": bm[part]["graph_ms"], "plain_ms": bm["plain_bwd_ms"],
             "bound_ms": bm[part]["bound_ms"],
             "bound_by": bm[part]["bound_by"],
-            "library_ms": bm["library_bwd_ms"], "max_abs_err": max(errs),
+            "library_ms": bm["library_bwd_ms"],
+            "library_graph_ms": bm["library_bwd_graph_ms"],
+            "ms_bf16": bb[part]["ms"], "graph_ms_bf16": bb[part]["graph_ms"],
+            "plain_ms_bf16": bb["plain_bwd_ms"],
+            "bound_ms_bf16": bb[part]["bound_ms"],
+            "bound_by_bf16": bb[part]["bound_by"],
+            "library_ms_bf16": bb["library_bwd_ms"],
+            "library_graph_ms_bf16": bb["library_bwd_graph_ms"],
+            "max_abs_err": max(errs),
             "launches": training["launches"][name],
             "launches_by_path": {"serving": 0,
                                  "training": training["launches"][name]}})
@@ -669,9 +706,9 @@ def main():
     ap.add_argument("--out", default=None,
                     help="also write every result to this JSON file")
     ap.add_argument("--profile", action="store_true",
-                    help="serve the burst a second time and run two training "
-                         "steps under torch.profiler and print the device's "
-                         "busy share")
+                    help="serve the burst a second time and run two fp32 "
+                         "and two bf16 training steps under torch.profiler "
+                         "and print the device's busy share")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -716,7 +753,10 @@ def main():
                          training["dropout_losses"]))
 
     for tag, prof in (("serving burst", serving["profile"]),
-                      ("2 training steps", training.get("profile"))):
+                      ("2 fp32 training steps",
+                       training.get("profile_float32")),
+                      ("2 bf16 training steps",
+                       training.get("profile_bfloat16"))):
         if prof is not None:
             print("profile %s: %.1f ms wall, device busy %.1f ms (%.1f%%), "
                   "%d kernels; top: %s" % (
@@ -740,7 +780,8 @@ def main():
     bwd_cases = bwd_phase(torch)
     for c in bwd_cases:
         lib = "-" if c["library_bwd_ms"] is None else \
-            "%.4f ms" % c["library_bwd_ms"]
+            "%.4f ms (graph %.4f)" % (c["library_bwd_ms"],
+                                      c["library_bwd_graph_ms"])
         print("kernel bwd: B=%-2d S=%d D=%-3d %s %-8s dropout=%.1f  dq %.4f "
               "ms (graph %.4f, bound %.4f %s)  dkv %.4f ms (graph %.4f, "
               "bound %.4f %s)  plain bwd %.4f ms  library bwd %s  err/max "

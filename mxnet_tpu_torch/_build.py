@@ -2,8 +2,10 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface and compiles with ``nvcc``
 for ``sm_90a`` (the H100) into ``build/kernels/lib<name>-<digest>.so`` at
-the root of the checkout; the digest covers the source and the flags, so an
-edited source never loads a stale library. A build writes to a temporary
+the root of the checkout; the digest covers the source, every shared header
+``csrc/*.cuh`` (by name and content) and the flags, so an edited source or
+header never loads a stale library. Headers reached through a ``-I`` path in
+the flags (the toolkit's, CUTLASS's) enter the digest by that path only. A build writes to a temporary
 name and renames it into place, so two processes that build at once both
 end with a whole library. :func:`build` starts one ``nvcc`` per missing
 source at once and waits for all of them.
@@ -47,6 +49,8 @@ def _nvcc():
 def _target(name):
     src = CSRC / (name + ".cu")
     h = hashlib.sha256(src.read_bytes())
+    for hdr in sorted(CSRC.glob("*.cuh")):
+        h.update(b"\0" + hdr.name.encode() + b"\0" + hdr.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return src, BUILD_DIR / ("lib%s-%s.so" % (name, h.hexdigest()[:16]))
 

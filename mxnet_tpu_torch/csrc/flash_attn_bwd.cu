@@ -22,31 +22,53 @@
 //   - dS and Pdrop are rounded to the operand type before their products.
 //   - dQ = scale * dS K; dK = scale * dS^T Q; dV = Pdrop^T dO.
 //
-// What bounds it on the H100: five S x S x D products per (q, k) pair
-// (dQ recomputes S and dP, as the TPU kernels do), ~S/3 FLOPs per byte at
-// the training shapes, so it is bound by operations. This first version runs
-// on the CUDA cores in fp32 (67 TFLOP/s peak), like the forward; bf16 inputs
-// get exactly the numbers a tensor-core product with fp32 sums gives.
+// What bounds it on the H100: dQ does three S x S x D products per (q, k)
+// pair and dK/dV four (both recompute S and dP, as the TPU kernels do),
+// ~S/3 FLOPs per byte at the training shapes: bound by operations on the
+// CUDA cores (67 TFLOP/s fp32), by bytes on the tensor cores (989 TFLOP/s
+// bf16, ridge ~295 FLOPs a byte) at S 512.
 //
-// Design. No atomics: each block owns its output rows, so the result is
-// deterministic.
-//   dQ:   one block of 128 threads per (query tile of BR rows, b*h); it
-//         streams key tiles of 64 rows up to the diagonal under causal.
-//   dK/dV: one block per (key tile of BR rows, b*h); it streams query tiles
-//         of 64 rows from the diagonal on under causal, with dK and dV
-//         accumulated in fp32 registers.
-// A block stages its own rows and the streamed tile in shared memory as fp32
-// with a padded row stride (D+1), recomputes the 8 x 4 scores and dP values
-// each thread owns (rows tr + 8i, columns tc + 16j), writes dS (and Pdrop)
-// to shared memory in the operand type, and accumulates its BR x D outputs
-// (rows tr + 8i, columns tc + 16j). BR is 64 at D <= 64 and 32 at D = 128,
-// which keeps the accumulators at 64 registers or fewer a thread. wgmma/TMA
-// come in a later version.
+// No atomics: each block owns its output rows, so the result is
+// deterministic (the training smoke's dropout repeat check relies on it).
+//
+// dK/dV in bf16: bwd_dkv_tc_kernel, on the tensor cores. One warpgroup (128
+// threads) per (key tile of 64 rows, b*h), streaming query tiles of BC rows
+// (64; 32 at D 128, where the dK and dV accumulators take 128 registers a
+// thread) from the diagonal on under causal. All four products are wgmma
+// (hopper_tc.cuh). It computes the transposed tiles S^T = K Q^T and
+// dP^T = V dO^T (A = the block's K or V tile, B = the streamed Q or dO
+// tile, all K-major in shared memory), so that Pdrop^T and dS^T come out
+// in the accumulator fragment that is the A operand of dV += Pdrop^T dO
+// and dK += dS^T Q: they are rounded to bf16 in registers and fed back
+// with no shared-memory round trip (B = dO or Q, MN-major). Each thread
+// owns two key rows (16w + l/4 and +8) and two query columns of every 8,
+// so the masks and keep bits are taken at each element's own global
+// (q, k), and LSE and delta are read per column. Q and dO tiles (bf16, by
+// cp.async) and their LSE and delta rows stream through a two-stage ring:
+// tile t+1 is in flight while tile t computes. dK and dV stay in fp32
+// registers until the end; at D <= 64 the registers are capped so that 3
+// blocks share an SM.
+//
+// dQ (fp32 and bf16) and dK/dV in fp32: bwd_dq_kernel and bwd_dkv_kernel,
+// on the CUDA cores in fp32. dQ: one block of 128 threads per (query tile
+// of BR rows, b*h); it streams key tiles of 64 rows up to the diagonal
+// under causal. dK/dV: one block per (key tile of BR rows, b*h); it streams
+// query tiles of 64 rows from the diagonal on under causal, with dK and dV
+// accumulated in fp32 registers. A block stages its own rows and the
+// streamed tile in shared memory as fp32 with a padded row stride (D+1),
+// recomputes the 8 x 4 scores and dP values each thread owns (rows
+// tr + 8i, columns tc + 16j), writes dS (and Pdrop) to shared memory in
+// the operand type, and accumulates its BR x D outputs (rows tr + 8i,
+// columns tc + 16j). BR is 64 at D <= 64 and 32 at D = 128, which keeps
+// the accumulators at 64 registers or fewer a thread.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
 
 #include <atomic>
+#include <type_traits>
+
+#include "hopper_tc.cuh"
 
 namespace {
 
@@ -417,6 +439,187 @@ __global__ void __launch_bounds__(NT) bwd_dkv_kernel(const Params p) {
   }
 }
 
+
+// ------------------------------------------- dK/dV in bf16, tensor cores
+
+constexpr int TC_BR = 64;        // key rows per block (wgmma's M)
+constexpr int TC_STAGES = 2;     // Q/dO ring depth
+
+template <int D> constexpr int tc_cols() { return D > 64 ? 32 : 64; }
+
+// at D <= 64 the registers are capped (at 168) for 3 blocks an SM: a few
+// registers more drop the main-path instance to 2 blocks and ~15% speed
+template <int D> constexpr int tc_min_blocks() { return D > 64 ? 1 : 3; }
+
+template <int D>
+constexpr int dkv_tc_smem_bytes() {
+  // K, V; the Q/dO ring; and 1024 bytes to align the tiles by hand
+  return 2 * hopper::Tile<TC_BR, D>::BYTES +
+         2 * TC_STAGES * hopper::Tile<tc_cols<D>(), D>::BYTES + 1024;
+}
+
+template <int D, int BCQ, bool DROP>
+__global__ void __launch_bounds__(NT, tc_min_blocks<D>())
+    bwd_dkv_tc_kernel(const Params p) {
+  using namespace hopper;
+  using KT = Tile<TC_BR, D>;
+  using QT = Tile<BCQ, D>;
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ float lse_s[TC_STAGES][BCQ];   // LSE * log2 e
+  __shared__ float dl_s[TC_STAGES][BCQ];
+  const uint32_t k_s = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t v_s = k_s + KT::BYTES;
+  const uint32_t ring = v_s + KT::BYTES;
+  auto q_st = [&](int sg) { return ring + 2 * sg * QT::BYTES; };
+  auto g_st = [&](int sg) { return ring + (2 * sg + 1) * QT::BYTES; };
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int r0 = 16 * (tid >> 5) + (lane >> 2);   // key rows r0 and r0 + 8
+  const int cq = 2 * (lane & 3);                  // columns cq, cq + 1 of 8
+  const int kt = blockIdx.x;     // causal: tile 0 streams the most q tiles
+  const int bh = blockIdx.y;
+  const int b = bh / p.H;
+  const int h = bh - b * p.H;
+  const int k0 = kt * TC_BR;
+  const int S = p.S;
+  const long long* st = p.st;
+
+  typedef __nv_bfloat16 bf16;
+  const bf16* Q = static_cast<const bf16*>(p.q) + b * st[SQ] + h * st[SQ + 2];
+  const bf16* K = static_cast<const bf16*>(p.k) + b * st[SK] + h * st[SK + 2];
+  const bf16* V = static_cast<const bf16*>(p.v) + b * st[SV] + h * st[SV + 2];
+  const bf16* G = static_cast<const bf16*>(p.g) + b * st[SG] + h * st[SG + 2];
+  bf16* DK = static_cast<bf16*>(p.dk) + b * st[SDK] + h * st[SDK + 2];
+  bf16* DV = static_cast<bf16*>(p.dv) + b * st[SDV] + h * st[SDV + 2];
+  const int32_t* M = p.mask ? p.mask + b * p.mask_sb : nullptr;
+
+  const int kj[2] = {k0 + r0, k0 + r0 + 8};
+  bool live[2];
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf)
+    live[hf] = kj[hf] < S && (M == nullptr || M[kj[hf]] != 0);
+
+  const int n_qt = (S + BCQ - 1) / BCQ;
+  const int qt0 = p.causal ? k0 / BCQ : 0;
+
+  auto issue = [&](int qt, int sg) {
+    const int q0 = qt * BCQ;
+    load_tile<BCQ, D, NT>(q_st(sg), Q, st[SQ + 1], q0, S);
+    load_tile<BCQ, D, NT>(g_st(sg), G, st[SG + 1], q0, S);
+    if (tid < BCQ) {
+      const int qi = q0 + tid;
+      const bool in = qi < S;
+      lse_s[sg][tid] = in ? p.lse[(long long)bh * S + qi] * LOG2E : 0.f;
+      dl_s[sg][tid] = in ? p.delta[(long long)bh * S + qi] : 0.f;
+    }
+  };
+  load_tile<TC_BR, D, NT>(k_s, K, st[SK + 1], k0, S);
+  load_tile<TC_BR, D, NT>(v_s, V, st[SV + 1], k0, S);
+  issue(qt0, 0);                 // k0 < S, so qt0 < n_qt
+  cp_async_commit();
+
+  float dk[D / 2], dv[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dk[i] = dv[i] = 0.f;
+  const float sl2 = p.scale * LOG2E;
+
+  for (int qt = qt0; qt < n_qt; ++qt) {
+    const int sg = (qt - qt0) % TC_STAGES;
+    const int q0 = qt * BCQ;
+    if (qt + 1 < n_qt) issue(qt + 1, (qt + 1 - qt0) % TC_STAGES);
+    cp_async_commit();           // possibly empty: one group per iteration
+    cp_async_wait<1>();          // this thread's copies of tile qt landed
+    fence_proxy_async();
+    __syncthreads();             // ... and everyone else's
+
+    // transposed tiles: rows are this block's keys, columns the queries
+    float s[BCQ / 2], dp[BCQ / 2];
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss(s, desc_k<TC_BR, D>(k_s, kk), desc_k<BCQ, D>(q_st(sg), kk),
+               kk > 0);
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss(dp, desc_k<TC_BR, D>(v_s, kk), desc_k<BCQ, D>(g_st(sg), kk),
+               kk > 0);
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(s);
+    fence_regs(dp);
+
+    // element i: key row r0 + 8 * ((i / 2) % 2), query 8 * (i / 4) + cq
+    // + i % 2. P = 2^(S^T * scale * log2 e - LSE * log2 e). The causal and
+    // range tests are taken only on tiles at an edge (the diagonal, the
+    // ragged end); a dead key row is dead in every tile.
+    const bool edge = q0 + BCQ > S || (p.causal && q0 < k0 + TC_BR - 1);
+#pragma unroll
+    for (int j = 0; j < BCQ / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int ql = 8 * j + cq + e;
+        const int qi = q0 + ql;
+        const float lse2 = lse_s[sg][ql];
+        const float dl = dl_s[sg][ql];
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf) {
+          const int i = 4 * j + 2 * hf + e;
+          const bool alive =
+              live[hf] && (!edge || (qi < S && !(p.causal && qi < kj[hf])));
+          const float pr = ex2(fmaf(s[i], sl2, -lse2));
+          float pd = pr, dpv = dp[i];
+          if constexpr (DROP) {
+            const bool on = kept(p, bh, qi, kj[hf]);
+            pd = on ? pr / p.keep : 0.f;
+            dpv = on ? dpv / p.keep : 0.f;
+          }
+          s[i] = alive ? pd : 0.f;
+          dp[i] = alive ? pr * (dpv - dl) : 0.f;
+        }
+      }
+
+    // Pdrop^T and dS^T (rounded to bf16) as A fragments, 16 queries a k-step
+    uint32_t pa[BCQ / 16][4], da[BCQ / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < BCQ / 16; ++kk)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        pa[kk][r] = pack_bf16(s[8 * kk + 2 * r], s[8 * kk + 2 * r + 1]);
+        da[kk][r] = pack_bf16(dp[8 * kk + 2 * r], dp[8 * kk + 2 * r + 1]);
+      }
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BCQ / 16; ++kk)
+      wgmma_rs(dv, pa[kk], desc_mn<BCQ, D>(g_st(sg), kk), 1);
+#pragma unroll
+    for (int kk = 0; kk < BCQ / 16; ++kk)
+      wgmma_rs(dk, da[kk], desc_mn<BCQ, D>(q_st(sg), kk), 1);
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(dv);
+    fence_regs(dk);
+    __syncthreads();             // stage sg is free for tile qt + 2
+  }
+
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    if (kj[hf] >= S) continue;
+    bf16* rk = DK + (long long)kj[hf] * st[SDK + 1];
+    bf16* rv = DV + (long long)kj[hf] * st[SDV + 1];
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      const int i = 4 * j + 2 * hf;
+      *reinterpret_cast<__nv_bfloat162*>(rk + 8 * j + cq) =
+          __floats2bfloat162_rn(dk[i] * p.scale, dk[i + 1] * p.scale);
+      *reinterpret_cast<__nv_bfloat162*>(rv + 8 * j + cq) =
+          __floats2bfloat162_rn(dv[i], dv[i + 1]);
+    }
+  }
+}
+
+// ----------------------------------------------------------------- launch
+
 template <int D> constexpr int rows_per_block() { return D > 64 ? 32 : 64; }
 
 template <int D, int BR>
@@ -473,15 +676,39 @@ cudaError_t launch_dkv(const Params& p, int B, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+template <int D>
+cudaError_t launch_dkv_tc(const Params& p, int B, cudaStream_t stream) {
+  constexpr int BCQ = tc_cols<D>();
+  constexpr int bytes = dkv_tc_smem_bytes<D>();
+  static std::atomic<unsigned long long> done[2];   // per kernel below
+  void (*kernel)(const Params) = p.dropout_on
+                                     ? bwd_dkv_tc_kernel<D, BCQ, true>
+                                     : bwd_dkv_tc_kernel<D, BCQ, false>;
+  cudaError_t err = opt_in(kernel, bytes, done[p.dropout_on ? 1 : 0]);
+  if (err != cudaSuccess) return err;
+  dim3 grid((p.S + TC_BR - 1) / TC_BR, B * p.H);
+  kernel<<<grid, NT, bytes, stream>>>(p);
+  return cudaGetLastError();
+}
+
+// dK/dV: the tensor-core kernel for bf16, the CUDA-core one for fp32
+template <typename T, int D>
+cudaError_t launch_dkv_any(const Params& p, int B, cudaStream_t stream) {
+  if constexpr (std::is_same<T, __nv_bfloat16>::value)
+    return launch_dkv_tc<D>(p, B, stream);
+  else
+    return launch_dkv<T, D>(p, B, stream);
+}
+
 template <typename T>
 cudaError_t launch_d(bool dkv, const Params& p, int B, int D,
                      cudaStream_t stream) {
   switch (D) {
-    case 32: return dkv ? launch_dkv<T, 32>(p, B, stream)
+    case 32: return dkv ? launch_dkv_any<T, 32>(p, B, stream)
                         : launch_dq<T, 32>(p, B, stream);
-    case 64: return dkv ? launch_dkv<T, 64>(p, B, stream)
+    case 64: return dkv ? launch_dkv_any<T, 64>(p, B, stream)
                         : launch_dq<T, 64>(p, B, stream);
-    case 128: return dkv ? launch_dkv<T, 128>(p, B, stream)
+    case 128: return dkv ? launch_dkv_any<T, 128>(p, B, stream)
                          : launch_dq<T, 128>(p, B, stream);
     default: return cudaErrorInvalidValue;
   }

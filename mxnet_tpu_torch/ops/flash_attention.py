@@ -8,8 +8,12 @@ Mosaic forbids per-head blocks. Here three hand-written CUDA kernels serve
 both layouts: ``csrc/flash_attn_fwd.cu`` (forward) and
 ``csrc/flash_attn_bwd.cu`` (dQ, and dK/dV). Each takes element strides for
 (batch, seq, head), so :func:`flash_attention_bshd` and
-:func:`flash_attention` hand them views of their inputs without a copy. The
-source notes say what bounds each kernel on the H100 and how it is laid out.
+:func:`flash_attention` hand them views of their inputs without a copy
+(views whose rows are not 16-byte aligned are copied first, see
+:func:`_aligned`). bf16 runs the forward and dK/dV on the tensor cores
+(``wgmma``, with ``csrc/hopper_tc.cuh``); fp32, and dQ in both types, on
+the CUDA cores. The source notes say what bounds each kernel on the H100
+and how it is laid out.
 
 Both entry points are differentiable: a ``torch.autograd.Function`` runs the
 forward kernel, saves ``q, k, v, kv_mask, o`` and the ``(B, H, S)``
@@ -229,7 +233,8 @@ def _bsh_strides(x, layout):
 
 def _check(q, k, v, layout):
     """Validate the operands of a kernel; ``(q, k, v, B, H, S, D)`` with k
-    and v in q's type and every head row contiguous."""
+    and v in q's type and every head row contiguous and 16-byte aligned
+    (:func:`_aligned`)."""
     if q.dtype not in SUPPORTED_DTYPES:
         raise TypeError("flash attention kernel takes float32 or bfloat16, "
                         "got %s" % q.dtype)
@@ -247,9 +252,22 @@ def _check(q, k, v, layout):
         B, H, S, D = q.shape
     if D not in SUPPORTED_HEAD_DIMS:
         raise ValueError("head_dim %d not in %s" % (D, SUPPORTED_HEAD_DIMS))
-    # the kernels read each head row as D contiguous elements
-    q, k, v = (x if x.stride(-1) == 1 else x.contiguous() for x in (q, k, v))
+    q, k, v = (_aligned(x) for x in (q, k, v))
     return q, k, v, B, H, S, D
+
+
+def _aligned(x):
+    """``x`` as the kernels read it: every head row D contiguous elements
+    starting on a 16-byte boundary (the base and every stride of a dimension
+    longer than 1 a multiple of 16 bytes), which the bf16 kernels'
+    ``cp.async`` copies need. Any other view is copied into a contiguous
+    tensor: the operand is normalised, and the kernel still runs."""
+    item = x.element_size()
+    if x.stride(-1) == 1 and x.data_ptr() % 16 == 0 and all(
+            st * item % 16 == 0
+            for n, st in zip(x.shape[:-1], x.stride()[:-1]) if n > 1):
+        return x
+    return x.clone(memory_format=torch.contiguous_format)
 
 
 def _mask_arg(kv_mask, B, S, device):
@@ -296,8 +314,7 @@ def _bwd_launch(name, q, k, v, g, lse, delta, kv_mask, seed, causal,
         raise ValueError("output gradient %s on %s does not match q %s on %s"
                          % (tuple(g.shape), g.device, tuple(q.shape),
                             q.device))
-    if g.stride(-1) != 1:
-        g = g.contiguous()
+    g = _aligned(g)
     rows = []
     for what, x in (("lse", lse), ("delta", delta)):
         if tuple(x.shape) != (B, H, S):

@@ -11,7 +11,10 @@ Tolerances: forward fp32 atol/rtol 2e-4 (the kernel sums in another
 order); bf16 2e-2 (P is rounded to bf16 before PV). Backward: the largest
 error at most 2e-4 (fp32) or 2e-2 (bf16) of the largest |value| of each
 gradient (dS and Pdrop are rounded to bf16 before their products, and a
-value that lands on a rounding edge may round the other way).
+value that lands on a rounding edge may round the other way). The bf16
+forward and dK/dV run on the tensor cores (``wgmma``) with the same
+tolerances: their products are bf16 x bf16 with fp32 sums, as the plain
+version's.
 """
 import numpy as np
 import pytest
@@ -125,3 +128,137 @@ def test_cuda_backward_runs_the_kernels(cuda):
                                         g, True, 0.1, "BSHD")
     for name, a, r in zip(("dq", "dk", "dv"), grads, ref):
         _assert_close_to_max(a, r, 2e-4, name)
+
+
+# ------------------------------------------ bf16 forward and dK/dV on wgmma
+
+_EDGES = [63, 64, 65, 77, 130, 200]          # around the 64-row tiles
+
+
+def _bf16_case(cuda, layout, S, D, seed):
+    q, k, v, g, mask = _inputs(cuda, torch.bfloat16, layout, S, D, seed)
+    dropout = 0.1 if S % 2 else 0.0          # dropout where S is ragged
+    return q, k, v, g, mask, dropout
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["BSHD", "BHSD"])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("D", [32, 64, 128])
+@pytest.mark.parametrize("S", _EDGES)
+def test_bf16_forward_at_tile_edges(cuda, layout, causal, D, S):
+    q, k, v, _, mask, dropout = _bf16_case(cuda, layout, S, D, 7 * S + D)
+    fn = tfa.flash_attention_bshd if layout == "BSHD" else tfa.flash_attention
+    out, lse = fn(q, k, v, mask, 5, causal, dropout, return_lse=True)
+    torch.cuda.synchronize()
+    ref, ref_lse = tfa.flash_attention_plain(q, k, v, mask, 5, causal,
+                                             dropout, layout=layout,
+                                             return_lse=True)
+    assert out.dtype == torch.bfloat16 and out.shape == q.shape
+    torch.testing.assert_close(out.float(), ref.float(), atol=2e-2,
+                               rtol=2e-2)
+    torch.testing.assert_close(lse, ref_lse, atol=2e-4, rtol=2e-4)
+    assert bool((out[1] == 0).all())         # the fully masked batch row
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["BSHD", "BHSD"])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("D", [32, 64, 128])
+@pytest.mark.parametrize("S", _EDGES)
+def test_bf16_dkv_at_tile_edges(cuda, layout, causal, D, S):
+    q, k, v, g, mask, dropout = _bf16_case(cuda, layout, S, D, 11 * S + D)
+    fn = tfa.flash_attention_bshd if layout == "BSHD" else tfa.flash_attention
+    o, lse = fn(q, k, v, mask, 5, causal, dropout, return_lse=True)
+    delta = tfa._delta(g, o, layout)
+    dk, dv = tfa.flash_attention_bwd_dkv(q, k, v, g, lse, delta, mask, 5,
+                                         causal, dropout, layout)
+    torch.cuda.synchronize()
+    ref = tfa.flash_attention_bwd_plain(q, k, v, mask, 5, o, lse, g, causal,
+                                        dropout, layout)
+    for name, out, r in (("dk", dk, ref[1]), ("dv", dv, ref[2])):
+        assert out.dtype == torch.bfloat16 and out.shape == q.shape
+        _assert_close_to_max(out, r, 2e-2, name)
+        assert bool((out[1] == 0).all()), name   # the fully masked row
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [32, 64, 128])
+def test_bf16_kernels_on_unaligned_views(cuda, D):
+    # BHSD views whose seq stride (D + 1 elements) and base (one element
+    # in) break the 16-byte rows cp.async needs: the wrappers copy them
+    B, H, S = 2, 3, 100
+    rng = np.random.default_rng(D)
+
+    def view(base_off):
+        n = B * H * S * (D + 1) + base_off
+        flat = torch.from_numpy(rng.standard_normal(n).astype("float32")).to(
+            cuda, torch.bfloat16)
+        return flat[base_off:].view(B, H, S, D + 1)[..., :D]
+
+    q, k, v, g = view(1), view(0), view(3), view(1)
+    assert q.stride(2) == D + 1 and q.data_ptr() % 16 != 0
+    mask = torch.ones((B, S), dtype=torch.int32, device=cuda)
+    mask[:, -7:] = 0
+    out, lse = tfa.flash_attention(q, k, v, mask, None, True, 0.0,
+                                   return_lse=True)
+    delta = tfa._delta(g, out, "BHSD")
+    dk, dv = tfa.flash_attention_bwd_dkv(q, k, v, g, lse, delta, mask, None,
+                                         True, 0.0, "BHSD")
+    torch.cuda.synchronize()
+    ref, ref_lse = tfa.flash_attention_plain(q, k, v, mask, None, True, 0.0,
+                                             layout="BHSD", return_lse=True)
+    torch.testing.assert_close(out.float(), ref.float(), atol=2e-2,
+                               rtol=2e-2)
+    torch.testing.assert_close(lse, ref_lse, atol=2e-4, rtol=2e-4)
+    rb = tfa.flash_attention_bwd_plain(q, k, v, mask, None, out, lse, g,
+                                       True, 0.0, "BHSD")
+    _assert_close_to_max(dk, rb[1], 2e-2, "dk")
+    _assert_close_to_max(dv, rb[2], 2e-2, "dv")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dropout", [0.0, 0.1])
+def test_bf16_dkv_is_deterministic(cuda, dropout):
+    q, k, v, g, mask = _inputs(cuda, torch.bfloat16, "BSHD", 333, 64, 3)
+    o, lse = tfa.flash_attention_bshd(q, k, v, mask, 9, True, dropout,
+                                      return_lse=True)
+    delta = tfa._delta(g, o, "BSHD")
+    args = (q, k, v, g, lse, delta, mask, 9, True, dropout, "BSHD")
+    first = tfa.flash_attention_bwd_dkv(*args)
+    second = tfa.flash_attention_bwd_dkv(*args)
+    o2, lse2 = tfa.flash_attention_bshd(q, k, v, mask, 9, True, dropout,
+                                        return_lse=True)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)             # bitwise: no atomics
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["BSHD", "BHSD"])
+@pytest.mark.parametrize("S,causal,dropout", [
+    (129, True, 0.0), (200, False, 0.1), (257, True, 0.1), (320, False, 0.0)])
+def test_bf16_forward_on_a_large_grid(cuda, layout, S, causal, dropout):
+    # B * H = 288 heads: several blocks on every SM at once, as in
+    # training; both the masked and the unmasked (interior-tile) paths
+    rng = np.random.default_rng(S)
+    B, H, D = 24, 12, 64
+    shape = (B, S, H, D) if layout == "BSHD" else (B, H, S, D)
+    q, k, v = (torch.from_numpy(rng.standard_normal(shape).astype("float32"))
+               .to(cuda, torch.bfloat16) for _ in range(3))
+    mask = torch.from_numpy((rng.random((B, S)) > 0.2).astype("int32"))
+    mask[:, 0] = 1
+    mask[3] = 0                                  # a fully masked batch row
+    mask = mask.to(cuda)
+    fn = tfa.flash_attention_bshd if layout == "BSHD" else tfa.flash_attention
+    for m in (None, mask):
+        out, lse = fn(q, k, v, m, 17, causal, dropout, return_lse=True)
+        torch.cuda.synchronize()
+        ref, ref_lse = tfa.flash_attention_plain(q, k, v, m, 17, causal,
+                                                 dropout, layout=layout,
+                                                 return_lse=True)
+        torch.testing.assert_close(out.float(), ref.float(), atol=2e-2,
+                                   rtol=2e-2)
+        torch.testing.assert_close(lse, ref_lse, atol=2e-4, rtol=2e-4)
+    assert bool((out[3] == 0).all())
