@@ -32,7 +32,9 @@ Builds the package's CUDA kernels from the sources in this checkout
    every parameter gradient to 1e-3 of its largest |value| (fp32 both,
    sums in another order). Two steps with dropout 0.1 under one
    ``random.seed`` are run twice and must give bitwise-equal losses (no
-   atomics anywhere on the path).
+   atomics anywhere on the path), and the bf16 dQ kernel, run twice on the
+   same inputs at the training shape (dropout 0 and 0.1), must give
+   bitwise-equal results.
 3. **Forward kernel phase.** At the serving shapes (B 1, H 12, D 64, S 128
    and 1024; causal with a key mask; both layouts; fp32 and bf16; a
    dropout case in each type) and the training shape (B 32, S 512, causal),
@@ -403,6 +405,7 @@ def train_phase(args, torch):
     if runs[0] != runs[1]:
         fail("dropout steps are not repeatable: %r != %r" % tuple(runs))
     out["dropout_losses"] = runs[0]
+    out["dq_bf16_repeat_dropouts"] = dq_repeat_check(torch)
     if args.profile:
         for dname in ("float32", "bfloat16"):
             tr = trainer(model, None if dname == "float32" else dname)
@@ -413,6 +416,31 @@ def train_phase(args, torch):
     del net, model
     torch.cuda.empty_cache()
     return out
+
+
+def dq_repeat_check(torch):
+    """The bf16 dQ kernel twice on the same inputs at the training shape
+    (B 32, S 512, H 12, D 64, BSHD, causal), without and with dropout 0.1:
+    the results must be bitwise equal (no atomics). Returns the dropout
+    rates checked."""
+    from mxnet_tpu_torch.ops import flash_attention as fa
+    gen = torch.Generator(device="cuda").manual_seed(99)
+    (q, k, v, do), _ = attention_inputs(torch, gen, TRAIN_BATCH, TRAIN_SEQ,
+                                        12, 64, "BSHD", torch.bfloat16, 4,
+                                        False)
+    drops = (0.0, 0.1)
+    for drop in drops:
+        seed = 20240603 if drop else None
+        o, lse = fa.flash_attention_bshd(q, k, v, None, seed, True, drop,
+                                         return_lse=True)
+        args = (q, k, v, do, lse, fa._delta(do, o, "BSHD"), None, seed,
+                True, drop, "BSHD")
+        first = fa.flash_attention_bwd_dq(*args)
+        second = fa.flash_attention_bwd_dq(*args)
+        torch.cuda.synchronize()
+        if not torch.equal(first, second):
+            fail("bf16 dQ is not bitwise repeatable at dropout %s" % drop)
+    return list(drops)
 
 
 def time_ms(torch, fn, iters=20):
@@ -634,12 +662,34 @@ def bwd_phase(torch):
     return cases
 
 
+def kernel_label(mangled):
+    """``bwd_dq_tc_kernel<64,64,0>`` from a mangled instance name (the
+    integer and bool template arguments, ``f32`` for a float one)."""
+    for m in re.finditer(r"\d+", mangled):
+        digits = m.group()       # a length prefix may follow other digits
+        for k in range(len(digits)):
+            end = m.end() + int(digits[k:])
+            name = mangled[m.end():end]
+            if name.endswith("_kernel") and mangled[end:end + 1] == "I":
+                args = mangled[end + 1:mangled.find("EEv", end)]
+                return "%s<%s>" % (name, ",".join(
+                    (["f32"] if args.startswith("f") else [])
+                    + re.findall(r"L[ib](\d+)", args)))
+    return mangled
+
+
 def ptxas_summary(_build, name):
-    log = _build.build_log(name)
-    regs = re.findall(r"Used (\d+) registers", log)
-    spills = re.findall(r"(\d+) bytes spill stores", log)
-    return "%s: ptxas %d kernels, registers %s, spill stores %s" % (
-        name, len(regs), ",".join(regs), ",".join(spills))
+    """``name: kernel<template args> <registers>r/<spill store bytes>s``
+    for every instance that ptxas reported in this process's build."""
+    parts = []
+    for chunk in _build.build_log(name).split("Compiling entry function")[1:]:
+        fn = re.search(r"'(\w+)'", chunk)
+        regs = re.search(r"Used (\d+) registers", chunk)
+        spill = re.search(r"(\d+) bytes spill stores", chunk)
+        parts.append("%s %sr/%ss" % (kernel_label(fn.group(1)) if fn else "?",
+                                     regs.group(1) if regs else "?",
+                                     spill.group(1) if spill else "?"))
+    return "%s: ptxas %d kernels: %s" % (name, len(parts), ", ".join(parts))
 
 
 def kernel_entries(serving, training, fwd_cases, bwd_cases):
@@ -748,9 +798,11 @@ def main():
     pc = training["plain_check"]
     print("training: launches %s; first step vs plain path: loss rel err "
           "%.3g, worst gradient %s at %.3g of its max; dropout losses "
-          "repeat %s" % (training["launches"], pc["loss_rel_err"],
-                         pc["grad_worst_param"], pc["grad_worst_rel_to_max"],
-                         training["dropout_losses"]))
+          "repeat %s; bf16 dQ bitwise repeatable at dropout %s"
+          % (training["launches"], pc["loss_rel_err"],
+             pc["grad_worst_param"], pc["grad_worst_rel_to_max"],
+             training["dropout_losses"],
+             training["dq_bf16_repeat_dropouts"]))
 
     for tag, prof in (("serving burst", serving["profile"]),
                       ("2 fp32 training steps",

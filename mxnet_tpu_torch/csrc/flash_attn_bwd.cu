@@ -1,12 +1,12 @@
 // Flash-attention backward for Hopper (sm_90a): a dQ kernel and a dK/dV
-// kernel, each one source for two layouts.
+// kernel for each operand type, each one source for two layouts.
 //
 // Replaces the four Pallas backward kernels of the JAX package:
 //   mxnet_tpu/ops/pallas_kernels.py  _bshd_bwd_dq_kernel   (head-fused)
 //   mxnet_tpu/ops/pallas_kernels.py  _bshd_bwd_dkv_kernel  (head-fused)
 //   mxnet_tpu/ops/pallas_kernels.py  _attn_bwd_dq_kernel   (per head)
 //   mxnet_tpu/ops/pallas_kernels.py  _attn_bwd_dkv_kernel  (per head)
-// As in flash_attn_fwd.cu, both kernels take element strides for (batch,
+// As in flash_attn_fwd.cu, every kernel takes element strides for (batch,
 // seq, head) of every operand, so the (B,S,H,D) and (B,H,S,D) wrappers pass
 // views without a copy.
 //
@@ -31,7 +31,9 @@
 // No atomics: each block owns its output rows, so the result is
 // deterministic (the training smoke's dropout repeat check relies on it).
 //
-// dK/dV in bf16: bwd_dkv_tc_kernel, on the tensor cores. One warpgroup (128
+// Four kernels, chosen by the operand type in the C entry points:
+//
+// bf16 dK/dV: bwd_dkv_tc_kernel, on the tensor cores. One warpgroup (128
 // threads) per (key tile of 64 rows, b*h), streaming query tiles of BC rows
 // (64; 32 at D 128, where the dK and dV accumulators take 128 registers a
 // thread) from the diagonal on under causal. All four products are wgmma
@@ -49,32 +51,79 @@
 // registers until the end; at D <= 64 the registers are capped so that 3
 // blocks share an SM.
 //
-// dQ (fp32 and bf16) and dK/dV in fp32: bwd_dq_kernel and bwd_dkv_kernel,
-// on the CUDA cores in fp32. dQ: one block of 128 threads per (query tile
-// of BR rows, b*h); it streams key tiles of 64 rows up to the diagonal
-// under causal. dK/dV: one block per (key tile of BR rows, b*h); it streams
-// query tiles of 64 rows from the diagonal on under causal, with dK and dV
-// accumulated in fp32 registers. A block stages its own rows and the
+// bf16 dQ: bwd_dq_tc_kernel, on the tensor cores, the mirror of dK/dV. One
+// warpgroup per (query tile of 64 rows, b*h), heaviest causal tiles first.
+// The Q and dO tiles stay in shared memory (loaded once); K and V tiles of
+// BC keys (64; 32 at D 128) and their live bits (range and key mask)
+// stream through a two-stage cp.async ring up to the diagonal under
+// causal. S = Q K^T and dP = dO V^T are wgmma from shared memory (all
+// K-major); dS comes out in the accumulator fragment, is rounded to bf16 in
+// registers and is the A operand of dQ += dS K, whose B operand is the
+// same K tile read MN-major: no shared-memory round trip. Each thread owns
+// two query rows (16w + l/4 and +8), so their LSE (in log2 units) and delta
+// live in registers. P = 2^(S * scale * log2 e - LSE * log2 e), one FMA
+// and one ex2 an element; the range, causal and key-mask tests run only on
+// tiles at an edge (the ragged end, the diagonal, or any tile under a key
+// mask); dropout is a template flag. dQ stays in D/2 fp32 registers until
+// the end. At D <= 64 the registers are capped (168) so that 3 blocks share
+// an SM: ptxas (CUDA 12.8) gives 154 registers at D 64, 156 with dropout,
+// no spill; 49 KB of shared memory a block at D 64.
+//
+// fp32 dQ: bwd_dq_kernel, on the CUDA cores in fp32. One block of 128
+// threads per (query tile of BR rows, b*h); it streams key tiles of 64 rows
+// up to the diagonal under causal. A block stages its own rows and the
 // streamed tile in shared memory as fp32 with a padded row stride (D+1),
 // recomputes the 8 x 4 scores and dP values each thread owns (rows
-// tr + 8i, columns tc + 16j), writes dS (and Pdrop) to shared memory in
-// the operand type, and accumulates its BR x D outputs (rows tr + 8i,
-// columns tc + 16j). BR is 64 at D <= 64 and 32 at D = 128, which keeps
-// the accumulators at 64 registers or fewer a thread.
+// tr + 8i, columns tc + 16j), writes dS to shared memory, and accumulates
+// its BR x D outputs (rows tr + 8i, columns tc + 16j). BR is 64 at D <= 64
+// and 32 at D = 128, which keeps the accumulators at 64 registers or fewer
+// a thread.
+//
+// fp32 dK/dV: bwd_dkv_f32_kernel, on the CUDA cores in fp32 (no TF32: the
+// reference keeps fp32 products). One block of 128 threads per (key tile
+// of BR rows, b*h) streams query tiles of 32 rows from the diagonal on
+// under causal; BR is 64 at D <= 64 and 32 at D 128. Its pace is set by
+// how many shared-memory load instructions feed each FMA, so every operand
+// is read as float4 into register-blocked micro-tiles (hopper_simt.cuh):
+//   - all tiles are row-major fp32 with a row stride of D + 4 floats (K, V
+//     resident; Q, dO and their LSE and delta rows in a two-stage ring
+//     filled by 16-byte cp.async, tile t+1 in flight while t computes);
+//   - S^T and dP^T: thread (tr, tc) = (t / 8, t % 8) owns keys tr + 16i
+//     and queries tc + 8j (a BR/16 x 4 micro-tile of each) and reads 4
+//     consecutive d of each row as one float4: at D 64, 8 loads for 128
+//     FMAs; a quarter-warp reads one K/V row (broadcast) and 8 Q/dO rows
+//     on 8 distinct bank groups;
+//   - dV += Pdrop^T dO and dK += dS^T Q: thread (t / (D/4), t % (D/4)) owns
+//     keys and 4 consecutive columns of dK and dV (BR * D / 512 keys: 8
+//     at D 64) and reads 4 consecutive queries of its Pdrop^T and dS^T
+//     rows and one float4 of 4 Q/dO rows: at D 64, 24 loads for 256 FMAs.
+//   So the two inner loops do 8 and 10.7 FMAs an LDS.128 at D 64 (5.3 and
+//   10.7 at D 128, 8 and 8 at D 32).
+// Pdrop^T and dS^T go through shared memory (row stride 40 floats, so the
+// element-wise writes hit distinct banks): the second pair of products
+// contracts over all 32 queries of a tile, of which each thread computed
+// only 4 in the first, and keeping whole rows in registers would take 8x
+// the registers. The element-wise step is the bf16 kernels': ex2 in log2
+// units (ex2.approx, ~2 ulp, far inside the 2e-4 tolerance), the query
+// range and causal tests on edge tiles only, the key tests as a per-thread
+// bit mask, dropout as a template flag. Shared memory: 90,112 bytes a
+// block at D 64 (2 blocks an SM), 111,616 at D 128 (2), 57,344 at D 32 (3).
+// Registers (ptxas, CUDA 12.8): 232 at D 64 (246 with dropout), 220 at
+// D 128, 168 at D 32, no spill; 2 blocks an SM fit both limits at D 64.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
 
 #include <atomic>
-#include <type_traits>
 
+#include "hopper_simt.cuh"
 #include "hopper_tc.cuh"
 
 namespace {
 
 constexpr int NT = 128;          // threads per block
-constexpr int BC = 64;           // rows of the streamed tile
-constexpr int CN = BC / 16;      // streamed-tile columns per thread
+constexpr int BC = 64;           // rows of the fp32 dQ kernel's key tile
+constexpr int CN = BC / 16;      // key-tile columns per thread (fp32 dQ)
 
 // element strides (batch, seq, head) of q, k, v, dO, dQ, dK, dV
 enum { SQ = 0, SK = 3, SV = 6, SG = 9, SDQ = 12, SDK = 15, SDV = 18,
@@ -102,18 +151,12 @@ struct Params {
   uint32_t seed;
 };
 
+// the CUDA-core dQ kernel runs fp32 only; bf16 goes to the tensor cores
 __device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 
 template <typename T> __device__ __forceinline__ T from_f(float x);
 template <> __device__ __forceinline__ float from_f<float>(float x) {
   return x;
-}
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(
-    float x) {
-  return __float2bfloat16(x);
 }
 
 template <typename T> __device__ __forceinline__ float operand(float x) {
@@ -282,26 +325,50 @@ __global__ void __launch_bounds__(NT) bwd_dq_kernel(const Params p) {
   }
 }
 
-template <typename T, int D, int BR>
-__global__ void __launch_bounds__(NT) bwd_dkv_kernel(const Params p) {
-  constexpr int LD = D + 1;
-  constexpr int LP = BC + 1;
-  constexpr int RM = BR / 8;     // key rows per thread
-  constexpr int DN = D / 16;     // dK/dV columns per thread
-  extern __shared__ float smem[];
-  float* k_s = smem;             // BR x LD
-  float* v_s = k_s + BR * LD;    // BR x LD
-  float* q_s = v_s + BR * LD;    // BC x LD
-  float* g_s = q_s + BC * LD;    // BC x LD
-  float* pd_s = g_s + BC * LD;   // BR x LP, Pdrop^T in the operand type
-  float* ds_s = pd_s + BR * LP;  // BR x LP, dS^T in the operand type
-  __shared__ float lse_s[BC];
-  __shared__ float dl_s[BC];
-  __shared__ int q_ok[BC];
+// ------------------------------------------- dK/dV in fp32, CUDA cores
+
+constexpr int F_BC = 32;         // queries per streamed tile
+constexpr int F_STAGES = 2;      // Q/dO ring depth
+constexpr int F_LP = F_BC + 8;   // row stride of pd_s and ds_s (floats)
+
+// keys per block (a variable, so that device code may read it)
+template <int D> constexpr int F32_ROWS = D > 64 ? 32 : 64;
+
+template <int D>
+constexpr int dkv_f32_smem_bytes() {
+  // K, V; the Q/dO ring; Pdrop^T and dS^T
+  return 2 * simt::RowTile<F32_ROWS<D>, D>::BYTES +
+         2 * F_STAGES * simt::RowTile<F_BC, D>::BYTES +
+         2 * F32_ROWS<D> * F_LP * (int)sizeof(float);
+}
+
+template <int D, bool DROP>
+__global__ void __launch_bounds__(NT, 2) bwd_dkv_f32_kernel(const Params p) {
+  using simt::ld4;
+  using simt::dot4;
+  using simt::at;
+  constexpr int BR = F32_ROWS<D>;
+  constexpr int LD = simt::RowTile<BR, D>::LD;
+  constexpr int TILE = simt::RowTile<F_BC, D>::FLOATS;
+  constexpr int RM = BR / 16;    // S^T, dP^T: keys per thread (x 4 queries)
+  constexpr int TC2 = D / 4;     // dK, dV: threads across D, 4 columns each
+  constexpr int TR2 = NT / TC2;
+  constexpr int RM2 = BR / TR2;  // dK, dV: keys per thread
+  static_assert(F_BC / 8 == 4 && RM2 >= 1, "micro-tiles");
+  extern __shared__ float4 smem4[];
+  float* k_s = reinterpret_cast<float*>(smem4);
+  float* v_s = k_s + simt::RowTile<BR, D>::FLOATS;
+  float* ring = v_s + simt::RowTile<BR, D>::FLOATS;
+  float* pd_s = ring + 2 * F_STAGES * TILE;   // Pdrop^T, BR x F_LP
+  float* ds_s = pd_s + BR * F_LP;             // dS^T, BR x F_LP
+  __shared__ float lse_s[F_STAGES][F_BC];     // LSE * log2 e
+  __shared__ float dl_s[F_STAGES][F_BC];
 
   const int tid = threadIdx.x;
-  const int tr = tid >> 4;
-  const int tc = tid & 15;
+  const int tr = tid >> 3;       // S^T, dP^T: keys tr + 16i
+  const int tc = tid & 7;        //            queries tc + 8j
+  const int orow = tid / TC2;    // dK, dV: keys orow + TR2 * i
+  const int ocol = 4 * (tid % TC2);   //     columns ocol .. ocol + 3
   const int kt = blockIdx.x;     // causal: tile 0 streams the most q tiles
   const int bh = blockIdx.y;
   const int b = bh / p.H;
@@ -310,152 +377,338 @@ __global__ void __launch_bounds__(NT) bwd_dkv_kernel(const Params p) {
   const int S = p.S;
   const long long* st = p.st;
 
-  const T* Q = static_cast<const T*>(p.q) + b * st[SQ] + h * st[SQ + 2];
-  const T* K = static_cast<const T*>(p.k) + b * st[SK] + h * st[SK + 2];
-  const T* V = static_cast<const T*>(p.v) + b * st[SV] + h * st[SV + 2];
-  const T* G = static_cast<const T*>(p.g) + b * st[SG] + h * st[SG + 2];
-  T* DK = static_cast<T*>(p.dk) + b * st[SDK] + h * st[SDK + 2];
-  T* DV = static_cast<T*>(p.dv) + b * st[SDV] + h * st[SDV + 2];
+  const float* Q = static_cast<const float*>(p.q) + b * st[SQ] +
+                   h * st[SQ + 2];
+  const float* K = static_cast<const float*>(p.k) + b * st[SK] +
+                   h * st[SK + 2];
+  const float* V = static_cast<const float*>(p.v) + b * st[SV] +
+                   h * st[SV + 2];
+  const float* G = static_cast<const float*>(p.g) + b * st[SG] +
+                   h * st[SG + 2];
+  float* DK = static_cast<float*>(p.dk) + b * st[SDK] + h * st[SDK + 2];
+  float* DV = static_cast<float*>(p.dv) + b * st[SDV] + h * st[SDV + 2];
   const int32_t* M = p.mask ? p.mask + b * p.mask_sb : nullptr;
 
-  stage<T, D, BR>(k_s, K, st[SK + 1], k0, S);
-  stage<T, D, BR>(v_s, V, st[SV + 1], k0, S);
-  uint32_t key_live = 0;         // bit i: key row tr + 8i is in range, unmasked
+  uint32_t live = 0;             // bit i: key tr + 16i is in range, unmasked
 #pragma unroll
   for (int i = 0; i < RM; ++i) {
-    const int kj = k0 + tr + 8 * i;
-    if (kj < S && (M == nullptr || M[kj] != 0)) key_live |= 1u << i;
+    const int kj = k0 + tr + 16 * i;
+    if (kj < S && (M == nullptr || M[kj] != 0)) live |= 1u << i;
   }
 
-  float acc_k[RM][DN], acc_v[RM][DN];
-#pragma unroll
-  for (int i = 0; i < RM; ++i)
-#pragma unroll
-    for (int j = 0; j < DN; ++j) acc_k[i][j] = acc_v[i][j] = 0.f;
+  const int n_qt = (S + F_BC - 1) / F_BC;
+  const int qt0 = p.causal ? k0 / F_BC : 0;
 
-  const int n_qt = (S + BC - 1) / BC;
-  const int qt0 = p.causal ? k0 / BC : 0;
-
-  for (int qt = qt0; qt < n_qt; ++qt) {
-    const int q0 = qt * BC;
-    __syncthreads();             // last tile's reads of q_s/g_s/pd_s/ds_s
-    stage<T, D, BC>(q_s, Q, st[SQ + 1], q0, S);
-    stage<T, D, BC>(g_s, G, st[SG + 1], q0, S);
-    if (tid < BC) {
+  auto issue = [&](int qt, int sg) {
+    const int q0 = qt * F_BC;
+    simt::load_rows<F_BC, D, NT>(ring + 2 * sg * TILE, Q, st[SQ + 1], q0, S);
+    simt::load_rows<F_BC, D, NT>(ring + (2 * sg + 1) * TILE, G, st[SG + 1],
+                                 q0, S);
+    if (tid < F_BC) {
       const int qi = q0 + tid;
       const bool in = qi < S;
-      q_ok[tid] = in;
-      lse_s[tid] = in ? p.lse[(long long)bh * S + qi] : 0.f;
-      dl_s[tid] = in ? p.delta[(long long)bh * S + qi] : 0.f;
+      lse_s[sg][tid] =
+          in ? p.lse[(long long)bh * S + qi] * hopper::LOG2E : 0.f;
+      dl_s[sg][tid] = in ? p.delta[(long long)bh * S + qi] : 0.f;
     }
-    __syncthreads();
+  };
+  simt::load_rows<BR, D, NT>(k_s, K, st[SK + 1], k0, S);
+  simt::load_rows<BR, D, NT>(v_s, V, st[SV + 1], k0, S);
+  issue(qt0, 0);                 // k0 < S, so qt0 < n_qt
+  hopper::cp_async_commit();
+
+  float dk[RM2][4], dv[RM2][4];
+#pragma unroll
+  for (int i = 0; i < RM2; ++i)
+#pragma unroll
+    for (int u = 0; u < 4; ++u) dk[i][u] = dv[i][u] = 0.f;
+  const float sl2 = p.scale * hopper::LOG2E;
+
+  for (int qt = qt0; qt < n_qt; ++qt) {
+    const int sg = (qt - qt0) % F_STAGES;
+    const int q0 = qt * F_BC;
+    if (qt + 1 < n_qt) issue(qt + 1, (qt + 1 - qt0) % F_STAGES);
+    hopper::cp_async_commit();   // possibly empty: one group per iteration
+    hopper::cp_async_wait<1>();  // this thread's copies of tile qt landed
+    __syncthreads();             // ... and everyone else's
+    const float* q_s = ring + 2 * sg * TILE;
+    const float* g_s = q_s + TILE;
 
     // transposed tiles: rows are this block's keys, columns the queries
-    float s[RM][CN], dp[RM][CN];
+    float s[RM][4], dp[RM][4];
 #pragma unroll
     for (int i = 0; i < RM; ++i)
 #pragma unroll
-      for (int j = 0; j < CN; ++j) s[i][j] = dp[i][j] = 0.f;
-#pragma unroll 2
-    for (int d = 0; d < D; ++d) {
-      float kv[RM], vv[RM], qv[CN], gv[CN];
+      for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
+#pragma unroll 4
+    for (int d = 0; d < D; d += 4) {
+      float4 a[RM], c[4];
 #pragma unroll
-      for (int i = 0; i < RM; ++i) {
-        kv[i] = k_s[(tr + 8 * i) * LD + d];
-        vv[i] = v_s[(tr + 8 * i) * LD + d];
-      }
+      for (int i = 0; i < RM; ++i) a[i] = ld4(k_s + (tr + 16 * i) * LD + d);
 #pragma unroll
-      for (int j = 0; j < CN; ++j) {
-        qv[j] = q_s[(tc + 16 * j) * LD + d];
-        gv[j] = g_s[(tc + 16 * j) * LD + d];
-      }
+      for (int j = 0; j < 4; ++j) c[j] = ld4(q_s + (tc + 8 * j) * LD + d);
 #pragma unroll
       for (int i = 0; i < RM; ++i)
 #pragma unroll
-        for (int j = 0; j < CN; ++j) {
-          s[i][j] = fmaf(kv[i], qv[j], s[i][j]);
-          dp[i][j] = fmaf(vv[i], gv[j], dp[i][j]);
-        }
+        for (int j = 0; j < 4; ++j) s[i][j] = dot4(a[i], c[j], s[i][j]);
+#pragma unroll
+      for (int i = 0; i < RM; ++i) a[i] = ld4(v_s + (tr + 16 * i) * LD + d);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) c[j] = ld4(g_s + (tc + 8 * j) * LD + d);
+#pragma unroll
+      for (int i = 0; i < RM; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) dp[i][j] = dot4(a[i], c[j], dp[i][j]);
     }
 
+    // P = 2^(S^T * scale * log2 e - LSE * log2 e). The query range and
+    // causal tests are taken only on tiles at an edge (the diagonal, the
+    // ragged end); a dead key is dead in every tile.
+    const bool edge = q0 + F_BC > S || (p.causal && q0 < k0 + BR - 1);
 #pragma unroll
-    for (int i = 0; i < RM; ++i) {
-      const int kj = k0 + tr + 8 * i;
+    for (int j = 0; j < 4; ++j) {
+      const int ql = tc + 8 * j;
+      const int qi = q0 + ql;
+      const float lse2 = lse_s[sg][ql];
+      const float dl = dl_s[sg][ql];
 #pragma unroll
-      for (int j = 0; j < CN; ++j) {
-        const int ql = tc + 16 * j;
-        const int qi = q0 + ql;
-        float pd = 0.f, ds = 0.f;
-        if (((key_live >> i) & 1u) && q_ok[ql] && !(p.causal && qi < kj)) {
-          const float pr = expf(s[i][j] * p.scale - lse_s[ql]);
-          float dpv = dp[i][j];
-          pd = pr;
-          if (p.dropout_on) {
-            const bool on = kept(p, bh, qi, kj);
-            pd = on ? pr / p.keep : 0.f;
-            dpv = on ? dpv / p.keep : 0.f;
-          }
-          ds = pr * (dpv - dl_s[ql]);
+      for (int i = 0; i < RM; ++i) {
+        const int kl = tr + 16 * i;
+        const bool alive = ((live >> i) & 1u) &&
+                           (!edge || (qi < S && !(p.causal && qi < k0 + kl)));
+        const float pr = hopper::ex2(fmaf(s[i][j], sl2, -lse2));
+        float pd = pr, dpv = dp[i][j];
+        if constexpr (DROP) {
+          const bool on = kept(p, bh, qi, k0 + kl);
+          pd = on ? pr / p.keep : 0.f;
+          dpv = on ? dpv / p.keep : 0.f;
         }
-        pd_s[(tr + 8 * i) * LP + ql] = operand<T>(pd);
-        ds_s[(tr + 8 * i) * LP + ql] = operand<T>(ds);
+        pd_s[kl * F_LP + ql] = alive ? pd : 0.f;
+        ds_s[kl * F_LP + ql] = alive ? pr * (dpv - dl) : 0.f;
       }
     }
     __syncthreads();
 
 #pragma unroll 2
-    for (int qq = 0; qq < BC; ++qq) {
-      float pr[RM], dr[RM], gr[DN], qr[DN];
+    for (int qq = 0; qq < F_BC; qq += 4) {
+      float4 a[RM2], c[4];
 #pragma unroll
-      for (int i = 0; i < RM; ++i) {
-        pr[i] = pd_s[(tr + 8 * i) * LP + qq];
-        dr[i] = ds_s[(tr + 8 * i) * LP + qq];
-      }
+      for (int i = 0; i < RM2; ++i)
+        a[i] = ld4(pd_s + (orow + TR2 * i) * F_LP + qq);
 #pragma unroll
-      for (int j = 0; j < DN; ++j) {
-        gr[j] = g_s[qq * LD + tc + 16 * j];
-        qr[j] = q_s[qq * LD + tc + 16 * j];
-      }
+      for (int u = 0; u < 4; ++u) c[u] = ld4(g_s + (qq + u) * LD + ocol);
 #pragma unroll
-      for (int i = 0; i < RM; ++i)
+      for (int u = 0; u < 4; ++u)
 #pragma unroll
-        for (int j = 0; j < DN; ++j) {
-          acc_v[i][j] = fmaf(pr[i], gr[j], acc_v[i][j]);
-          acc_k[i][j] = fmaf(dr[i], qr[j], acc_k[i][j]);
+        for (int i = 0; i < RM2; ++i) {
+          const float x = at(a[i], u);
+          dv[i][0] = fmaf(x, c[u].x, dv[i][0]);
+          dv[i][1] = fmaf(x, c[u].y, dv[i][1]);
+          dv[i][2] = fmaf(x, c[u].z, dv[i][2]);
+          dv[i][3] = fmaf(x, c[u].w, dv[i][3]);
+        }
+#pragma unroll
+      for (int i = 0; i < RM2; ++i)
+        a[i] = ld4(ds_s + (orow + TR2 * i) * F_LP + qq);
+#pragma unroll
+      for (int u = 0; u < 4; ++u) c[u] = ld4(q_s + (qq + u) * LD + ocol);
+#pragma unroll
+      for (int u = 0; u < 4; ++u)
+#pragma unroll
+        for (int i = 0; i < RM2; ++i) {
+          const float x = at(a[i], u);
+          dk[i][0] = fmaf(x, c[u].x, dk[i][0]);
+          dk[i][1] = fmaf(x, c[u].y, dk[i][1]);
+          dk[i][2] = fmaf(x, c[u].z, dk[i][2]);
+          dk[i][3] = fmaf(x, c[u].w, dk[i][3]);
         }
     }
+    __syncthreads();             // stage sg is free for tile qt + 2
   }
 
 #pragma unroll
-  for (int i = 0; i < RM; ++i) {
-    const int kj = k0 + tr + 8 * i;
+  for (int i = 0; i < RM2; ++i) {
+    const int kj = k0 + orow + TR2 * i;
     if (kj >= S) continue;
-#pragma unroll
-    for (int j = 0; j < DN; ++j) {
-      DK[(long long)kj * st[SDK + 1] + tc + 16 * j] =
-          from_f<T>(acc_k[i][j] * p.scale);
-      DV[(long long)kj * st[SDV + 1] + tc + 16 * j] = from_f<T>(acc_v[i][j]);
-    }
+    *reinterpret_cast<float4*>(DK + (long long)kj * st[SDK + 1] + ocol) =
+        make_float4(dk[i][0] * p.scale, dk[i][1] * p.scale,
+                    dk[i][2] * p.scale, dk[i][3] * p.scale);
+    *reinterpret_cast<float4*>(DV + (long long)kj * st[SDV + 1] + ocol) =
+        make_float4(dv[i][0], dv[i][1], dv[i][2], dv[i][3]);
   }
 }
 
+// ------------------------------------- dQ and dK/dV in bf16, tensor cores
 
-// ------------------------------------------- dK/dV in bf16, tensor cores
+constexpr int TC_BR = 64;        // rows of the block's own tile (wgmma's M)
+constexpr int TC_STAGES = 2;     // ring depth of the streamed tiles
 
-constexpr int TC_BR = 64;        // key rows per block (wgmma's M)
-constexpr int TC_STAGES = 2;     // Q/dO ring depth
-
+// rows of the streamed tile (wgmma's N in S and dP)
 template <int D> constexpr int tc_cols() { return D > 64 ? 32 : 64; }
 
 // at D <= 64 the registers are capped (at 168) for 3 blocks an SM: a few
-// registers more drop the main-path instance to 2 blocks and ~15% speed
+// registers more drop the main-path dK/dV instance to 2 blocks and ~15%
+// speed
 template <int D> constexpr int tc_min_blocks() { return D > 64 ? 1 : 3; }
 
+// the block's two resident tiles, the ring of two streamed tiles a stage,
+// and 1024 bytes to align the tiles by hand (dQ: Q, dO resident, K/V
+// streamed; dK/dV: K, V resident, Q/dO streamed)
 template <int D>
-constexpr int dkv_tc_smem_bytes() {
-  // K, V; the Q/dO ring; and 1024 bytes to align the tiles by hand
+constexpr int tc_smem_bytes() {
   return 2 * hopper::Tile<TC_BR, D>::BYTES +
          2 * TC_STAGES * hopper::Tile<tc_cols<D>(), D>::BYTES + 1024;
+}
+
+template <int D, int BCK, bool DROP>
+__global__ void __launch_bounds__(NT, tc_min_blocks<D>())
+    bwd_dq_tc_kernel(const Params p) {
+  using namespace hopper;
+  using QT = Tile<TC_BR, D>;
+  using KT = Tile<BCK, D>;
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ int key_ok[TC_STAGES][BCK];    // key in range and unmasked
+  const uint32_t q_s = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t g_s = q_s + QT::BYTES;
+  const uint32_t ring = g_s + QT::BYTES;
+  auto k_st = [&](int sg) { return ring + 2 * sg * KT::BYTES; };
+  auto v_st = [&](int sg) { return ring + (2 * sg + 1) * KT::BYTES; };
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int r0 = 16 * (tid >> 5) + (lane >> 2);   // query rows r0, r0 + 8
+  const int cq = 2 * (lane & 3);                  // columns cq, cq + 1 of 8
+  const int qt = gridDim.x - 1 - blockIdx.x;      // heaviest causal tiles first
+  const int bh = blockIdx.y;
+  const int b = bh / p.H;
+  const int h = bh - b * p.H;
+  const int q0 = qt * TC_BR;
+  const int S = p.S;
+  const long long* st = p.st;
+
+  typedef __nv_bfloat16 bf16;
+  const bf16* Q = static_cast<const bf16*>(p.q) + b * st[SQ] + h * st[SQ + 2];
+  const bf16* K = static_cast<const bf16*>(p.k) + b * st[SK] + h * st[SK + 2];
+  const bf16* V = static_cast<const bf16*>(p.v) + b * st[SV] + h * st[SV + 2];
+  const bf16* G = static_cast<const bf16*>(p.g) + b * st[SG] + h * st[SG + 2];
+  bf16* DQ = static_cast<bf16*>(p.dq) + b * st[SDQ] + h * st[SDQ + 2];
+  const int32_t* M = p.mask ? p.mask + b * p.mask_sb : nullptr;
+
+  int n_kt = (S + BCK - 1) / BCK;
+  if (p.causal) n_kt = min(n_kt, (q0 + TC_BR - 1) / BCK + 1);
+
+  auto issue = [&](int kt, int sg) {
+    const int k0 = kt * BCK;
+    load_tile<BCK, D, NT>(k_st(sg), K, st[SK + 1], k0, S);
+    load_tile<BCK, D, NT>(v_st(sg), V, st[SV + 1], k0, S);
+    if (tid < BCK) {
+      const int kj = k0 + tid;
+      key_ok[sg][tid] = kj < S && (M == nullptr || M[kj] != 0);
+    }
+  };
+  load_tile<TC_BR, D, NT>(q_s, Q, st[SQ + 1], q0, S);
+  load_tile<TC_BR, D, NT>(g_s, G, st[SG + 1], q0, S);
+  issue(0, 0);
+  cp_async_commit();
+
+  const int qi[2] = {q0 + r0, q0 + r0 + 8};
+  float lse2[2], dl[2];          // LSE * log2 e and delta of the two rows
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    const bool in = qi[hf] < S;
+    lse2[hf] = in ? p.lse[(long long)bh * S + qi[hf]] * LOG2E : 0.f;
+    dl[hf] = in ? p.delta[(long long)bh * S + qi[hf]] : 0.f;
+  }
+  float dq[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dq[i] = 0.f;
+  const float sl2 = p.scale * LOG2E;
+
+  for (int kt = 0; kt < n_kt; ++kt) {
+    const int sg = kt % TC_STAGES;
+    const int k0 = kt * BCK;
+    if (kt + 1 < n_kt) issue(kt + 1, (kt + 1) % TC_STAGES);
+    cp_async_commit();           // possibly empty: one group per iteration
+    cp_async_wait<1>();          // this thread's copies of tile kt landed
+    fence_proxy_async();
+    __syncthreads();             // ... and everyone else's
+
+    float s[BCK / 2], dp[BCK / 2];
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss(s, desc_k<TC_BR, D>(q_s, kk), desc_k<BCK, D>(k_st(sg), kk),
+               kk > 0);
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss(dp, desc_k<TC_BR, D>(g_s, kk), desc_k<BCK, D>(v_st(sg), kk),
+               kk > 0);
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(s);
+    fence_regs(dp);
+
+    // element i: query row r0 + 8 * ((i / 2) % 2), key 8 * (i / 4) + cq
+    // + i % 2. The key and causal tests are taken only on tiles at an
+    // edge: the ragged end, the causal diagonal, or a key mask.
+    const bool edge = k0 + BCK > S || M != nullptr ||
+                      (p.causal && k0 + BCK - 1 > q0);
+    uint32_t ok = 0;             // bit 2j + e: key 8j + cq + e is live
+    if (edge) {
+#pragma unroll
+      for (int j = 0; j < BCK / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+          ok |= (uint32_t)(key_ok[sg][8 * j + cq + e] != 0) << (2 * j + e);
+    }
+#pragma unroll
+    for (int j = 0; j < BCK / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int kj = k0 + 8 * j + cq + e;
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf) {
+          const int i = 4 * j + 2 * hf + e;
+          const bool alive =
+              !edge || (((ok >> (2 * j + e)) & 1u) &&
+                        !(p.causal && qi[hf] < kj));
+          const float pr = ex2(fmaf(s[i], sl2, -lse2[hf]));
+          float dpv = dp[i];
+          if constexpr (DROP)
+            dpv = kept(p, bh, qi[hf], kj) ? dpv / p.keep : 0.f;
+          dp[i] = alive ? pr * (dpv - dl[hf]) : 0.f;
+        }
+      }
+
+    // dS (rounded to bf16) as A fragments, 16 keys a k-step; B is the same
+    // K tile, MN-major
+    uint32_t da[BCK / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < BCK / 16; ++kk)
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+        da[kk][r] = pack_bf16(dp[8 * kk + 2 * r], dp[8 * kk + 2 * r + 1]);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BCK / 16; ++kk)
+      wgmma_rs(dq, da[kk], desc_mn<BCK, D>(k_st(sg), kk), 1);
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(dq);
+    __syncthreads();             // stage sg is free for tile kt + 2
+  }
+
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    if (qi[hf] >= S) continue;
+    bf16* row = DQ + (long long)qi[hf] * st[SDQ + 1];
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      const int i = 4 * j + 2 * hf;
+      *reinterpret_cast<__nv_bfloat162*>(row + 8 * j + cq) =
+          __floats2bfloat162_rn(dq[i] * p.scale, dq[i + 1] * p.scale);
+    }
+  }
 }
 
 template <int D, int BCQ, bool DROP>
@@ -628,12 +881,6 @@ constexpr int dq_smem_bytes() {
          (int)sizeof(float);
 }
 
-template <int D, int BR>
-constexpr int dkv_smem_bytes() {
-  return (2 * BR * (D + 1) + 2 * BC * (D + 1) + 2 * BR * (BC + 1)) *
-         (int)sizeof(float);
-}
-
 // above 48 KB a block's dynamic shared memory needs an opt-in, once per
 // device and kernel (one bit each), so a launch can also be captured in a
 // CUDA graph
@@ -652,66 +899,66 @@ cudaError_t opt_in(Kernel kernel, int bytes,
   return err;
 }
 
-template <typename T, int D>
-cudaError_t launch_dq(const Params& p, int B, cudaStream_t stream) {
-  constexpr int BR = rows_per_block<D>();
-  constexpr int bytes = dq_smem_bytes<D, BR>();
-  static std::atomic<unsigned long long> done{0};
-  cudaError_t err = opt_in(bwd_dq_kernel<T, D, BR>, bytes, done);
+// one kernel of a (dropout-free, dropout) pair of instances over a grid of
+// (tiles of `rows` rows, B * H)
+template <int bytes>
+cudaError_t launch_pair(void (*plain)(const Params), void (*drop)(const Params),
+                        std::atomic<unsigned long long> (&done)[2], int rows,
+                        const Params& p, int B, cudaStream_t stream) {
+  void (*kernel)(const Params) = p.dropout_on ? drop : plain;
+  cudaError_t err = opt_in(kernel, bytes, done[p.dropout_on ? 1 : 0]);
   if (err != cudaSuccess) return err;
-  dim3 grid((p.S + BR - 1) / BR, B * p.H);
-  bwd_dq_kernel<T, D, BR><<<grid, NT, bytes, stream>>>(p);
+  dim3 grid((p.S + rows - 1) / rows, B * p.H);
+  kernel<<<grid, NT, bytes, stream>>>(p);
   return cudaGetLastError();
 }
 
-template <typename T, int D>
-cudaError_t launch_dkv(const Params& p, int B, cudaStream_t stream) {
+template <int D>
+cudaError_t launch_dq_f32(const Params& p, int B, cudaStream_t stream) {
   constexpr int BR = rows_per_block<D>();
-  constexpr int bytes = dkv_smem_bytes<D, BR>();
+  constexpr int bytes = dq_smem_bytes<D, BR>();
   static std::atomic<unsigned long long> done{0};
-  cudaError_t err = opt_in(bwd_dkv_kernel<T, D, BR>, bytes, done);
+  cudaError_t err = opt_in(bwd_dq_kernel<float, D, BR>, bytes, done);
   if (err != cudaSuccess) return err;
   dim3 grid((p.S + BR - 1) / BR, B * p.H);
-  bwd_dkv_kernel<T, D, BR><<<grid, NT, bytes, stream>>>(p);
+  bwd_dq_kernel<float, D, BR><<<grid, NT, bytes, stream>>>(p);
   return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch_dkv_f32(const Params& p, int B, cudaStream_t stream) {
+  static std::atomic<unsigned long long> done[2];
+  return launch_pair<dkv_f32_smem_bytes<D>()>(
+      bwd_dkv_f32_kernel<D, false>, bwd_dkv_f32_kernel<D, true>, done,
+      F32_ROWS<D>, p, B, stream);
+}
+
+template <int D>
+cudaError_t launch_dq_tc(const Params& p, int B, cudaStream_t stream) {
+  constexpr int BCK = tc_cols<D>();
+  static std::atomic<unsigned long long> done[2];
+  return launch_pair<tc_smem_bytes<D>()>(
+      bwd_dq_tc_kernel<D, BCK, false>, bwd_dq_tc_kernel<D, BCK, true>, done,
+      TC_BR, p, B, stream);
 }
 
 template <int D>
 cudaError_t launch_dkv_tc(const Params& p, int B, cudaStream_t stream) {
   constexpr int BCQ = tc_cols<D>();
-  constexpr int bytes = dkv_tc_smem_bytes<D>();
-  static std::atomic<unsigned long long> done[2];   // per kernel below
-  void (*kernel)(const Params) = p.dropout_on
-                                     ? bwd_dkv_tc_kernel<D, BCQ, true>
-                                     : bwd_dkv_tc_kernel<D, BCQ, false>;
-  cudaError_t err = opt_in(kernel, bytes, done[p.dropout_on ? 1 : 0]);
-  if (err != cudaSuccess) return err;
-  dim3 grid((p.S + TC_BR - 1) / TC_BR, B * p.H);
-  kernel<<<grid, NT, bytes, stream>>>(p);
-  return cudaGetLastError();
+  static std::atomic<unsigned long long> done[2];
+  return launch_pair<tc_smem_bytes<D>()>(
+      bwd_dkv_tc_kernel<D, BCQ, false>, bwd_dkv_tc_kernel<D, BCQ, true>, done,
+      TC_BR, p, B, stream);
 }
 
-// dK/dV: the tensor-core kernel for bf16, the CUDA-core one for fp32
-template <typename T, int D>
-cudaError_t launch_dkv_any(const Params& p, int B, cudaStream_t stream) {
-  if constexpr (std::is_same<T, __nv_bfloat16>::value)
-    return launch_dkv_tc<D>(p, B, stream);
-  else
-    return launch_dkv<T, D>(p, B, stream);
-}
-
-template <typename T>
-cudaError_t launch_d(bool dkv, const Params& p, int B, int D,
+// bf16 on the tensor cores, fp32 on the CUDA cores; no other path
+template <int D>
+cudaError_t launch_d(bool dkv, bool bf16, const Params& p, int B,
                      cudaStream_t stream) {
-  switch (D) {
-    case 32: return dkv ? launch_dkv_any<T, 32>(p, B, stream)
-                        : launch_dq<T, 32>(p, B, stream);
-    case 64: return dkv ? launch_dkv_any<T, 64>(p, B, stream)
-                        : launch_dq<T, 64>(p, B, stream);
-    case 128: return dkv ? launch_dkv_any<T, 128>(p, B, stream)
-                         : launch_dq<T, 128>(p, B, stream);
-    default: return cudaErrorInvalidValue;
-  }
+  if (bf16)
+    return dkv ? launch_dkv_tc<D>(p, B, stream) : launch_dq_tc<D>(p, B, stream);
+  return dkv ? launch_dkv_f32<D>(p, B, stream)
+             : launch_dq_f32<D>(p, B, stream);
 }
 
 int launch(bool dkv, const void* q, const void* k, const void* v,
@@ -734,9 +981,13 @@ int launch(bool dkv, const void* q, const void* k, const void* v,
   p.scale = scale; p.causal = causal; p.dropout_on = dropout_on;
   p.keep = keep; p.thresh = thresh; p.seed = seed;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err = is_bf16 ? launch_d<__nv_bfloat16>(dkv, p, B, D, st)
-                            : launch_d<float>(dkv, p, B, D, st);
-  return (int)err;
+  const bool bf16 = is_bf16 != 0;
+  switch (D) {
+    case 32: return (int)launch_d<32>(dkv, bf16, p, B, st);
+    case 64: return (int)launch_d<64>(dkv, bf16, p, B, st);
+    case 128: return (int)launch_d<128>(dkv, bf16, p, B, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace

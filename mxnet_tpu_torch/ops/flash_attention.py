@@ -10,10 +10,10 @@ both layouts: ``csrc/flash_attn_fwd.cu`` (forward) and
 (batch, seq, head), so :func:`flash_attention_bshd` and
 :func:`flash_attention` hand them views of their inputs without a copy
 (views whose rows are not 16-byte aligned are copied first, see
-:func:`_aligned`). bf16 runs the forward and dK/dV on the tensor cores
-(``wgmma``, with ``csrc/hopper_tc.cuh``); fp32, and dQ in both types, on
-the CUDA cores. The source notes say what bounds each kernel on the H100
-and how it is laid out.
+:func:`_aligned`). bf16 runs all three on the tensor cores (``wgmma``,
+with ``csrc/hopper_tc.cuh``); fp32 runs them on the CUDA cores (the dK/dV
+kernel with float4 micro-tiles from ``csrc/hopper_simt.cuh``). The source
+notes say what bounds each kernel on the H100 and how it is laid out.
 
 Both entry points are differentiable: a ``torch.autograd.Function`` runs the
 forward kernel, saves ``q, k, v, kv_mask, o`` and the ``(B, H, S)``

@@ -4,7 +4,9 @@
 is held against ``jax.vjp`` of the Pallas kernels run in interpret mode, as
 ``tests/test_pallas.py`` runs them: both recompute P from the forward's
 logsumexp in fp32 and differ only in summation order, hence atol/rtol 1e-4.
-The dropout case injects the same int32 seed into both. The
+The dropout case injects the same int32 seed into both. Two cases feed both
+the same bf16 inputs: the bf16 twin is what the card holds the bf16 dQ and
+dK/dV kernels against (tolerance at ``BF16_TOL``). The
 ``autograd.Function`` behind both entry points is held against
 ``torch.autograd`` through ``flash_attention_plain`` on CPU tensors. The
 kernels themselves are held against the plain backward on the card by
@@ -23,6 +25,11 @@ from mxnet_tpu_torch.ops import flash_attention as tfa
 torch.set_num_threads(1)
 
 ATOL = RTOL = 1e-4
+# bf16: both sides round dS, Pdrop and the gradients to bf16 and sum in
+# fp32 in another order, so a value on a bf16 rounding edge may move by one
+# bf16 ulp (2^-8, 3.9e-3 of its own size): the largest error is held to
+# 1e-2 of each gradient's largest |value|
+BF16_TOL = 1e-2
 B, S, H = 2, 128, 2
 SEED = -987654321
 
@@ -48,21 +55,24 @@ def _layout(xs, layout):
     return [_bhsd(x) for x in xs] if layout == "BHSD" else list(xs)
 
 
-def _jax_grads(layout, q, k, v, g, mask, seed, causal, dropout):
+def _jax_grads(layout, q, k, v, g, mask, seed, causal, dropout,
+               dtype=jnp.float32):
     fn = flash_attention_bshd if layout == "BSHD" else flash_attention
     m = None if mask is None else jnp.asarray(mask)
     s = None if seed is None else jnp.int32(seed)
+    q, k, v, g = (jnp.asarray(x, dtype=dtype) for x in (q, k, v, g))
     _, vjp = jax.vjp(lambda a, b, c: fn(a, b, c, m, s, causal, dropout, True),
-                     jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
-    return [np.asarray(x) for x in vjp(jnp.asarray(g))]
+                     q, k, v)
+    return [np.asarray(x.astype(jnp.float32)) for x in vjp(g)]
 
 
-def _port_grads(layout, q, k, v, g, mask, seed, causal, dropout):
-    q, k, v, g = (torch.from_numpy(x) for x in (q, k, v, g))
+def _port_grads(layout, q, k, v, g, mask, seed, causal, dropout,
+                dtype=torch.float32):
+    q, k, v, g = (torch.from_numpy(x).to(dtype) for x in (q, k, v, g))
     m = None if mask is None else torch.from_numpy(mask)
     o, lse = tfa.flash_attention_plain(q, k, v, m, seed, causal, dropout,
                                        layout=layout, return_lse=True)
-    return [x.numpy() for x in tfa.flash_attention_bwd_plain(
+    return [x.float().numpy() for x in tfa.flash_attention_bwd_plain(
         q, k, v, m, seed, o, lse, g, causal, dropout, layout)]
 
 
@@ -84,6 +94,23 @@ def test_plain_backward_matches_pallas(layout, D, variant, dropout):
         np.testing.assert_allclose(a, r, atol=ATOL, rtol=RTOL, err_msg=name)
         if variant == "masked_row":           # no live key: zero gradients
             assert np.all(a[B - 1] == 0.0), name
+
+
+# two more interpret-mode runs, in bf16 (the Pallas kernels take bf16
+# operands and sum in fp32, as the port's twin does)
+@pytest.mark.parametrize("layout,D,variant", [
+    ("BSHD", 64, "causal"), ("BHSD", 32, "mask")])
+def test_plain_backward_matches_pallas_in_bf16(layout, D, variant):
+    q, k, v, g, mask = _inputs(D + len(variant), D, variant)
+    causal = variant != "mask"
+    args = _layout((q, k, v, g), layout) + [mask, None, causal, 0.0]
+    ref = _jax_grads(layout, *args, dtype=jnp.bfloat16)
+    out = _port_grads(layout, *args, dtype=torch.bfloat16)
+    for name, a, r in zip(("dq", "dk", "dv"), out, ref):
+        err = np.abs(a - r).max()
+        top = np.abs(r).max()
+        assert err <= BF16_TOL * top, "%s: max err %g, max |ref| %g" % (
+            name, err, top)
 
 
 @pytest.mark.parametrize("dropout", [0.0, 0.3])

@@ -12,9 +12,10 @@ order); bf16 2e-2 (P is rounded to bf16 before PV). Backward: the largest
 error at most 2e-4 (fp32) or 2e-2 (bf16) of the largest |value| of each
 gradient (dS and Pdrop are rounded to bf16 before their products, and a
 value that lands on a rounding edge may round the other way). The bf16
-forward and dK/dV run on the tensor cores (``wgmma``) with the same
+forward, dQ and dK/dV run on the tensor cores (``wgmma``) with the same
 tolerances: their products are bf16 x bf16 with fp32 sums, as the plain
-version's.
+version's. The fp32 dK/dV kernel takes ``ex2.approx`` (~2 ulp) for exp,
+far inside 2e-4.
 """
 import numpy as np
 import pytest
@@ -130,7 +131,7 @@ def test_cuda_backward_runs_the_kernels(cuda):
         _assert_close_to_max(a, r, 2e-4, name)
 
 
-# ------------------------------------------ bf16 forward and dK/dV on wgmma
+# ------------------------------------- bf16 forward, dQ and dK/dV on wgmma
 
 _EDGES = [63, 64, 65, 77, 130, 200]          # around the 64-row tiles
 
@@ -161,25 +162,62 @@ def test_bf16_forward_at_tile_edges(cuda, layout, causal, D, S):
     assert bool((out[1] == 0).all())         # the fully masked batch row
 
 
+def _grads_at_edge(cuda, dtype, tol, part, layout, causal, D, S, seed):
+    """One backward kernel (``part`` "dq" or "dkv") against the plain
+    backward; dropout where S is odd; batch row 1 fully masked."""
+    q, k, v, g, mask = _inputs(cuda, dtype, layout, S, D, seed)
+    dropout = 0.1 if S % 2 else 0.0
+    fn = tfa.flash_attention_bshd if layout == "BSHD" else tfa.flash_attention
+    o, lse = fn(q, k, v, mask, 5, causal, dropout, return_lse=True)
+    delta = tfa._delta(g, o, layout)
+    args = (q, k, v, g, lse, delta, mask, 5, causal, dropout, layout)
+    if part == "dq":
+        outs = (("dq", tfa.flash_attention_bwd_dq(*args), 0),)
+    else:
+        dk, dv = tfa.flash_attention_bwd_dkv(*args)
+        outs = (("dk", dk, 1), ("dv", dv, 2))
+    torch.cuda.synchronize()
+    ref = tfa.flash_attention_bwd_plain(q, k, v, mask, 5, o, lse, g, causal,
+                                        dropout, layout)
+    for name, out, i in outs:
+        assert out.dtype == dtype and out.shape == q.shape
+        _assert_close_to_max(out, ref[i], tol, name)
+        assert bool((out[1] == 0).all()), name   # the fully masked row
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("layout", ["BSHD", "BHSD"])
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("D", [32, 64, 128])
 @pytest.mark.parametrize("S", _EDGES)
 def test_bf16_dkv_at_tile_edges(cuda, layout, causal, D, S):
-    q, k, v, g, mask, dropout = _bf16_case(cuda, layout, S, D, 11 * S + D)
-    fn = tfa.flash_attention_bshd if layout == "BSHD" else tfa.flash_attention
-    o, lse = fn(q, k, v, mask, 5, causal, dropout, return_lse=True)
-    delta = tfa._delta(g, o, layout)
-    dk, dv = tfa.flash_attention_bwd_dkv(q, k, v, g, lse, delta, mask, 5,
-                                         causal, dropout, layout)
-    torch.cuda.synchronize()
-    ref = tfa.flash_attention_bwd_plain(q, k, v, mask, 5, o, lse, g, causal,
-                                        dropout, layout)
-    for name, out, r in (("dk", dk, ref[1]), ("dv", dv, ref[2])):
-        assert out.dtype == torch.bfloat16 and out.shape == q.shape
-        _assert_close_to_max(out, r, 2e-2, name)
-        assert bool((out[1] == 0).all()), name   # the fully masked row
+    _grads_at_edge(cuda, torch.bfloat16, 2e-2, "dkv", layout, causal, D, S,
+                   11 * S + D)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["BSHD", "BHSD"])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("D", [32, 64, 128])
+@pytest.mark.parametrize("S", _EDGES)
+def test_bf16_dq_at_tile_edges(cuda, layout, causal, D, S):
+    _grads_at_edge(cuda, torch.bfloat16, 2e-2, "dq", layout, causal, D, S,
+                   13 * S + D)
+
+
+# the fp32 dK/dV kernel streams 32-query tiles past 64-key blocks (32 at
+# D 128)
+_F32_EDGES = [31, 32, 33, 63, 64, 65, 97, 130]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["BSHD", "BHSD"])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("D", [32, 64, 128])
+@pytest.mark.parametrize("S", _F32_EDGES)
+def test_fp32_dkv_at_tile_edges(cuda, layout, causal, D, S):
+    _grads_at_edge(cuda, torch.float32, 2e-4, "dkv", layout, causal, D, S,
+                   17 * S + D)
 
 
 @pytest.mark.cuda
@@ -203,6 +241,8 @@ def test_bf16_kernels_on_unaligned_views(cuda, D):
     out, lse = tfa.flash_attention(q, k, v, mask, None, True, 0.0,
                                    return_lse=True)
     delta = tfa._delta(g, out, "BHSD")
+    dq = tfa.flash_attention_bwd_dq(q, k, v, g, lse, delta, mask, None, True,
+                                    0.0, "BHSD")
     dk, dv = tfa.flash_attention_bwd_dkv(q, k, v, g, lse, delta, mask, None,
                                          True, 0.0, "BHSD")
     torch.cuda.synchronize()
@@ -213,23 +253,31 @@ def test_bf16_kernels_on_unaligned_views(cuda, D):
     torch.testing.assert_close(lse, ref_lse, atol=2e-4, rtol=2e-4)
     rb = tfa.flash_attention_bwd_plain(q, k, v, mask, None, out, lse, g,
                                        True, 0.0, "BHSD")
+    _assert_close_to_max(dq, rb[0], 2e-2, "dq")
     _assert_close_to_max(dk, rb[1], 2e-2, "dk")
     _assert_close_to_max(dv, rb[2], 2e-2, "dv")
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dropout", [0.0, 0.1])
-def test_bf16_dkv_is_deterministic(cuda, dropout):
-    q, k, v, g, mask = _inputs(cuda, torch.bfloat16, "BSHD", 333, 64, 3)
+@pytest.mark.parametrize("dtype,part", [(torch.bfloat16, "dkv"),
+                                        (torch.bfloat16, "dq"),
+                                        (torch.float32, "dkv")])
+def test_backward_kernels_are_deterministic(cuda, dtype, part, dropout):
+    q, k, v, g, mask = _inputs(cuda, dtype, "BSHD", 333, 64, 3)
     o, lse = tfa.flash_attention_bshd(q, k, v, mask, 9, True, dropout,
                                       return_lse=True)
     delta = tfa._delta(g, o, "BSHD")
     args = (q, k, v, g, lse, delta, mask, 9, True, dropout, "BSHD")
-    first = tfa.flash_attention_bwd_dkv(*args)
-    second = tfa.flash_attention_bwd_dkv(*args)
+    kern = tfa.flash_attention_bwd_dq if part == "dq" else \
+        tfa.flash_attention_bwd_dkv
+    first = kern(*args)
+    second = kern(*args)
     o2, lse2 = tfa.flash_attention_bshd(q, k, v, mask, 9, True, dropout,
                                         return_lse=True)
     torch.cuda.synchronize()
+    if part == "dq":
+        first, second = (first,), (second,)
     for a, b in zip(first, second):
         assert torch.equal(a, b)             # bitwise: no atomics
     assert torch.equal(o, o2) and torch.equal(lse, lse2)
