@@ -32,19 +32,20 @@ Builds the package's CUDA kernels from the sources in this checkout
    every parameter gradient to 1e-3 of its largest |value| (fp32 both,
    sums in another order). Two steps with dropout 0.1 under one
    ``random.seed`` are run twice and must give bitwise-equal losses (no
-   atomics anywhere on the path), and the bf16 dQ kernel, run twice on the
-   same inputs at the training shape (dropout 0 and 0.1), must give
-   bitwise-equal results.
+   atomics anywhere on the path), and the dQ kernel, run twice on the same
+   inputs at the training shape (fp32 and bf16, dropout 0 and 0.1), must
+   give bitwise-equal results.
 3. **Forward kernel phase.** At the serving shapes (B 1, H 12, D 64, S 128
    and 1024; causal with a key mask; both layouts; fp32 and bf16; a
-   dropout case in each type) and the training shape (B 32, S 512, causal),
-   each kernel call is held against ``flash_attention_plain`` on the card
-   (fp32 atol/rtol 2e-4: sums in another order; bf16 2e-2: P is rounded to
-   bf16 before PV) and timed with CUDA events, beside the plain version and
-   ``torch.nn.functional.scaled_dot_product_attention`` (the yardstick only;
-   the package never calls it): with ``is_causal=True`` and no mask where
-   the case has no key mask, so that SDPA can take its flash backend, and
-   with the same boolean mask where it has one.
+   dropout case in each type), at B 8, S 512 with D 32 and D 128 (fp32,
+   BSHD, causal with a key mask) and at the training shape (B 32, S 512,
+   causal), each kernel call is held against ``flash_attention_plain`` on
+   the card (fp32 atol/rtol 2e-4: sums in another order; bf16 2e-2: P is
+   rounded to bf16 before PV) and timed with CUDA events, beside the plain
+   version and ``torch.nn.functional.scaled_dot_product_attention`` (the
+   yardstick only; the package never calls it): with ``is_causal=True`` and
+   no mask where the case has no key mask, so that SDPA can take its flash
+   backend, and with the same boolean mask where it has one.
 4. **Backward kernel phase.** At B 8, S 512, H 12, D 64, causal with a key
    mask (both layouts, fp32 and bf16, a dropout case in each type, D 32 and
    D 128 cases in each type) and at the training shape (B 32, S 512,
@@ -405,7 +406,7 @@ def train_phase(args, torch):
     if runs[0] != runs[1]:
         fail("dropout steps are not repeatable: %r != %r" % tuple(runs))
     out["dropout_losses"] = runs[0]
-    out["dq_bf16_repeat_dropouts"] = dq_repeat_check(torch)
+    out["dq_repeat_dropouts"] = dq_repeat_check(torch)
     if args.profile:
         for dname in ("float32", "bfloat16"):
             tr = trainer(model, None if dname == "float32" else dname)
@@ -419,27 +420,29 @@ def train_phase(args, torch):
 
 
 def dq_repeat_check(torch):
-    """The bf16 dQ kernel twice on the same inputs at the training shape
-    (B 32, S 512, H 12, D 64, BSHD, causal), without and with dropout 0.1:
-    the results must be bitwise equal (no atomics). Returns the dropout
-    rates checked."""
+    """The fp32 and the bf16 dQ kernel twice on the same inputs at the
+    training shape (B 32, S 512, H 12, D 64, BSHD, causal), without and
+    with dropout 0.1: the results must be bitwise equal (no atomics).
+    Returns the dropout rates checked."""
     from mxnet_tpu_torch.ops import flash_attention as fa
     gen = torch.Generator(device="cuda").manual_seed(99)
-    (q, k, v, do), _ = attention_inputs(torch, gen, TRAIN_BATCH, TRAIN_SEQ,
-                                        12, 64, "BSHD", torch.bfloat16, 4,
-                                        False)
     drops = (0.0, 0.1)
-    for drop in drops:
-        seed = 20240603 if drop else None
-        o, lse = fa.flash_attention_bshd(q, k, v, None, seed, True, drop,
-                                         return_lse=True)
-        args = (q, k, v, do, lse, fa._delta(do, o, "BSHD"), None, seed,
-                True, drop, "BSHD")
-        first = fa.flash_attention_bwd_dq(*args)
-        second = fa.flash_attention_bwd_dq(*args)
-        torch.cuda.synchronize()
-        if not torch.equal(first, second):
-            fail("bf16 dQ is not bitwise repeatable at dropout %s" % drop)
+    for dt in (torch.float32, torch.bfloat16):
+        (q, k, v, do), _ = attention_inputs(torch, gen, TRAIN_BATCH,
+                                            TRAIN_SEQ, 12, 64, "BSHD", dt, 4,
+                                            False)
+        for drop in drops:
+            seed = 20240603 if drop else None
+            o, lse = fa.flash_attention_bshd(q, k, v, None, seed, True, drop,
+                                             return_lse=True)
+            args = (q, k, v, do, lse, fa._delta(do, o, "BSHD"), None, seed,
+                    True, drop, "BSHD")
+            first = fa.flash_attention_bwd_dq(*args)
+            second = fa.flash_attention_bwd_dq(*args)
+            torch.cuda.synchronize()
+            if not torch.equal(first, second):
+                fail("%s dQ is not bitwise repeatable at dropout %s"
+                     % (dt, drop))
     return list(drops)
 
 
@@ -530,15 +533,16 @@ def kernel_phase(torch):
     from mxnet_tpu_torch.ops import flash_attention as fa
     g = torch.Generator(device="cuda").manual_seed(1234)
     cases = []
-    H, D = 12, 64
-    specs = [(1, S, layout, dt, 0.0, True) for S in (128, 1024)
+    H = 12
+    specs = [(1, S, 64, layout, dt, 0.0, True) for S in (128, 1024)
              for layout in ("BSHD", "BHSD")
              for dt in (torch.float32, torch.bfloat16)]
-    specs += [(1, 1024, "BSHD", dt, 0.1, True)
+    specs += [(1, 1024, 64, "BSHD", dt, 0.1, True)
               for dt in (torch.float32, torch.bfloat16)]
-    specs += [(TRAIN_BATCH, TRAIN_SEQ, "BSHD", dt, 0.0, False)
+    specs += [(8, 512, D, "BSHD", torch.float32, 0.0, True) for D in (32, 128)]
+    specs += [(TRAIN_BATCH, TRAIN_SEQ, 64, "BSHD", dt, 0.0, False)
               for dt in (torch.float32, torch.bfloat16)]
-    for B, S, layout, dt, drop, masked in specs:
+    for B, S, D, layout, dt, drop, masked in specs:
         (q, k, v), mask = attention_inputs(torch, g, B, S, H, D, layout, dt,
                                            3, masked)
         fn = fa.flash_attention_bshd if layout == "BSHD" else \
@@ -551,8 +555,8 @@ def kernel_phase(torch):
         tol = 2e-4 if dt == torch.float32 else 2e-2
         err = (out.float() - ref.float()).abs().max().item()
         if not torch.allclose(out.float(), ref.float(), atol=tol, rtol=tol):
-            fail("kernel != plain: B=%d S=%d %s %s dropout=%s max_err=%g"
-                 % (B, S, layout, dt, drop, err))
+            fail("kernel != plain: B=%d S=%d D=%d %s %s dropout=%s "
+                 "max_err=%g" % (B, S, D, layout, dt, drop, err))
         ms = time_ms(torch, lambda: fn(q, k, v, mask, seed, True, drop))
         dev_ms = graph_ms(torch, lambda: fn(q, k, v, mask, seed, True, drop))
         plain_ms = time_ms(torch, lambda: fa.flash_attention_plain(
@@ -798,11 +802,11 @@ def main():
     pc = training["plain_check"]
     print("training: launches %s; first step vs plain path: loss rel err "
           "%.3g, worst gradient %s at %.3g of its max; dropout losses "
-          "repeat %s; bf16 dQ bitwise repeatable at dropout %s"
+          "repeat %s; fp32 and bf16 dQ bitwise repeatable at dropout %s"
           % (training["launches"], pc["loss_rel_err"],
              pc["grad_worst_param"], pc["grad_worst_rel_to_max"],
              training["dropout_losses"],
-             training["dq_bf16_repeat_dropouts"]))
+             training["dq_repeat_dropouts"]))
 
     for tag, prof in (("serving burst", serving["profile"]),
                       ("2 fp32 training steps",
@@ -823,12 +827,13 @@ def main():
     for c in fwd_cases:
         lib = "-" if c["library_ms"] is None else "%.4f ms (graph %.4f)" % (
             c["library_ms"], c["library_graph_ms"])
-        print("kernel fwd: B=%-2d S=%-5d %s %-8s dropout=%.1f  %.4f ms "
-              "(graph %.4f)  plain %.4f ms  library %s  bound %.4f ms (%s)  "
-              "max_err %.3g" % (c["B"], c["S"], c["layout"], c["dtype"],
-                                c["dropout"], c["ms"], c["graph_ms"],
-                                c["plain_ms"], lib, c["bound_ms"],
-                                c["bound_by"], c["max_abs_err"]))
+        print("kernel fwd: B=%-2d S=%-5d D=%-3d %s %-8s dropout=%.1f  %.4f "
+              "ms (graph %.4f)  plain %.4f ms  library %s  bound %.4f ms "
+              "(%s)  max_err %.3g" % (c["B"], c["S"], c["D"], c["layout"],
+                                      c["dtype"], c["dropout"], c["ms"],
+                                      c["graph_ms"], c["plain_ms"], lib,
+                                      c["bound_ms"], c["bound_by"],
+                                      c["max_abs_err"]))
     bwd_cases = bwd_phase(torch)
     for c in bwd_cases:
         lib = "-" if c["library_bwd_ms"] is None else \

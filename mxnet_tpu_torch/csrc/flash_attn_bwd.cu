@@ -31,7 +31,8 @@
 // No atomics: each block owns its output rows, so the result is
 // deterministic (the training smoke's dropout repeat check relies on it).
 //
-// Four kernels, chosen by the operand type in the C entry points:
+// Four kernels, one for each (operand type, pass), chosen in the C entry
+// points:
 //
 // bf16 dK/dV: bwd_dkv_tc_kernel, on the tensor cores. One warpgroup (128
 // threads) per (key tile of 64 rows, b*h), streaming query tiles of BC rows
@@ -69,15 +70,26 @@
 // an SM: ptxas (CUDA 12.8) gives 154 registers at D 64, 156 with dropout,
 // no spill; 49 KB of shared memory a block at D 64.
 //
-// fp32 dQ: bwd_dq_kernel, on the CUDA cores in fp32. One block of 128
-// threads per (query tile of BR rows, b*h); it streams key tiles of 64 rows
-// up to the diagonal under causal. A block stages its own rows and the
-// streamed tile in shared memory as fp32 with a padded row stride (D+1),
-// recomputes the 8 x 4 scores and dP values each thread owns (rows
-// tr + 8i, columns tc + 16j), writes dS to shared memory, and accumulates
-// its BR x D outputs (rows tr + 8i, columns tc + 16j). BR is 64 at D <= 64
-// and 32 at D = 128, which keeps the accumulators at 64 registers or fewer
-// a thread.
+// fp32 dQ: bwd_dq_f32_kernel, on the CUDA cores in fp32 (no TF32), the
+// mirror of fp32 dK/dV below. One block of 128 threads per (query tile of
+// BR rows, b*h), heaviest causal tiles first; BR is 64 at D <= 64 and 32 at
+// D 128. Q and dO are resident row tiles (stride D + 4, 16-byte cp.async)
+// with each row's LSE * log2 e and delta in registers; K and V tiles of 32
+// keys and their per-key live bits (in range, unmasked) stream through a
+// two-stage cp.async ring up to the diagonal under causal, tile t+1 in
+// flight while t computes. S = Q K^T and dP = dO V^T are float4 micro-tiles
+// (thread (t / 8, t % 8) owns queries tr + 16i and keys tc + 8j: at D 64, 8
+// FMAs an LDS.128). dS goes to shared memory
+// transposed, key-major with a row stride of BR + 4 floats: the
+// element-wise writes hit distinct banks, and dQ += dS K reads 4 queries of
+// one key as a float4 (each thread owns 4 consecutive dQ columns of BR * D
+// / 512 queries, whole quads: at D 64, 3 loads for 32 FMAs, 10.7 an
+// LDS.128). Where it fits (BR <= D) dS^T takes the V stage of its own tile,
+// dead once dP is computed, at the cost of one more barrier: 69,632 bytes a
+// block at D 64 (3 blocks an SM; its own buffer would take 79,872 and give
+// 2). The element-wise step is the other kernels': ex2 in log2 units, the
+// causal test on diagonal tiles only, the key tests as a bit mask, dropout
+// as a template flag; query rows past S are computed but never written.
 //
 // fp32 dK/dV: bwd_dkv_f32_kernel, on the CUDA cores in fp32 (no TF32: the
 // reference keeps fp32 products). One block of 128 threads per (key tile
@@ -118,12 +130,11 @@
 
 #include "hopper_simt.cuh"
 #include "hopper_tc.cuh"
+#include "launch.cuh"
 
 namespace {
 
 constexpr int NT = 128;          // threads per block
-constexpr int BC = 64;           // rows of the fp32 dQ kernel's key tile
-constexpr int CN = BC / 16;      // key-tile columns per thread (fp32 dQ)
 
 // element strides (batch, seq, head) of q, k, v, dO, dQ, dK, dV
 enum { SQ = 0, SK = 3, SV = 6, SG = 9, SDQ = 12, SDK = 15, SDV = 18,
@@ -151,18 +162,6 @@ struct Params {
   uint32_t seed;
 };
 
-// the CUDA-core dQ kernel runs fp32 only; bf16 goes to the tensor cores
-__device__ __forceinline__ float to_f(float x) { return x; }
-
-template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ float from_f<float>(float x) {
-  return x;
-}
-
-template <typename T> __device__ __forceinline__ float operand(float x) {
-  return to_f(from_f<T>(x));
-}
-
 __device__ __forceinline__ uint32_t lowbias32(uint32_t x) {
   x ^= x >> 16;
   x *= 0x7FEB352Du;
@@ -180,158 +179,14 @@ __device__ __forceinline__ bool kept(const Params& p, int bh, int qi,
   return lowbias32(c) < p.thresh;
 }
 
-// rows [r0, r0 + R) of one head of x into s (fp32, row stride D + 1);
-// rows past S are 0
-template <typename T, int D, int R>
-__device__ __forceinline__ void stage(float* s, const T* x, long long ss,
-                                      int r0, int S) {
-  for (int i = threadIdx.x; i < R * D; i += NT) {
-    const int r = i / D, d = i - (i / D) * D;
-    const int row = r0 + r;
-    s[r * (D + 1) + d] = row < S ? to_f(x[(long long)row * ss + d]) : 0.f;
-  }
-}
+// ----------------------------------------- fp32 on the CUDA cores: dQ, dK/dV
 
-template <typename T, int D, int BR>
-__global__ void __launch_bounds__(NT) bwd_dq_kernel(const Params p) {
-  constexpr int LD = D + 1;
-  constexpr int LP = BC + 1;
-  constexpr int RM = BR / 8;     // query rows per thread
-  constexpr int DN = D / 16;     // dQ columns per thread
-  extern __shared__ float smem[];
-  float* q_s = smem;             // BR x LD
-  float* g_s = q_s + BR * LD;    // BR x LD
-  float* k_s = g_s + BR * LD;    // BC x LD
-  float* v_s = k_s + BC * LD;    // BC x LD
-  float* ds_s = v_s + BC * LD;   // BR x LP, dS in the operand type
-  __shared__ int key_ok[BC];
+constexpr int F_BC = 32;         // rows per streamed tile (dK/dV: queries)
+constexpr int F_STAGES = 2;      // ring depth of the streamed tiles
+constexpr int F_LP = F_BC + 8;   // row stride of dK/dV's pd_s, ds_s (floats)
 
-  const int tid = threadIdx.x;
-  const int tr = tid >> 4;
-  const int tc = tid & 15;
-  const int qt = gridDim.x - 1 - blockIdx.x;   // heaviest causal tiles first
-  const int bh = blockIdx.y;
-  const int b = bh / p.H;
-  const int h = bh - b * p.H;
-  const int q0 = qt * BR;
-  const int S = p.S;
-  const long long* st = p.st;
-
-  const T* Q = static_cast<const T*>(p.q) + b * st[SQ] + h * st[SQ + 2];
-  const T* K = static_cast<const T*>(p.k) + b * st[SK] + h * st[SK + 2];
-  const T* V = static_cast<const T*>(p.v) + b * st[SV] + h * st[SV + 2];
-  const T* G = static_cast<const T*>(p.g) + b * st[SG] + h * st[SG + 2];
-  T* DQ = static_cast<T*>(p.dq) + b * st[SDQ] + h * st[SDQ + 2];
-  const int32_t* M = p.mask ? p.mask + b * p.mask_sb : nullptr;
-
-  stage<T, D, BR>(q_s, Q, st[SQ + 1], q0, S);
-  stage<T, D, BR>(g_s, G, st[SG + 1], q0, S);
-  float lse_r[RM], dl_r[RM];
-#pragma unroll
-  for (int i = 0; i < RM; ++i) {
-    const int qi = q0 + tr + 8 * i;
-    lse_r[i] = qi < S ? p.lse[(long long)bh * S + qi] : 0.f;
-    dl_r[i] = qi < S ? p.delta[(long long)bh * S + qi] : 0.f;
-  }
-
-  float acc[RM][DN];
-#pragma unroll
-  for (int i = 0; i < RM; ++i)
-#pragma unroll
-    for (int j = 0; j < DN; ++j) acc[i][j] = 0.f;
-
-  int n_kt = (S + BC - 1) / BC;
-  if (p.causal) n_kt = min(n_kt, (q0 + BR - 1) / BC + 1);
-
-  for (int kt = 0; kt < n_kt; ++kt) {
-    const int k0 = kt * BC;
-    __syncthreads();             // last tile's reads of k_s/v_s/ds_s are done
-    stage<T, D, BC>(k_s, K, st[SK + 1], k0, S);
-    stage<T, D, BC>(v_s, V, st[SV + 1], k0, S);
-    if (tid < BC) {
-      const int kj = k0 + tid;
-      key_ok[tid] = kj < S && (M == nullptr || M[kj] != 0);
-    }
-    __syncthreads();
-
-    float s[RM][CN], dp[RM][CN];
-#pragma unroll
-    for (int i = 0; i < RM; ++i)
-#pragma unroll
-      for (int j = 0; j < CN; ++j) s[i][j] = dp[i][j] = 0.f;
-#pragma unroll 2
-    for (int d = 0; d < D; ++d) {
-      float qv[RM], gv[RM], kv[CN], vv[CN];
-#pragma unroll
-      for (int i = 0; i < RM; ++i) {
-        qv[i] = q_s[(tr + 8 * i) * LD + d];
-        gv[i] = g_s[(tr + 8 * i) * LD + d];
-      }
-#pragma unroll
-      for (int j = 0; j < CN; ++j) {
-        kv[j] = k_s[(tc + 16 * j) * LD + d];
-        vv[j] = v_s[(tc + 16 * j) * LD + d];
-      }
-#pragma unroll
-      for (int i = 0; i < RM; ++i)
-#pragma unroll
-        for (int j = 0; j < CN; ++j) {
-          s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
-          dp[i][j] = fmaf(gv[i], vv[j], dp[i][j]);
-        }
-    }
-
-#pragma unroll
-    for (int i = 0; i < RM; ++i) {
-      const int qi = q0 + tr + 8 * i;
-#pragma unroll
-      for (int j = 0; j < CN; ++j) {
-        const int kl = tc + 16 * j;
-        const int kj = k0 + kl;
-        float ds = 0.f;
-        if (key_ok[kl] && !(p.causal && qi < kj)) {
-          const float pr = expf(s[i][j] * p.scale - lse_r[i]);
-          float dpv = dp[i][j];
-          if (p.dropout_on) dpv = kept(p, bh, qi, kj) ? dpv / p.keep : 0.f;
-          ds = pr * (dpv - dl_r[i]);
-        }
-        ds_s[(tr + 8 * i) * LP + kl] = operand<T>(ds);
-      }
-    }
-    __syncthreads();
-
-#pragma unroll 4
-    for (int kk = 0; kk < BC; ++kk) {
-      float dr[RM], kr[DN];
-#pragma unroll
-      for (int i = 0; i < RM; ++i) dr[i] = ds_s[(tr + 8 * i) * LP + kk];
-#pragma unroll
-      for (int j = 0; j < DN; ++j) kr[j] = k_s[kk * LD + tc + 16 * j];
-#pragma unroll
-      for (int i = 0; i < RM; ++i)
-#pragma unroll
-        for (int j = 0; j < DN; ++j) acc[i][j] = fmaf(dr[i], kr[j], acc[i][j]);
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < RM; ++i) {
-    const int qi = q0 + tr + 8 * i;
-    if (qi >= S) continue;
-#pragma unroll
-    for (int j = 0; j < DN; ++j)
-      DQ[(long long)qi * st[SDQ + 1] + tc + 16 * j] =
-          from_f<T>(acc[i][j] * p.scale);
-  }
-}
-
-// ------------------------------------------- dK/dV in fp32, CUDA cores
-
-constexpr int F_BC = 32;         // queries per streamed tile
-constexpr int F_STAGES = 2;      // Q/dO ring depth
-constexpr int F_LP = F_BC + 8;   // row stride of pd_s and ds_s (floats)
-
-// keys per block (a variable, so that device code may read it)
+// rows of the block's own tile, keys (dK/dV) or queries (dQ); a variable,
+// so that device code may read it
 template <int D> constexpr int F32_ROWS = D > 64 ? 32 : 64;
 
 template <int D>
@@ -340,6 +195,180 @@ constexpr int dkv_f32_smem_bytes() {
   return 2 * simt::RowTile<F32_ROWS<D>, D>::BYTES +
          2 * F_STAGES * simt::RowTile<F_BC, D>::BYTES +
          2 * F32_ROWS<D> * F_LP * (int)sizeof(float);
+}
+
+// dS^T takes the V stage of its own key tile (dead once dP is computed)
+// where it fits, so that 3 blocks share an SM at D 64
+template <int D> constexpr bool DQ_ALIAS = F32_ROWS<D> <= D;
+
+template <int D>
+constexpr int dq_f32_smem_bytes() {
+  // Q, dO; the K/V ring; dS^T unless it takes a V stage
+  return 2 * simt::RowTile<F32_ROWS<D>, D>::BYTES +
+         2 * F_STAGES * simt::RowTile<F_BC, D>::BYTES +
+         (DQ_ALIAS<D> ? 0 : simt::RowTile<F_BC, F32_ROWS<D>>::BYTES);
+}
+
+template <int D, bool DROP>
+__global__ void __launch_bounds__(NT, D > 64 ? 2 : 3)
+    bwd_dq_f32_kernel(const Params p) {
+  using simt::ld4;
+  using simt::at;
+  constexpr int BR = F32_ROWS<D>;
+  constexpr int LD = simt::RowTile<BR, D>::LD;
+  constexpr int TILE = simt::RowTile<F_BC, D>::FLOATS;
+  constexpr int LT = simt::RowTile<F_BC, BR>::LD;   // dS^T row stride
+  constexpr int RM = BR / 16;    // S, dP: queries per thread (x 4 keys)
+  constexpr int TC2 = D / 4;     // dQ: threads across D, 4 columns each
+  constexpr int TR2 = NT / TC2;
+  constexpr int RQ = BR / (4 * TR2);   // dQ: quads of 4 queries per thread
+  static_assert(F_BC == 32 && RQ >= 1, "micro-tiles");
+  static_assert(!DQ_ALIAS<D> || simt::RowTile<F_BC, BR>::FLOATS <= TILE,
+                "dS^T fits a V stage");
+  extern __shared__ float4 smem4[];
+  float* q_s = reinterpret_cast<float*>(smem4);
+  float* g_s = q_s + simt::RowTile<BR, D>::FLOATS;
+  float* ring = g_s + simt::RowTile<BR, D>::FLOATS;   // K, V of each stage
+  float* ds_own = ring + 2 * F_STAGES * TILE;         // dS^T, unless aliased
+  __shared__ uint32_t live_s[F_STAGES];   // bit k: key k0 + k is live
+
+  const int tid = threadIdx.x;
+  const int tr = tid >> 3;       // S, dP: queries tr + 16i
+  const int tc = tid & 7;        //        keys tc + 8j
+  const int orow = tid / TC2;    // dQ: queries 4 (orow + TR2 r) .. + 3
+  const int ocol = 4 * (tid % TC2);   // columns ocol .. ocol + 3
+  const int qt = gridDim.x - 1 - blockIdx.x;   // heaviest causal tiles first
+  const int bh = blockIdx.y;
+  const int b = bh / p.H;
+  const int h = bh - b * p.H;
+  const int q0 = qt * BR;
+  const int S = p.S;
+  const long long* st = p.st;
+
+  const float* Q = static_cast<const float*>(p.q) + b * st[SQ] +
+                   h * st[SQ + 2];
+  const float* K = static_cast<const float*>(p.k) + b * st[SK] +
+                   h * st[SK + 2];
+  const float* V = static_cast<const float*>(p.v) + b * st[SV] +
+                   h * st[SV + 2];
+  const float* G = static_cast<const float*>(p.g) + b * st[SG] +
+                   h * st[SG + 2];
+  float* DQ = static_cast<float*>(p.dq) + b * st[SDQ] + h * st[SDQ + 2];
+  const int32_t* M = p.mask ? p.mask + b * p.mask_sb : nullptr;
+
+  int n_kt = (S + F_BC - 1) / F_BC;
+  if (p.causal) n_kt = min(n_kt, (q0 + BR - 1) / F_BC + 1);
+
+  auto issue = [&](int kt, int sg) {
+    const int k0 = kt * F_BC;
+    simt::load_rows<F_BC, D, NT>(ring + 2 * sg * TILE, K, st[SK + 1], k0, S);
+    simt::load_rows<F_BC, D, NT>(ring + (2 * sg + 1) * TILE, V, st[SV + 1],
+                                 k0, S);
+    if (tid < 32) {
+      const uint32_t w = simt::live_bits(M, k0, S);
+      if (tid == 0) live_s[sg] = w;
+    }
+  };
+  simt::load_rows<BR, D, NT>(q_s, Q, st[SQ + 1], q0, S);
+  simt::load_rows<BR, D, NT>(g_s, G, st[SG + 1], q0, S);
+  issue(0, 0);
+  hopper::cp_async_commit();
+
+  float lse2[RM], dl[RM];        // LSE * log2 e and delta of rows tr + 16i
+#pragma unroll
+  for (int i = 0; i < RM; ++i) {
+    const int qi = q0 + tr + 16 * i;
+    const bool in = qi < S;
+    lse2[i] = in ? p.lse[(long long)bh * S + qi] * hopper::LOG2E : 0.f;
+    dl[i] = in ? p.delta[(long long)bh * S + qi] : 0.f;
+  }
+  float dq[RQ][4][4];            // [quad][query in quad][column]
+#pragma unroll
+  for (int r = 0; r < RQ; ++r)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+#pragma unroll
+      for (int u = 0; u < 4; ++u) dq[r][e][u] = 0.f;
+  const float sl2 = p.scale * hopper::LOG2E;
+
+  for (int kt = 0; kt < n_kt; ++kt) {
+    const int sg = kt % F_STAGES;
+    const int k0 = kt * F_BC;
+    hopper::cp_async_wait<0>();  // this thread's copies of tile kt landed
+    __syncthreads();             // ... everyone's; tile kt - 1 is done with
+    if (kt + 1 < n_kt) {         // so its stage takes tile kt + 1 meanwhile
+      issue(kt + 1, (kt + 1) % F_STAGES);
+      hopper::cp_async_commit();
+    }
+    const float* k_s = ring + 2 * sg * TILE;
+    const float* v_s = k_s + TILE;
+
+    float s[RM][4], dp[RM][4];
+#pragma unroll
+    for (int i = 0; i < RM; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
+    simt::dot_tile<RM, D, LD>(s, q_s + tr * LD, k_s + tc * LD);
+    simt::dot_tile<RM, D, LD>(dp, g_s + tr * LD, v_s + tc * LD);
+
+    // P = 2^(S * scale * log2 e - LSE * log2 e); dS^T = (P (dP - delta))^T,
+    // key-major, so that the writes hit distinct banks and the dQ product
+    // reads 4 queries of one key as a float4. The causal test is taken only
+    // on the diagonal tiles; query rows past S are never written.
+    float* ds_s = DQ_ALIAS<D> ? ring + (2 * sg + 1) * TILE : ds_own;
+    if constexpr (DQ_ALIAS<D>) __syncthreads();   // every dP read V
+    const uint32_t lw = live_s[sg];
+    const bool diag = p.causal && k0 + F_BC - 1 > q0;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int kl = tc + 8 * j;
+      const int kj = k0 + kl;
+      const bool key = (lw >> kl) & 1u;
+#pragma unroll
+      for (int i = 0; i < RM; ++i) {
+        const int ql = tr + 16 * i;
+        const int qi = q0 + ql;
+        const bool alive = key && !(diag && qi < kj);
+        const float pr = hopper::ex2(fmaf(s[i][j], sl2, -lse2[i]));
+        float dpv = dp[i][j];
+        if constexpr (DROP) dpv = kept(p, bh, qi, kj) ? dpv / p.keep : 0.f;
+        ds_s[kl * LT + ql] = alive ? pr * (dpv - dl[i]) : 0.f;
+      }
+    }
+    __syncthreads();
+
+    // dQ += dS K: per key, one float4 of 4 queries from each quad's dS^T
+    // row and one float4 of 4 columns of the K row
+#pragma unroll 4
+    for (int kk = 0; kk < F_BC; ++kk) {
+      float4 a[RQ];
+#pragma unroll
+      for (int r = 0; r < RQ; ++r)
+        a[r] = ld4(ds_s + kk * LT + 4 * (orow + TR2 * r));
+      const float4 c = ld4(k_s + kk * LD + ocol);
+#pragma unroll
+      for (int r = 0; r < RQ; ++r)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float x = at(a[r], e);
+          dq[r][e][0] = fmaf(x, c.x, dq[r][e][0]);
+          dq[r][e][1] = fmaf(x, c.y, dq[r][e][1]);
+          dq[r][e][2] = fmaf(x, c.z, dq[r][e][2]);
+          dq[r][e][3] = fmaf(x, c.w, dq[r][e][3]);
+        }
+    }
+  }
+
+#pragma unroll
+  for (int r = 0; r < RQ; ++r)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int qi = q0 + 4 * (orow + TR2 * r) + e;
+      if (qi >= S) continue;
+      *reinterpret_cast<float4*>(DQ + (long long)qi * st[SDQ + 1] + ocol) =
+          make_float4(dq[r][e][0] * p.scale, dq[r][e][1] * p.scale,
+                      dq[r][e][2] * p.scale, dq[r][e][3] * p.scale);
+    }
 }
 
 template <int D, bool DROP>
@@ -873,62 +902,18 @@ __global__ void __launch_bounds__(NT, tc_min_blocks<D>())
 
 // ----------------------------------------------------------------- launch
 
-template <int D> constexpr int rows_per_block() { return D > 64 ? 32 : 64; }
-
-template <int D, int BR>
-constexpr int dq_smem_bytes() {
-  return (2 * BR * (D + 1) + 2 * BC * (D + 1) + BR * (BC + 1)) *
-         (int)sizeof(float);
-}
-
-// above 48 KB a block's dynamic shared memory needs an opt-in, once per
-// device and kernel (one bit each), so a launch can also be captured in a
-// CUDA graph
-template <typename Kernel>
-cudaError_t opt_in(Kernel kernel, int bytes,
-                   std::atomic<unsigned long long>& done) {
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  const unsigned long long bit = dev < 64 ? 1ull << dev : 0ull;
-  if (done.load() & bit) return cudaSuccess;
-  err = cudaFuncSetAttribute(kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             bytes);
-  if (err == cudaSuccess) done.fetch_or(bit);
-  return err;
-}
-
-// one kernel of a (dropout-free, dropout) pair of instances over a grid of
-// (tiles of `rows` rows, B * H)
-template <int bytes>
-cudaError_t launch_pair(void (*plain)(const Params), void (*drop)(const Params),
-                        std::atomic<unsigned long long> (&done)[2], int rows,
-                        const Params& p, int B, cudaStream_t stream) {
-  void (*kernel)(const Params) = p.dropout_on ? drop : plain;
-  cudaError_t err = opt_in(kernel, bytes, done[p.dropout_on ? 1 : 0]);
-  if (err != cudaSuccess) return err;
-  dim3 grid((p.S + rows - 1) / rows, B * p.H);
-  kernel<<<grid, NT, bytes, stream>>>(p);
-  return cudaGetLastError();
-}
-
 template <int D>
 cudaError_t launch_dq_f32(const Params& p, int B, cudaStream_t stream) {
-  constexpr int BR = rows_per_block<D>();
-  constexpr int bytes = dq_smem_bytes<D, BR>();
-  static std::atomic<unsigned long long> done{0};
-  cudaError_t err = opt_in(bwd_dq_kernel<float, D, BR>, bytes, done);
-  if (err != cudaSuccess) return err;
-  dim3 grid((p.S + BR - 1) / BR, B * p.H);
-  bwd_dq_kernel<float, D, BR><<<grid, NT, bytes, stream>>>(p);
-  return cudaGetLastError();
+  static std::atomic<unsigned long long> done[2];
+  return launcher::pair<dq_f32_smem_bytes<D>(), NT>(
+      bwd_dq_f32_kernel<D, false>, bwd_dq_f32_kernel<D, true>, done,
+      F32_ROWS<D>, p, B, stream);
 }
 
 template <int D>
 cudaError_t launch_dkv_f32(const Params& p, int B, cudaStream_t stream) {
   static std::atomic<unsigned long long> done[2];
-  return launch_pair<dkv_f32_smem_bytes<D>()>(
+  return launcher::pair<dkv_f32_smem_bytes<D>(), NT>(
       bwd_dkv_f32_kernel<D, false>, bwd_dkv_f32_kernel<D, true>, done,
       F32_ROWS<D>, p, B, stream);
 }
@@ -937,7 +922,7 @@ template <int D>
 cudaError_t launch_dq_tc(const Params& p, int B, cudaStream_t stream) {
   constexpr int BCK = tc_cols<D>();
   static std::atomic<unsigned long long> done[2];
-  return launch_pair<tc_smem_bytes<D>()>(
+  return launcher::pair<tc_smem_bytes<D>(), NT>(
       bwd_dq_tc_kernel<D, BCK, false>, bwd_dq_tc_kernel<D, BCK, true>, done,
       TC_BR, p, B, stream);
 }
@@ -946,7 +931,7 @@ template <int D>
 cudaError_t launch_dkv_tc(const Params& p, int B, cudaStream_t stream) {
   constexpr int BCQ = tc_cols<D>();
   static std::atomic<unsigned long long> done[2];
-  return launch_pair<tc_smem_bytes<D>()>(
+  return launcher::pair<tc_smem_bytes<D>(), NT>(
       bwd_dkv_tc_kernel<D, BCQ, false>, bwd_dkv_tc_kernel<D, BCQ, true>, done,
       TC_BR, p, B, stream);
 }

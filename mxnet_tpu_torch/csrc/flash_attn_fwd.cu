@@ -28,7 +28,7 @@
 // bf16) the ridge is ~295 FLOPs a byte, so the bf16 kernel at S 512 is
 // bound by bytes, and by latency at small grids.
 //
-// Two kernels, chosen by the operand type in the C entry point:
+// Two kernels, one for each operand type, chosen in the C entry point:
 //
 // bf16: flash_fwd_tc_kernel, on the tensor cores. One warpgroup (128
 // threads) per (64-row query tile, b*h): 64 rows is wgmma's M, and at the
@@ -51,34 +51,46 @@
 // rescaled only when a row max moved, and at D <= 64 the registers are
 // capped so that 4 blocks share an SM.
 //
-// fp32: flash_fwd_kernel, on the CUDA cores (the reference keeps fp32 math;
-// TF32 would change the numbers). One block of 128 threads per (64-row
-// query tile, b*h). Q, K, V tiles of 64 rows are staged in shared memory as
-// fp32 with a padded row stride (D+1) so that the column reads below hit
-// distinct banks. Thread t owns query rows (t/16) + 8i, i < 8, in both
-// products: for S = QK^T it holds 8x4 scores (keys (t%16) + 16j), for O it
-// holds 8 x D/16 outputs (columns (t%16) + 16j). Row max and row sum reduce
-// over the 16 lanes of a half-warp with shuffles; P is staged in shared
-// memory for the PV product.
+// fp32: flash_fwd_f32_kernel, on the CUDA cores in fp32 (the reference keeps
+// fp32 products; TF32 would change the numbers). One block of 128 threads per
+// (query tile of BR rows, b*h), heaviest causal tiles first. BR is 64, or 32
+// where 64-row tiles would give fewer than 2 blocks an SM: there the heaviest
+// causal tile, nearly alone on its SM, sets the time (on an H100 at the
+// serving shape B 1, S 1024, H 12, 192 tiles of 64 rows for 132 SMs, 32-row
+// tiles took 0.139 to 0.129 ms; at the training shape they cost 29%, so the
+// launch picks by grid size). Q is a resident fp32 row tile (row stride D + 4,
+// hopper_simt.cuh); K and V tiles of 32 keys and their per-key live bits
+// stream through a two-stage cp.async ring, tile t+1 in flight while t
+// computes. Its pace is set by how many shared-memory loads feed each FMA, so
+// every operand is read as float4: S = Q K^T is a micro-tile in which thread
+// (t / 8, t % 8) owns rows tr + 16i and keys tc + 8j (8 FMAs an LDS.128 at D
+// 64). The same thread keeps rows tr + 16i of O (columns 4tc + 32c .. + 3), so
+// the row max, sum and correction stay in registers: row max and sum reduce
+// over the 8 lanes that share a row, P goes through shared memory (row stride
+// 40 floats, conflict-free writes) read back only by the warp that wrote it
+// (no block barrier), and O += P V reads, per 4 keys, one float4 of each own P
+// row and D/32 of each of the 4 V rows (10.7 FMAs an LDS.128 at D 64). The
+// softmax is the bf16 kernel's: log2 units, masks tested only on tiles with a
+// dead key or on the diagonal, dropout a template flag, O rescaled only where
+// a row max moved. 62,464 bytes of shared memory a block at D 64 and BR 64 (3
+// blocks an SM).
 //
-// Both mask ragged edges (S not a multiple of 64) in the kernel and run
+// Both mask ragged edges (S not a multiple of a tile) in the kernel and run
 // causal query tiles heaviest first.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
 
 #include <atomic>
-#include <type_traits>
 
+#include "hopper_simt.cuh"
 #include "hopper_tc.cuh"
+#include "launch.cuh"
 
 namespace {
 
-constexpr int BQ = 64;           // query rows per block
-constexpr int BK = 64;           // key rows per tile
+constexpr int BQ = 64;           // query rows per block (bf16)
 constexpr int NT = 128;          // threads per block
-constexpr int RM = BQ / 8;       // query rows per thread
-constexpr int CN = BK / 16;      // score columns per thread
 constexpr float NEG_INF = -1e30f;
 
 struct Params {
@@ -102,19 +114,6 @@ struct Params {
   uint32_t seed;
 };
 
-// the CUDA-core kernel runs fp32 only; bf16 goes to the tensor-core one
-__device__ __forceinline__ float to_f(float x) { return x; }
-
-template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ float from_f<float>(float x) {
-  return x;
-}
-
-// P enters the PV product in the operand type (pallas_kernels.py:212).
-template <typename T> __device__ __forceinline__ float operand(float x) {
-  return to_f(from_f<T>(x));
-}
-
 __device__ __forceinline__ uint32_t lowbias32(uint32_t x) {
   x ^= x >> 16;
   x *= 0x7FEB352Du;
@@ -124,161 +123,219 @@ __device__ __forceinline__ uint32_t lowbias32(uint32_t x) {
   return x;
 }
 
-template <typename T, int D>
-__global__ void __launch_bounds__(NT) flash_fwd_kernel(const Params p) {
-  constexpr int LD = D + 1;      // padded fp32 row stride of q_s/k_s/v_s
-  constexpr int LP = BK + 1;     // padded row stride of p_s
-  constexpr int DN = D / 16;     // output columns per thread
-  extern __shared__ float smem[];
-  float* q_s = smem;
-  float* k_s = q_s + BQ * LD;
-  float* v_s = k_s + BK * LD;
-  float* p_s = v_s + BK * LD;
-  __shared__ int key_ok[BK];
+// dropout keeps (q, k) of head bh where lowbias32 of the mixed global
+// coordinates is below the threshold
+__device__ __forceinline__ bool kept(const Params& p, int bh, int qi,
+                                     int kj) {
+  const uint32_t c = ((uint32_t)qi * 0x9E3779B9u) ^
+                     ((uint32_t)kj * 0x85EBCA6Bu) ^
+                     ((uint32_t)bh * 0xC2B2AE35u) ^ p.seed;
+  return lowbias32(c) < p.thresh;
+}
+
+// ----------------------------------------------- fp32, on the CUDA cores
+
+constexpr int F_BC = 32;         // keys per streamed tile
+constexpr int F_STAGES = 2;      // K/V ring depth
+constexpr int F_LP = F_BC + 8;   // row stride of p_s (floats)
+
+template <int D, int BR>
+constexpr int f32_smem_bytes() {
+  // Q; the K/V ring; P
+  return simt::RowTile<BR, D>::BYTES +
+         2 * F_STAGES * simt::RowTile<F_BC, D>::BYTES +
+         BR * F_LP * (int)sizeof(float);
+}
+
+// BR query rows per block (64, or 32 on small grids)
+template <int D, int BR, bool DROP>
+__global__ void __launch_bounds__(NT, D > 64 ? 2 : 3)
+    flash_fwd_f32_kernel(const Params p) {
+  using simt::ld4;
+  using simt::at;
+  constexpr int LD = simt::RowTile<BR, D>::LD;
+  constexpr int TILE = simt::RowTile<F_BC, D>::FLOATS;
+  constexpr int RM = BR / 16;    // rows per thread: tr + 16i
+  constexpr int CH = D / 32;     // O: float4 chunks a row, columns 4tc + 32c
+  static_assert(F_BC == 32 && CH >= 1, "micro-tiles");
+  extern __shared__ float4 smem4[];
+  float* q_s = reinterpret_cast<float*>(smem4);
+  float* ring = q_s + simt::RowTile<BR, D>::FLOATS;   // K, V of each stage
+  float* p_s = ring + 2 * F_STAGES * TILE;            // P, BR x F_LP
+  __shared__ uint32_t live_s[F_STAGES];   // bit k: key k0 + k is live
 
   const int tid = threadIdx.x;
-  const int tr = tid >> 4;
-  const int tc = tid & 15;
+  const int tr = tid >> 3;       // rows tr + 16i of S, P and O
+  const int tc = tid & 7;        // keys tc + 8j; O columns 4tc + 32c .. + 3
   const int qt = gridDim.x - 1 - blockIdx.x;   // heaviest causal tiles first
   const int bh = blockIdx.y;
   const int b = bh / p.H;
   const int h = bh - b * p.H;
-  const int q0 = qt * BQ;
+  const int q0 = qt * BR;
   const int S = p.S;
 
-  const T* Q = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh;
-  const T* K = static_cast<const T*>(p.k) + b * p.k_sb + h * p.k_sh;
-  const T* V = static_cast<const T*>(p.v) + b * p.v_sb + h * p.v_sh;
-  T* O = static_cast<T*>(p.o) + b * p.o_sb + h * p.o_sh;
+  const float* Q = static_cast<const float*>(p.q) + b * p.q_sb + h * p.q_sh;
+  const float* K = static_cast<const float*>(p.k) + b * p.k_sb + h * p.k_sh;
+  const float* V = static_cast<const float*>(p.v) + b * p.v_sb + h * p.v_sh;
+  float* O = static_cast<float*>(p.o) + b * p.o_sb + h * p.o_sh;
   const int32_t* M = p.mask ? p.mask + b * p.mask_sb : nullptr;
 
-  for (int i = tid; i < BQ * D; i += NT) {
-    const int r = i / D, d = i - (i / D) * D;
-    const int qi = q0 + r;
-    q_s[r * LD + d] = qi < S ? to_f(Q[(long long)qi * p.q_ss + d]) : 0.f;
-  }
+  int n_kt = (S + F_BC - 1) / F_BC;
+  if (p.causal) n_kt = min(n_kt, (q0 + BR - 1) / F_BC + 1);
 
-  float acc[RM][DN];
-  float m_i[RM], l_i[RM];
+  auto issue = [&](int kt, int sg) {
+    const int k0 = kt * F_BC;
+    simt::load_rows<F_BC, D, NT>(ring + 2 * sg * TILE, K, p.k_ss, k0, S);
+    simt::load_rows<F_BC, D, NT>(ring + (2 * sg + 1) * TILE, V, p.v_ss, k0,
+                                 S);
+    if (tid < 32) {
+      const uint32_t w = simt::live_bits(M, k0, S);
+      if (tid == 0) live_s[sg] = w;
+    }
+  };
+  simt::load_rows<BR, D, NT>(q_s, Q, p.q_ss, q0, S);
+  issue(0, 0);
+  hopper::cp_async_commit();
+
+  float o[RM][CH][4];
+  float m_i[RM], l_i[RM];        // m in log2 units
 #pragma unroll
   for (int i = 0; i < RM; ++i) {
     m_i[i] = NEG_INF;
     l_i[i] = 0.f;
 #pragma unroll
-    for (int j = 0; j < DN; ++j) acc[i][j] = 0.f;
+    for (int c = 0; c < CH; ++c)
+#pragma unroll
+      for (int u = 0; u < 4; ++u) o[i][c][u] = 0.f;
   }
-
-  int n_kt = (S + BK - 1) / BK;
-  if (p.causal) n_kt = min(n_kt, (q0 + BQ - 1) / BK + 1);
+  const float sl2 = p.scale * hopper::LOG2E;
 
   for (int kt = 0; kt < n_kt; ++kt) {
-    const int k0 = kt * BK;
-    __syncthreads();             // last tile's reads of k_s/v_s/p_s are done
-    for (int i = tid; i < BK * D; i += NT) {
-      const int r = i / D, d = i - (i / D) * D;
-      const int kj = k0 + r;
-      const bool in = kj < S;
-      k_s[r * LD + d] = in ? to_f(K[(long long)kj * p.k_ss + d]) : 0.f;
-      v_s[r * LD + d] = in ? to_f(V[(long long)kj * p.v_ss + d]) : 0.f;
+    const int sg = kt % F_STAGES;
+    const int k0 = kt * F_BC;
+    hopper::cp_async_wait<0>();  // this thread's copies of tile kt landed
+    __syncthreads();             // ... everyone's; tile kt - 1 is done with
+    if (kt + 1 < n_kt) {         // so its stage takes tile kt + 1 meanwhile
+      issue(kt + 1, (kt + 1) % F_STAGES);
+      hopper::cp_async_commit();
     }
-    if (tid < BK) {
-      const int kj = k0 + tid;
-      key_ok[tid] = kj < S && (M == nullptr || M[kj] != 0);
-    }
-    __syncthreads();
+    const float* k_s = ring + 2 * sg * TILE;
+    const float* v_s = k_s + TILE;
 
-    float s[RM][CN];
+    float s[RM][4];
 #pragma unroll
     for (int i = 0; i < RM; ++i)
 #pragma unroll
-      for (int j = 0; j < CN; ++j) s[i][j] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < D; ++d) {
-      float qv[RM], kv[CN];
-#pragma unroll
-      for (int i = 0; i < RM; ++i) qv[i] = q_s[(tr + 8 * i) * LD + d];
-#pragma unroll
-      for (int j = 0; j < CN; ++j) kv[j] = k_s[(tc + 16 * j) * LD + d];
-#pragma unroll
-      for (int i = 0; i < RM; ++i)
-#pragma unroll
-        for (int j = 0; j < CN; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
-    }
+      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
+    simt::dot_tile<RM, D, LD>(s, q_s + tr * LD, k_s + tc * LD);
 
+    // dead scores become NEG_INF, tested only on tiles with a dead key or
+    // on the causal diagonal
+    const uint32_t lw = live_s[sg];
+    const bool diag = p.causal && k0 + F_BC - 1 > q0;
+    if (diag || lw != 0xffffffffu) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int kl = tc + 8 * j;
+        const bool key = (lw >> kl) & 1u;
+#pragma unroll
+        for (int i = 0; i < RM; ++i)
+          if (!key || (diag && q0 + tr + 16 * i < k0 + kl)) s[i][j] = NEG_INF;
+      }
+    }
+    // p = 2^(s * scale * log2 e - m), m the running row max in log2 units;
+    // a row's max and sum reduce over the 8 lanes that share it
+    float corr[RM];
 #pragma unroll
     for (int i = 0; i < RM; ++i) {
-      const int qi = q0 + tr + 8 * i;
-      bool dead[CN];
-      float mx = NEG_INF;
+      float mx = fmaxf(fmaxf(s[i][0], s[i][1]), fmaxf(s[i][2], s[i][3]));
 #pragma unroll
-      for (int j = 0; j < CN; ++j) {
-        const int kl = tc + 16 * j;
-        dead[j] = !key_ok[kl] || (p.causal && qi < k0 + kl);
-        s[i][j] = dead[j] ? NEG_INF : s[i][j] * p.scale;
-        mx = fmaxf(mx, s[i][j]);
-      }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
+      for (int off = 1; off < 8; off <<= 1)
         mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_new = fmaxf(m_i[i], mx);
+      const float m_new = fmaxf(m_i[i], mx == NEG_INF ? NEG_INF : mx * sl2);
+      // a row dead so far keeps m = NEG_INF; subtracting 0 then sends its
+      // NEG_INF scores to 2^-1e30 = 0, as every dead score
+      const float m_use = m_new == NEG_INF ? 0.f : m_new;
+      const int qi = q0 + tr + 16 * i;
       float rs = 0.f;
 #pragma unroll
-      for (int j = 0; j < CN; ++j) {
-        s[i][j] = dead[j] ? 0.f : expf(s[i][j] - m_new);
-        rs += s[i][j];
+      for (int j = 0; j < 4; ++j) {
+        const float pr = hopper::ex2(fmaf(s[i][j], sl2, -m_use));
+        rs += pr;                // the normaliser: pre-dropout, unrounded
+        float pd = pr;
+        if constexpr (DROP)
+          pd = kept(p, bh, qi, k0 + tc + 8 * j) ? pr / p.keep : 0.f;
+        p_s[(tr + 16 * i) * F_LP + tc + 8 * j] = pd;
       }
 #pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
+      for (int off = 1; off < 8; off <<= 1)
         rs += __shfl_xor_sync(0xffffffffu, rs, off);
-      const float corr = expf(m_i[i] - m_new);
-      l_i[i] = l_i[i] * corr + rs;
+      corr[i] = hopper::ex2(m_i[i] - m_use);
+      l_i[i] = l_i[i] * corr[i] + rs;
       m_i[i] = m_new;
-#pragma unroll
-      for (int j = 0; j < DN; ++j) acc[i][j] *= corr;
-#pragma unroll
-      for (int j = 0; j < CN; ++j) {
-        const int kl = tc + 16 * j;
-        float pv = s[i][j];
-        if (p.dropout_on) {
-          const uint32_t c = ((uint32_t)qi * 0x9E3779B9u) ^
-                             ((uint32_t)(k0 + kl) * 0x85EBCA6Bu) ^
-                             ((uint32_t)bh * 0xC2B2AE35u) ^ p.seed;
-          pv = lowbias32(c) < p.thresh ? pv / p.keep : 0.f;
-        }
-        p_s[(tr + 8 * i) * LP + kl] = operand<T>(pv);
-      }
     }
-    __syncthreads();
-
-#pragma unroll 4
-    for (int kk = 0; kk < BK; ++kk) {
-      float pr[RM], vr[DN];
+    // rescale O only where a row max of this warp moved
+    bool moved = false;
 #pragma unroll
-      for (int i = 0; i < RM; ++i) pr[i] = p_s[(tr + 8 * i) * LP + kk];
-#pragma unroll
-      for (int j = 0; j < DN; ++j) vr[j] = v_s[kk * LD + tc + 16 * j];
+    for (int i = 0; i < RM; ++i) moved |= corr[i] != 1.f;
+    if (__any_sync(0xffffffffu, moved)) {
 #pragma unroll
       for (int i = 0; i < RM; ++i)
 #pragma unroll
-        for (int j = 0; j < DN; ++j) acc[i][j] = fmaf(pr[i], vr[j], acc[i][j]);
+        for (int c = 0; c < CH; ++c)
+#pragma unroll
+          for (int u = 0; u < 4; ++u) o[i][c][u] *= corr[i];
+    }
+    __syncwarp();                // a row's P is written and read by one warp
+
+    // O += P V: per 4 keys, one float4 of each own P row (a broadcast in
+    // the quarter-warp) and CH float4s of each V row
+#pragma unroll 2
+    for (int kk = 0; kk < F_BC; kk += 4) {
+      float4 a[RM];
+#pragma unroll
+      for (int i = 0; i < RM; ++i) a[i] = ld4(p_s + (tr + 16 * i) * F_LP + kk);
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        float4 w[CH];
+#pragma unroll
+        for (int c = 0; c < CH; ++c)
+          w[c] = ld4(v_s + (kk + u) * LD + 4 * tc + 32 * c);
+#pragma unroll
+        for (int i = 0; i < RM; ++i) {
+          const float x = at(a[i], u);
+#pragma unroll
+          for (int c = 0; c < CH; ++c) {
+            o[i][c][0] = fmaf(x, w[c].x, o[i][c][0]);
+            o[i][c][1] = fmaf(x, w[c].y, o[i][c][1]);
+            o[i][c][2] = fmaf(x, w[c].z, o[i][c][2]);
+            o[i][c][3] = fmaf(x, w[c].w, o[i][c][3]);
+          }
+        }
+      }
     }
   }
 
 #pragma unroll
   for (int i = 0; i < RM; ++i) {
-    const int qi = q0 + tr + 8 * i;
+    const int qi = q0 + tr + 16 * i;
     if (qi >= S) continue;
     const float l = fmaxf(l_i[i], 1e-20f);
+    float* row = O + (long long)qi * p.o_ss;
 #pragma unroll
-    for (int j = 0; j < DN; ++j)
-      O[(long long)qi * p.o_ss + tc + 16 * j] = from_f<T>(acc[i][j] / l);
-    if (tc == 0) p.lse[(long long)bh * S + qi] = m_i[i] + logf(l);
+    for (int c = 0; c < CH; ++c)
+      *reinterpret_cast<float4*>(row + 4 * tc + 32 * c) =
+          make_float4(o[i][c][0] / l, o[i][c][1] / l, o[i][c][2] / l,
+                      o[i][c][3] / l);
+    if (tc == 0)                 // natural units; NEG_INF stays NEG_INF
+      p.lse[(long long)bh * S + qi] =
+          (m_i[i] == NEG_INF ? NEG_INF : m_i[i] * hopper::LN2) + logf(l);
   }
 }
 
-
 // ------------------------------------------------ bf16, on the tensor cores
 
+constexpr int BK = 64;           // key rows per tile
 constexpr int TC_STAGES = 2;     // K/V ring depth
 
 template <int D>
@@ -466,56 +523,33 @@ __global__ void __launch_bounds__(NT, tc_min_blocks<D>())
 
 // ----------------------------------------------------------------- launch
 
+// fp32 on 64-row query tiles, or on 32-row ones where 64-row tiles would
+// give fewer than two blocks an SM: there the heaviest causal tile sets the
+// time, and halving it pays more than the smaller tiles cost
+template <int D, int BR>
+cudaError_t launch_f32(const Params& p, int B, cudaStream_t stream) {
+  static std::atomic<unsigned long long> done[2];
+  return launcher::pair<f32_smem_bytes<D, BR>(), NT>(
+      flash_fwd_f32_kernel<D, BR, false>, flash_fwd_f32_kernel<D, BR, true>,
+      done, BR, p, B, stream);
+}
+
+// bf16 on the tensor cores, fp32 on the CUDA cores; no other path
 template <int D>
-constexpr int smem_bytes() {
-  return (BQ * (D + 1) + 2 * BK * (D + 1) + BQ * (BK + 1)) *
-         (int)sizeof(float);
-}
-
-// above 48 KB a block's dynamic shared memory needs an opt-in, once per
-// device and kernel (one bit each), so a launch can also be captured in a
-// CUDA graph
-template <typename Kernel>
-cudaError_t opt_in(Kernel kernel, int bytes,
-                   std::atomic<unsigned long long>& done) {
-  int dev = 0;
+cudaError_t launch(bool bf16, const Params& p, int B, cudaStream_t stream) {
+  static std::atomic<unsigned long long> done_tc[2];
+  if (bf16)
+    return launcher::pair<tc_smem_bytes<D>(), NT>(
+        flash_fwd_tc_kernel<D, false>, flash_fwd_tc_kernel<D, true>, done_tc,
+        BQ, p, B, stream);
+  int dev = 0, sms = 0;
   cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return err;
-  const unsigned long long bit = dev < 64 ? 1ull << dev : 0ull;
-  if (done.load() & bit) return cudaSuccess;
-  err = cudaFuncSetAttribute(kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             bytes);
-  if (err == cudaSuccess) done.fetch_or(bit);
-  return err;
-}
-
-template <typename T, int D>
-cudaError_t launch(const Params& p, int B, cudaStream_t stream) {
-  constexpr bool tc = std::is_same<T, __nv_bfloat16>::value;
-  constexpr int bytes = tc ? tc_smem_bytes<D>() : smem_bytes<D>();
-  static std::atomic<unsigned long long> done[2];   // per kernel below
-  void (*kernel)(const Params) = nullptr;
-  if constexpr (tc)
-    kernel = p.dropout_on ? flash_fwd_tc_kernel<D, true>
-                          : flash_fwd_tc_kernel<D, false>;
-  else
-    kernel = flash_fwd_kernel<T, D>;
-  cudaError_t err = opt_in(kernel, bytes, done[tc && p.dropout_on]);
-  if (err != cudaSuccess) return err;
-  dim3 grid((p.S + BQ - 1) / BQ, B * p.H);
-  kernel<<<grid, NT, bytes, stream>>>(p);
-  return cudaGetLastError();
-}
-
-template <typename T>
-cudaError_t launch_d(const Params& p, int B, int D, cudaStream_t stream) {
-  switch (D) {
-    case 32: return launch<T, 32>(p, B, stream);
-    case 64: return launch<T, 64>(p, B, stream);
-    case 128: return launch<T, 128>(p, B, stream);
-    default: return cudaErrorInvalidValue;
-  }
+  const long long tiles = (long long)((p.S + 63) / 64) * B * p.H;
+  return tiles < 2LL * sms ? launch_f32<D, 32>(p, B, stream)
+                           : launch_f32<D, 64>(p, B, stream);
 }
 
 }  // namespace
@@ -548,7 +582,11 @@ extern "C" int flash_attn_fwd(
   p.scale = scale; p.causal = causal; p.dropout_on = dropout_on;
   p.keep = keep; p.thresh = thresh; p.seed = seed;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err = is_bf16 ? launch_d<__nv_bfloat16>(p, B, D, st)
-                            : launch_d<float>(p, B, D, st);
-  return (int)err;
+  const bool bf16 = is_bf16 != 0;
+  switch (D) {
+    case 32: return (int)launch<32>(bf16, p, B, st);
+    case 64: return (int)launch<64>(bf16, p, B, st);
+    case 128: return (int)launch<128>(bf16, p, B, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }

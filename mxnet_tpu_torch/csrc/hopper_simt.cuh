@@ -10,6 +10,13 @@
 // column land on 8 distinct 16-byte bank groups: a quarter-warp that reads
 // 8 rows (or 8 chunks of one row, or one row by broadcast) is free of bank
 // conflicts.
+//
+// Micro-tile product. Thread (tr, tc) = (t / 8, t % 8) of a block owns rows
+// tr + 16i of tile A (i < RM) and rows tc + 8j of tile B (j < 4) and sums
+// A_row . B_row over D, reading 4 consecutive elements of each row as one
+// float4: RM + 4 LDS.128 for 16 RM FMAs a step of 4 (8 a load at RM 4). A
+// quarter-warp shares tr, so it reads one A row by broadcast and 8
+// consecutive B rows on 8 distinct bank groups.
 #pragma once
 
 #include "hopper_tc.cuh"
@@ -58,6 +65,33 @@ __device__ __forceinline__ float dot4(const float4& a, const float4& b,
   c = fmaf(a.y, b.y, c);
   c = fmaf(a.z, b.z, c);
   return fmaf(a.w, b.w, c);
+}
+
+// acc[i][j] += A row 16i . B row 8j over D elements, with a = A + tr * LD
+// and b = B + tc * LD (row stride LD floats): the micro-tile above
+template <int RM, int D, int LD>
+__device__ __forceinline__ void dot_tile(float (&acc)[RM][4], const float* a,
+                                         const float* b) {
+#pragma unroll 4
+  for (int d = 0; d < D; d += 4) {
+    float4 x[RM], y[4];
+#pragma unroll
+    for (int i = 0; i < RM; ++i) x[i] = ld4(a + 16 * i * LD + d);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) y[j] = ld4(b + 8 * j * LD + d);
+#pragma unroll
+    for (int i = 0; i < RM; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[i][j] = dot4(x[i], y[j], acc[i][j]);
+  }
+}
+
+// bit l: row row0 + l (l < 32) is below S and unmasked (M null, or
+// M[row] != 0); every lane of one warp calls it
+__device__ __forceinline__ uint32_t live_bits(const int32_t* M, int row0,
+                                              int S) {
+  const int r = row0 + (threadIdx.x & 31);
+  return __ballot_sync(0xffffffffu, r < S && (M == nullptr || M[r] != 0));
 }
 
 }  // namespace simt

@@ -11,9 +11,10 @@ both layouts: ``csrc/flash_attn_fwd.cu`` (forward) and
 :func:`flash_attention` hand them views of their inputs without a copy
 (views whose rows are not 16-byte aligned are copied first, see
 :func:`_aligned`). bf16 runs all three on the tensor cores (``wgmma``,
-with ``csrc/hopper_tc.cuh``); fp32 runs them on the CUDA cores (the dK/dV
-kernel with float4 micro-tiles from ``csrc/hopper_simt.cuh``). The source
-notes say what bounds each kernel on the H100 and how it is laid out.
+with ``csrc/hopper_tc.cuh``); fp32 runs all three on the CUDA cores, in
+fp32 with no TF32, on float4 micro-tiles fed by ``cp.async``
+(``csrc/hopper_simt.cuh``). The source notes say what bounds each kernel
+on the H100 and how it is laid out.
 
 Both entry points are differentiable: a ``torch.autograd.Function`` runs the
 forward kernel, saves ``q, k, v, kv_mask, o`` and the ``(B, H, S)``
@@ -259,7 +260,7 @@ def _check(q, k, v, layout):
 def _aligned(x):
     """``x`` as the kernels read it: every head row D contiguous elements
     starting on a 16-byte boundary (the base and every stride of a dimension
-    longer than 1 a multiple of 16 bytes), which the bf16 kernels'
+    longer than 1 a multiple of 16 bytes), which every kernel's 16-byte
     ``cp.async`` copies need. Any other view is copied into a contiguous
     tensor: the operand is normalised, and the kernel still runs."""
     item = x.element_size()

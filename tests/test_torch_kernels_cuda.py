@@ -14,8 +14,8 @@ gradient (dS and Pdrop are rounded to bf16 before their products, and a
 value that lands on a rounding edge may round the other way). The bf16
 forward, dQ and dK/dV run on the tensor cores (``wgmma``) with the same
 tolerances: their products are bf16 x bf16 with fp32 sums, as the plain
-version's. The fp32 dK/dV kernel takes ``ex2.approx`` (~2 ulp) for exp,
-far inside 2e-4.
+version's. Every fp32 kernel (forward, dQ, dK/dV) runs on the CUDA cores
+in fp32 and takes ``ex2.approx`` (~2 ulp) for exp, far inside 2e-4.
 """
 import numpy as np
 import pytest
@@ -64,9 +64,9 @@ def test_flash_kernel_matches_plain(cuda, dtype, tol, layout, S, D, causal,
     assert bool((out[1] == 0).all())
 
 
-def _inputs(cuda, dtype, layout, S, D, seed):
+def _inputs(cuda, dtype, layout, S, D, seed, H=3):
     rng = np.random.default_rng(seed)
-    B, H = 2, 3
+    B = 2
     shape = (B, S, H, D) if layout == "BSHD" else (B, H, S, D)
     q, k, v, g = (torch.from_numpy(rng.standard_normal(shape).astype(
         "float32")).to(cuda, dtype) for _ in range(4))
@@ -136,10 +136,21 @@ def test_cuda_backward_runs_the_kernels(cuda):
 _EDGES = [63, 64, 65, 77, 130, 200]          # around the 64-row tiles
 
 
-def _bf16_case(cuda, layout, S, D, seed):
-    q, k, v, g, mask = _inputs(cuda, torch.bfloat16, layout, S, D, seed)
-    dropout = 0.1 if S % 2 else 0.0          # dropout where S is ragged
-    return q, k, v, g, mask, dropout
+def _forward_at_edge(cuda, dtype, tol, layout, causal, D, S, seed, H=3):
+    """The forward kernel against the plain forward (output and LSE);
+    dropout where S is odd (ragged); batch row 1 fully masked."""
+    q, k, v, _, mask = _inputs(cuda, dtype, layout, S, D, seed, H)
+    dropout = 0.1 if S % 2 else 0.0
+    fn = tfa.flash_attention_bshd if layout == "BSHD" else tfa.flash_attention
+    out, lse = fn(q, k, v, mask, 5, causal, dropout, return_lse=True)
+    torch.cuda.synchronize()
+    ref, ref_lse = tfa.flash_attention_plain(q, k, v, mask, 5, causal,
+                                             dropout, layout=layout,
+                                             return_lse=True)
+    assert out.dtype == dtype and out.shape == q.shape
+    torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=tol)
+    torch.testing.assert_close(lse, ref_lse, atol=2e-4, rtol=2e-4)
+    assert bool((out[1] == 0).all())         # the fully masked batch row
 
 
 @pytest.mark.cuda
@@ -148,18 +159,8 @@ def _bf16_case(cuda, layout, S, D, seed):
 @pytest.mark.parametrize("D", [32, 64, 128])
 @pytest.mark.parametrize("S", _EDGES)
 def test_bf16_forward_at_tile_edges(cuda, layout, causal, D, S):
-    q, k, v, _, mask, dropout = _bf16_case(cuda, layout, S, D, 7 * S + D)
-    fn = tfa.flash_attention_bshd if layout == "BSHD" else tfa.flash_attention
-    out, lse = fn(q, k, v, mask, 5, causal, dropout, return_lse=True)
-    torch.cuda.synchronize()
-    ref, ref_lse = tfa.flash_attention_plain(q, k, v, mask, 5, causal,
-                                             dropout, layout=layout,
-                                             return_lse=True)
-    assert out.dtype == torch.bfloat16 and out.shape == q.shape
-    torch.testing.assert_close(out.float(), ref.float(), atol=2e-2,
-                               rtol=2e-2)
-    torch.testing.assert_close(lse, ref_lse, atol=2e-4, rtol=2e-4)
-    assert bool((out[1] == 0).all())         # the fully masked batch row
+    _forward_at_edge(cuda, torch.bfloat16, 2e-2, layout, causal, D, S,
+                     7 * S + D)
 
 
 def _grads_at_edge(cuda, dtype, tol, part, layout, causal, D, S, seed):
@@ -205,9 +206,35 @@ def test_bf16_dq_at_tile_edges(cuda, layout, causal, D, S):
                    13 * S + D)
 
 
-# the fp32 dK/dV kernel streams 32-query tiles past 64-key blocks (32 at
-# D 128)
+# the fp32 kernels stream 32-row tiles past blocks of 64 rows (dK/dV and
+# dQ: 32 at D 128)
 _F32_EDGES = [31, 32, 33, 63, 64, 65, 97, 130]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("grid", ["small", "large"])
+@pytest.mark.parametrize("layout", ["BSHD", "BHSD"])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("D", [32, 64, 128])
+@pytest.mark.parametrize("S", _F32_EDGES)
+def test_fp32_forward_at_tile_edges(cuda, grid, layout, causal, D, S):
+    # the fp32 forward takes 32-row query tiles where 64-row ones would give
+    # fewer than 2 blocks an SM (the small grid, B 2 x H 3), else 64-row
+    # ones (B 2 x H = the card's SM count)
+    H = 3 if grid == "small" else \
+        torch.cuda.get_device_properties(cuda).multi_processor_count
+    _forward_at_edge(cuda, torch.float32, 2e-4, layout, causal, D, S,
+                     19 * S + D, H)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["BSHD", "BHSD"])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("D", [32, 64, 128])
+@pytest.mark.parametrize("S", _F32_EDGES)
+def test_fp32_dq_at_tile_edges(cuda, layout, causal, D, S):
+    _grads_at_edge(cuda, torch.float32, 2e-4, "dq", layout, causal, D, S,
+                   23 * S + D)
 
 
 @pytest.mark.cuda
@@ -221,8 +248,10 @@ def test_fp32_dkv_at_tile_edges(cuda, layout, causal, D, S):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-4),
+                                       (torch.bfloat16, 2e-2)])
 @pytest.mark.parametrize("D", [32, 64, 128])
-def test_bf16_kernels_on_unaligned_views(cuda, D):
+def test_kernels_on_unaligned_views(cuda, dtype, tol, D):
     # BHSD views whose seq stride (D + 1 elements) and base (one element
     # in) break the 16-byte rows cp.async needs: the wrappers copy them
     B, H, S = 2, 3, 100
@@ -231,7 +260,7 @@ def test_bf16_kernels_on_unaligned_views(cuda, D):
     def view(base_off):
         n = B * H * S * (D + 1) + base_off
         flat = torch.from_numpy(rng.standard_normal(n).astype("float32")).to(
-            cuda, torch.bfloat16)
+            cuda, dtype)
         return flat[base_off:].view(B, H, S, D + 1)[..., :D]
 
     q, k, v, g = view(1), view(0), view(3), view(1)
@@ -248,21 +277,21 @@ def test_bf16_kernels_on_unaligned_views(cuda, D):
     torch.cuda.synchronize()
     ref, ref_lse = tfa.flash_attention_plain(q, k, v, mask, None, True, 0.0,
                                              layout="BHSD", return_lse=True)
-    torch.testing.assert_close(out.float(), ref.float(), atol=2e-2,
-                               rtol=2e-2)
+    torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=tol)
     torch.testing.assert_close(lse, ref_lse, atol=2e-4, rtol=2e-4)
     rb = tfa.flash_attention_bwd_plain(q, k, v, mask, None, out, lse, g,
                                        True, 0.0, "BHSD")
-    _assert_close_to_max(dq, rb[0], 2e-2, "dq")
-    _assert_close_to_max(dk, rb[1], 2e-2, "dk")
-    _assert_close_to_max(dv, rb[2], 2e-2, "dv")
+    _assert_close_to_max(dq, rb[0], tol, "dq")
+    _assert_close_to_max(dk, rb[1], tol, "dk")
+    _assert_close_to_max(dv, rb[2], tol, "dv")
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dropout", [0.0, 0.1])
 @pytest.mark.parametrize("dtype,part", [(torch.bfloat16, "dkv"),
                                         (torch.bfloat16, "dq"),
-                                        (torch.float32, "dkv")])
+                                        (torch.float32, "dkv"),
+                                        (torch.float32, "dq")])
 def test_backward_kernels_are_deterministic(cuda, dtype, part, dropout):
     q, k, v, g, mask = _inputs(cuda, dtype, "BSHD", 333, 64, 3)
     o, lse = tfa.flash_attention_bshd(q, k, v, mask, 9, True, dropout,
@@ -284,17 +313,20 @@ def test_backward_kernels_are_deterministic(cuda, dtype, part, dropout):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-4),
+                                       (torch.bfloat16, 2e-2)])
 @pytest.mark.parametrize("layout", ["BSHD", "BHSD"])
 @pytest.mark.parametrize("S,causal,dropout", [
     (129, True, 0.0), (200, False, 0.1), (257, True, 0.1), (320, False, 0.0)])
-def test_bf16_forward_on_a_large_grid(cuda, layout, S, causal, dropout):
+def test_forward_on_a_large_grid(cuda, dtype, tol, layout, S, causal,
+                                 dropout):
     # B * H = 288 heads: several blocks on every SM at once, as in
     # training; both the masked and the unmasked (interior-tile) paths
     rng = np.random.default_rng(S)
     B, H, D = 24, 12, 64
     shape = (B, S, H, D) if layout == "BSHD" else (B, H, S, D)
     q, k, v = (torch.from_numpy(rng.standard_normal(shape).astype("float32"))
-               .to(cuda, torch.bfloat16) for _ in range(3))
+               .to(cuda, dtype) for _ in range(3))
     mask = torch.from_numpy((rng.random((B, S)) > 0.2).astype("int32"))
     mask[:, 0] = 1
     mask[3] = 0                                  # a fully masked batch row
@@ -306,7 +338,7 @@ def test_bf16_forward_on_a_large_grid(cuda, layout, S, causal, dropout):
         ref, ref_lse = tfa.flash_attention_plain(q, k, v, m, 17, causal,
                                                  dropout, layout=layout,
                                                  return_lse=True)
-        torch.testing.assert_close(out.float(), ref.float(), atol=2e-2,
-                                   rtol=2e-2)
+        torch.testing.assert_close(out.float(), ref.float(), atol=tol,
+                                   rtol=tol)
         torch.testing.assert_close(lse, ref_lse, atol=2e-4, rtol=2e-4)
     assert bool((out[3] == 0).all())
