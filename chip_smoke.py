@@ -35,37 +35,65 @@ Builds the package's CUDA kernels from the sources in this checkout
    atomics anywhere on the path), and the dQ kernel, run twice on the same
    inputs at the training shape (fp32 and bf16, dropout 0 and 0.1), must
    give bitwise-equal results.
-3. **Forward kernel phase.** At the serving shapes (B 1, H 12, D 64, S 128
+3. **BERT phase: BERT-base pretraining at full width.** ``bert_base``
+   (units 768, 12 layers, 12 heads, hidden 3072, vocab 30522, max_length
+   128, dropout 0.1) with random N(0, 0.02) weights made from ``--seed``
+   with numpy (LayerNorm 1 and 0), written under reference names with
+   ``ndarray.save_ndarrays`` to a ``.params`` file under ``build/`` and
+   loaded back through ``convert.load_mxnet_params``. ``ShardedTrainer``
+   over ``PretrainStep`` with ``PretrainLoss`` and Adam at lr 1e-4, on one
+   ``synthetic_batch`` of the reference bench (batch 64, seq 128, 20
+   masks), repeated: 8 steps in float32, then 8 in ``dtype="bfloat16"``.
+   Every attention is non-causal with no key mask (``valid_len=None``, as
+   in the reference) and dropout 0.1 in the kernels. Checks that every loss
+   is finite and that the forward, dQ and dK/dV kernels each launched steps
+   x 12 times in that run. Then, with dropout 0 from the same weights, in
+   fp32 and in bf16: one step through ``PretrainStep``, and a forward and
+   backward of ``BERTModel`` + ``BERTPretrainingLoss(picked=True)`` with a
+   ``valid_len`` of lengths in 64..128 (a key mask in all three kernels),
+   each run again on the plain path: the losses must agree to 1e-4
+   relative and every gradient to 1e-3 of its largest |value| in fp32. In
+   bf16 the losses must agree to 1e-2, and both paths' gradients are held
+   against the fp32 plain path on the same weights: the kernel path's
+   worst distance (in units of each gradient's largest |value|) at most
+   twice the plain path's. Two dropout-0.1 steps under one
+   ``random.seed``, run twice, must give bitwise-equal losses and
+   second-step gradients.
+4. **Forward kernel phase.** At the serving shapes (B 1, H 12, D 64, S 128
    and 1024; causal with a key mask; both layouts; fp32 and bf16; a
    dropout case in each type), at B 8, S 512 with D 32 and D 128 (fp32,
-   BSHD, causal with a key mask) and at the training shape (B 32, S 512,
-   causal), each kernel call is held against ``flash_attention_plain`` on
-   the card (fp32 atol/rtol 2e-4: sums in another order; bf16 2e-2: P is
-   rounded to bf16 before PV) and timed with CUDA events, beside the plain
-   version and ``torch.nn.functional.scaled_dot_product_attention`` (the
-   yardstick only; the package never calls it): with ``is_causal=True`` and
+   BSHD, causal with a key mask), at the training shape (B 32, S 512,
+   causal) and at the BERT shape (B 64, S 128, BSHD, non-causal; without
+   and with a key mask, and with dropout 0.1; fp32 and bf16), each kernel
+   call is held against ``flash_attention_plain`` on the card (fp32
+   atol/rtol 2e-4: sums in another order; bf16 2e-2: P is rounded to bf16
+   before PV) and timed with CUDA events, beside the plain version and
+   ``torch.nn.functional.scaled_dot_product_attention`` (the yardstick
+   only; the package never calls it): with ``is_causal`` as the case and
    no mask where the case has no key mask, so that SDPA can take its flash
-   backend, and with the same boolean mask where it has one.
-4. **Backward kernel phase.** At B 8, S 512, H 12, D 64, causal with a key
+   backend, and with the same boolean mask (and the causal one, where the
+   case is causal) where it has one.
+5. **Backward kernel phase.** At B 8, S 512, H 12, D 64, causal with a key
    mask (both layouts, fp32 and bf16, a dropout case in each type, D 32 and
-   D 128 cases in each type) and at the training shape (B 32, S 512,
-   causal; fp32 and bf16), the dQ and the dK/dV kernels are held against
-   ``flash_attention_bwd_plain`` on the card (the largest error at most
-   2e-4 of the largest |value| in fp32, 2e-2 in bf16) and timed eager and
-   from a CUDA graph, beside their bound, the plain backward and
-   ``torch.autograd.grad`` through SDPA (the yardstick only; SDPA called
-   as in phase 3): eager with the forward outside the timed region, and
-   from a CUDA graph as the graph time of forward + backward less that of
-   the forward alone.
+   D 128 cases in each type), at the training shape (B 32, S 512, causal;
+   fp32 and bf16) and at the BERT shape (the cases of phase 4), the dQ and
+   the dK/dV kernels are held against ``flash_attention_bwd_plain`` on the
+   card (the largest error at most 2e-4 of the largest |value| in fp32,
+   2e-2 in bf16) and timed eager and from a CUDA graph, beside their bound,
+   the plain backward and ``torch.autograd.grad`` through SDPA (the
+   yardstick only; SDPA called as in phase 4): eager with the forward
+   outside the timed region, and from a CUDA graph as the graph time of
+   forward + backward less that of the forward alone.
 
 With ``--profile`` the burst is served a second time, and two fp32 and two
-bf16 training steps are run, under ``torch.profiler`` (after the checked
-runs) to print the device's busy share and its top kernels.
+bf16 training steps and two bf16 BERT steps are run, under
+``torch.profiler`` (after the checked runs) to print the device's busy
+share and its top kernels.
 
-Prints the serving and training numbers, one ``{"kernels": [...]}`` line
-(the numbers of the training shape in fp32, and under ``*_bf16`` keys in
-bf16), the card's name and power limit, and last ``{"ok": true,
-"device": {...}}``.
+Prints the serving, training and BERT numbers, one ``{"kernels": [...]}``
+line (the numbers of the training shape in fp32, under ``*_bf16`` keys in
+bf16, and under ``bert`` those of the BERT shape), the card's name and
+power limit, and last ``{"ok": true, "device": {...}}``.
 Any failure exits non-zero before that line. Without CUDA it exits 2.
 """
 from __future__ import annotations
@@ -99,6 +127,19 @@ KERNELS = {
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 32, 512, 8
 LOSS_RTOL = 1e-4      # first fp32 step, kernel path vs plain path
 GRAD_TOL = 1e-3       # of each gradient's largest |value|
+# BERT pretraining: the reference bench's configuration
+# (benchmark/bench_lm.py:107-150)
+BERT_BATCH, BERT_SEQ, BERT_MASKS, BERT_VOCAB, BERT_STEPS = 64, 128, 20, \
+    30522, 8
+# bf16, kernel path vs plain path: both round activations to bf16 (2^-8
+# relative) op by op, in other places (the kernel rounds P once, the plain
+# path its scores and softmax), through 12 layers. Gradients that cancel
+# over the batch (the NSP bias: 64 terms of about +-0.5) are far off in
+# either path, so the bf16 gradients are held against the fp32 plain path
+# on the same weights instead: the kernel path's worst distance at most
+# twice the bf16 plain path's.
+BF16_LOSS_RTOL = 1e-2
+BF16_GRAD_FACTOR = 2.0
 
 
 def fail(msg):
@@ -306,6 +347,75 @@ def train_steps(torch, trainer, x, y, n):
     return [float(v) for v in losses], [a.elapsed_time(b) for a, b in events]
 
 
+def kernel_launches():
+    from mxnet_tpu_torch.ops import flash_attention as fa
+    return {"flash_attn_fwd": fa.flash_attention_bshd.launches,
+            "flash_attn_fwd_bhsd": fa.flash_attention.launches,
+            "flash_attn_bwd_dq": fa.flash_attention_bwd_dq.launches,
+            "flash_attn_bwd_dkv": fa.flash_attention_bwd_dkv.launches}
+
+
+def on_plain_path(run, what):
+    """``run()`` with ``MXNET_FLASH_ATTENTION=0``; it must launch no
+    kernel."""
+    before = sum(kernel_launches().values())
+    os.environ["MXNET_FLASH_ATTENTION"] = "0"
+    try:
+        res = run()
+    finally:
+        del os.environ["MXNET_FLASH_ATTENTION"]
+    if sum(kernel_launches().values()) != before:
+        fail("%s: the plain path launched a kernel" % what)
+    return res
+
+
+def rel_to_max(a, ref):
+    return (a.float() - ref.float()).abs().max().item() / max(
+        ref.float().abs().max().item(), 1e-30)
+
+
+def against_plain(run, loss_tol, grad_tol, what, kernel=None, truth=None):
+    """``run()`` -> ``(loss, {name: gradient})`` on the kernel path (or
+    ``kernel``, its result already taken) and again on the plain path,
+    which must launch no kernel: the losses must agree to ``loss_tol``
+    relative, and every gradient to ``grad_tol`` of its largest |value|.
+
+    Given ``truth``, the same function in fp32 on the same weights, both
+    paths' gradients are held against it instead, each by its distance
+    from the truth in units of the truth's largest |value|: the kernel
+    path's worst distance must be at most ``grad_tol`` times the plain
+    path's worst (the kernel path as accurate as the plain path). Returns
+    what was compared."""
+    loss_k, grads_k = kernel if kernel is not None else run()
+    loss_p, grads_p = on_plain_path(run, what)
+    loss_rel = abs(loss_k - loss_p) / abs(loss_p)
+    if not loss_rel <= loss_tol:
+        fail("%s: loss %r != plain path %r (rel %g > %g)"
+             % (what, loss_k, loss_p, loss_rel, loss_tol))
+    ref = grads_p if truth is None else truth[1]
+    err_k = {n: rel_to_max(grads_k[n], r) for n, r in ref.items()}
+    worst = max(err_k, key=err_k.get)
+    out = {"loss_kernel": loss_k, "loss_plain": loss_p,
+           "loss_rel_err": loss_rel, "loss_tol": loss_tol,
+           "grad_worst_param": worst, "grad_worst_rel_to_max": err_k[worst],
+           "grad_tol": grad_tol}
+    limit = grad_tol
+    if truth is not None:
+        err_p = {n: rel_to_max(grads_p[n], r) for n, r in ref.items()}
+        worst_p = max(err_p, key=err_p.get)
+        limit = grad_tol * err_p[worst_p]
+        out.update(loss_fp32=truth[0], grad_worst_plain_param=worst_p,
+                   grad_worst_plain_rel_to_max=err_p[worst_p],
+                   grad_top_kernel=sorted(err_k.items(),
+                                          key=lambda kv: -kv[1])[:4],
+                   grad_top_plain=sorted(err_p.items(),
+                                         key=lambda kv: -kv[1])[:4])
+    if err_k[worst] > limit:
+        fail("%s: gradient of %s off by %g of its max (limit %g)"
+             % (what, worst, err_k[worst], limit))
+    return out
+
+
 def train_phase(args, torch):
     from mxnet_tpu_torch import convert
     from mxnet_tpu_torch import random as trandom
@@ -346,10 +456,7 @@ def train_phase(args, torch):
         del tr
         torch.cuda.empty_cache()
     steps = 2 * TRAIN_STEPS
-    launches = {"flash_attn_fwd": fa.flash_attention_bshd.launches,
-                "flash_attn_fwd_bhsd": fa.flash_attention.launches,
-                "flash_attn_bwd_dq": fa.flash_attention_bwd_dq.launches,
-                "flash_attn_bwd_dkv": fa.flash_attention_bwd_dkv.launches}
+    launches = kernel_launches()
     out["launches"] = launches
     want = steps * model.num_layers
     for name in ("flash_attn_fwd", "flash_attn_bwd_dq", "flash_attn_bwd_dkv"):
@@ -361,36 +468,15 @@ def train_phase(args, torch):
         fail("the fp32 loss did not fall: %r" % fp32)
 
     # the first fp32 step again, from the same weights, on the plain path
-    before = sum(launches.values())
-    os.environ["MXNET_FLASH_ATTENTION"] = "0"
-    try:
+    def first_step():
         tr = trainer(model)
-        loss_p = float(tr.step(x, y))
-        grads_p = {n: v.grad for n, v in tr.values.items()}
-    finally:
-        del os.environ["MXNET_FLASH_ATTENTION"]
-    if fa.flash_attention_bshd.launches + fa.flash_attention.launches + \
-            fa.flash_attention_bwd_dq.launches + \
-            fa.flash_attention_bwd_dkv.launches != before:
-        fail("the plain-path step launched a kernel")
-    loss_rel = abs(fp32[0] - loss_p) / abs(loss_p)
-    if not loss_rel <= LOSS_RTOL:
-        fail("first-step loss %r != plain path %r (rel %g)"
-             % (fp32[0], loss_p, loss_rel))
-    worst = ("", 0.0)
-    for name, gp in grads_p.items():
-        err = (grads1[name] - gp).abs().max().item()
-        ratio = err / max(gp.abs().max().item(), 1e-30)
-        if ratio > worst[1]:
-            worst = (name, ratio)
-    if worst[1] > GRAD_TOL:
-        fail("gradient of %s differs from the plain path by %g of its max"
-             % worst)
-    out["plain_check"] = {"loss_kernel": fp32[0], "loss_plain": loss_p,
-                          "loss_rel_err": loss_rel,
-                          "grad_worst_param": worst[0],
-                          "grad_worst_rel_to_max": worst[1]}
-    del tr, grads_p, grads1
+        return float(tr.step(x, y)), {n: v.grad for n, v in
+                                      tr.values.items()}
+
+    out["plain_check"] = against_plain(first_step, LOSS_RTOL, GRAD_TOL,
+                                       "first fp32 step",
+                                       kernel=(fp32[0], grads1))
+    del grads1
     torch.cuda.empty_cache()
 
     # dropout 0.1: two steps under one seed, twice, bitwise-equal losses
@@ -415,6 +501,186 @@ def train_phase(args, torch):
                 torch, lambda: train_steps(torch, tr, x, y, 2))
             del tr
     del net, model
+    torch.cuda.empty_cache()
+    return out
+
+
+def bert_phase(args, torch):
+    """BERT-base pretraining at the reference bench's configuration."""
+    from mxnet_tpu_torch import convert
+    from mxnet_tpu_torch import random as trandom
+    from mxnet_tpu_torch.models import (BERTPretrainingLoss, PretrainLoss,
+                                        PretrainStep, bert_base,
+                                        synthetic_batch)
+    from mxnet_tpu_torch.ndarray import save_ndarrays
+    from mxnet_tpu_torch.ops import flash_attention as fa
+    from mxnet_tpu_torch.parallel import ShardedTrainer
+    dev = torch.device("cuda")
+    model = bert_base(vocab_size=BERT_VOCAB, max_length=BERT_SEQ, device=dev)
+    # the weights go through a .params file under reference names
+    params = random_params(model, args.seed)
+    build = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(build, exist_ok=True)
+    path = os.path.join(build, "bert_base_seed%d.params" % args.seed)
+    save_ndarrays(path, list(params.values()), list(params))
+    try:
+        convert.load_mxnet_params(model, path)
+    finally:
+        os.remove(path)
+    del params
+    batch = synthetic_batch(np.random.default_rng(args.seed + 4), BERT_BATCH,
+                            BERT_SEQ, BERT_VOCAB, BERT_MASKS)
+    data = tuple(torch.from_numpy(a).to(dev) for a in batch)
+    dummy = torch.zeros(BERT_BATCH, device=dev)
+
+    def trainer(net, dtype=None):
+        return ShardedTrainer(PretrainStep(net), PretrainLoss(), "adam",
+                              {"learning_rate": 1e-4}, dtype=dtype,
+                              device=dev)
+
+    out = {"model": "bert_base", "batch": BERT_BATCH, "seq": BERT_SEQ,
+           "masks": BERT_MASKS, "vocab": BERT_VOCAB, "dropout": 0.1,
+           "steps_per_dtype": BERT_STEPS}
+    fa.reset_launches()
+    for dname in ("float32", "bfloat16"):
+        torch.cuda.reset_peak_memory_stats()
+        tr = trainer(model, None if dname == "float32" else dname)
+        first, ms0 = train_steps(torch, tr, data, dummy, 1)
+        rest, ms = train_steps(torch, tr, data, dummy, BERT_STEPS - 1)
+        losses = first + rest
+        if not all(np.isfinite(losses)):
+            fail("BERT %s losses not finite: %r" % (dname, losses))
+        step_ms = float(np.mean(ms))
+        t = out[dname] = {
+            "losses": losses, "first_step_ms": ms0[0],
+            "step_ms_mean": step_ms, "step_ms": ms,
+            "sequences_s": BERT_BATCH / step_ms * 1e3,
+            "tokens_s": BERT_BATCH * BERT_SEQ / step_ms * 1e3,
+            "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9}
+        print("bert %s: bert_base b%d s%d m%d vocab %d dropout 0.1, step "
+              "%.2f ms mean (first %.2f ms), %.1f sequences/s, %.1f "
+              "tokens/s, peak memory %.2f GB, losses %s"
+              % (dname, BERT_BATCH, BERT_SEQ, BERT_MASKS, BERT_VOCAB,
+                 t["step_ms_mean"], t["first_step_ms"], t["sequences_s"],
+                 t["tokens_s"], t["max_memory_allocated_gb"],
+                 ", ".join("%.4f" % v for v in t["losses"])), flush=True)
+        del tr
+        torch.cuda.empty_cache()
+    launches = kernel_launches()
+    out["launches"] = launches
+    want = 2 * BERT_STEPS * len(model.encoder.layers)
+    for name in ("flash_attn_fwd", "flash_attn_bwd_dq", "flash_attn_bwd_dkv"):
+        if launches[name] != want:
+            fail("BERT: %s launched %d times in %d steps x %d layers"
+                 % (name, launches[name], 2 * BERT_STEPS,
+                    len(model.encoder.layers)))
+    if launches["flash_attn_fwd_bhsd"]:
+        fail("BERT launched the (B, H, S, D) forward")
+
+    # against the plain path, dropout 0, from the same weights: one step
+    # through PretrainStep (valid_len None), and a forward and backward of
+    # BERTModel + BERTPretrainingLoss with a valid_len (a key mask)
+    rng = np.random.default_rng(args.seed + 5)
+    lens = torch.from_numpy(rng.integers(64, BERT_SEQ + 1, BERT_BATCH)
+                            .astype("float32")).to(dev)
+    tokens, segments, positions, labels, weights, nsp = data
+    loss_fn = BERTPretrainingLoss(picked=True)
+
+    def launched(run):
+        """``run()``, which must launch each kernel once per layer."""
+        n0 = kernel_launches()
+        res = run()
+        n1 = kernel_launches()
+        for name in ("flash_attn_fwd", "flash_attn_bwd_dq",
+                     "flash_attn_bwd_dkv"):
+            if n1[name] - n0[name] != len(model.encoder.layers):
+                fail("BERT check: %s launched %d times"
+                     % (name, n1[name] - n0[name]))
+        return res
+
+    def one_step(net):
+        def run():
+            tr = trainer(net)
+            return float(tr.step(data, dummy)), {
+                n: v.grad for n, v in tr.values.items()}
+        return run
+
+    def masked(net):
+        def run():
+            net.zero_grad(set_to_none=True)
+            _, _, mlm, nspl = net(tokens, segments, lens, positions)
+            loss = loss_fn(mlm, nspl, labels, positions, weights, nsp)
+            loss.backward()
+            return float(loss.detach()), {n: p.grad.detach().clone()
+                                          for n, p in net.named_parameters()}
+        return run
+
+    def dropout_free(dt):
+        net = bert_base(vocab_size=BERT_VOCAB, max_length=BERT_SEQ,
+                        dropout=0.0, device=dev, dtype=dt)
+        net.load_state_dict(model.state_dict())
+        return net
+
+    checks = {}
+    for dname, dt, ltol, gtol in (
+            ("float32", torch.float32, LOSS_RTOL, GRAD_TOL),
+            ("bfloat16", torch.bfloat16, BF16_LOSS_RTOL, BF16_GRAD_FACTOR)):
+        net = dropout_free(dt)
+        if dt == torch.bfloat16:
+            net32 = dropout_free(torch.float32)
+            net32.load_state_dict(net.state_dict())   # the bf16 values
+        checks[dname] = {}
+        for what, make in (("step", one_step), ("valid_len", masked)):
+            truth = None
+            if dt == torch.bfloat16:
+                truth = on_plain_path(make(net32), "BERT fp32 " + what)
+            c = against_plain(make(net), ltol, gtol,
+                              "BERT %s %s" % (dname, what),
+                              kernel=launched(make(net)), truth=truth)
+            checks[dname][what] = c
+            print("bert %s %s vs plain path (dropout 0): loss rel err %.3g "
+                  "(tol %g), worst gradient %s at %.3g of its max%s"
+                  % (dname, what, c["loss_rel_err"], c["loss_tol"],
+                     c["grad_worst_param"], c["grad_worst_rel_to_max"],
+                     " (tol %g)" % c["grad_tol"] if truth is None else
+                     " from the fp32 path, the bf16 plain path's worst %s "
+                     "at %.3g (tol: %g times it); top kernel %s; top plain "
+                     "%s" % (
+                         c["grad_worst_plain_param"],
+                         c["grad_worst_plain_rel_to_max"], c["grad_tol"],
+                         c["grad_top_kernel"], c["grad_top_plain"])),
+                  flush=True)
+            del truth
+        del net
+        torch.cuda.empty_cache()
+    out["plain_check"] = checks
+    out["valid_len"] = [int(v) for v in lens.tolist()]
+
+    # dropout 0.1: two steps under one seed, twice, bitwise-equal losses
+    # and gradients of the second step
+    runs, grads = [], []
+    for _ in range(2):
+        trandom.seed(args.seed + 6)
+        tr = trainer(model)
+        runs.append(train_steps(torch, tr, data, dummy, 2)[0])
+        grads.append({n: v.grad for n, v in tr.values.items()})
+        del tr
+    if runs[0] != runs[1]:
+        fail("BERT dropout steps are not repeatable: %r != %r" % tuple(runs))
+    differ = [n for n in grads[0] if not torch.equal(grads[0][n],
+                                                     grads[1][n])]
+    if differ:
+        fail("BERT dropout step gradients are not repeatable: %s"
+             % ", ".join(differ))
+    del grads
+    out["dropout_losses"] = runs[0]
+    if args.profile:
+        tr = trainer(model, "bfloat16")
+        tr.step(data, dummy)
+        out["profile_bfloat16"] = profile(
+            torch, lambda: train_steps(torch, tr, data, dummy, 2))
+        del tr
+    del model
     torch.cuda.empty_cache()
     return out
 
@@ -514,64 +780,81 @@ def attention_inputs(torch, g, B, S, H, D, layout, dt, n, masked):
     return xs, mask
 
 
-def sdpa(torch, F, B, S, mask):
-    """The causal SDPA call for (B, H, S, D) inputs: ``is_causal=True``
-    without a mask where there is no key mask (its flash backend can run),
-    else the causal and key masks as one boolean mask."""
+def sdpa(torch, F, B, S, mask, causal=True):
+    """The SDPA call for (B, H, S, D) inputs: with no key mask,
+    ``is_causal`` alone and no mask (its flash backend can run); with one,
+    the causal (when ``causal``) and key masks as one boolean mask."""
     if mask is None:
         return lambda q, k, v: F.scaled_dot_product_attention(
-            q, k, v, is_causal=True)
-    keep = torch.ones((S, S), dtype=torch.bool, device="cuda").tril()
-    keep = keep & mask.bool().reshape(B, 1, 1, S)
+            q, k, v, is_causal=causal)
+    keep = mask.bool().reshape(B, 1, 1, S)
+    if causal:
+        keep = keep & torch.ones((S, S), dtype=torch.bool,
+                                 device="cuda").tril()
     return lambda q, k, v: F.scaled_dot_product_attention(q, k, v,
                                                           attn_mask=keep)
 
 
+def bert_specs(torch):
+    """The kernel cases of BERT pretraining: B 64, S 128, H 12, D 64, BSHD,
+    non-causal, fp32 and bf16, without and with a key mask, and with the
+    training's dropout 0.1 (``(B, S, D, layout, dtype, dropout, key mask,
+    causal)``)."""
+    return [(BERT_BATCH, BERT_SEQ, 64, "BSHD", dt, drop, masked, False)
+            for dt in (torch.float32, torch.bfloat16)
+            for drop, masked in ((0.0, False), (0.0, True), (0.1, False))]
+
+
 def kernel_phase(torch):
-    """The forward kernel at the serving shapes and the training shape."""
+    """The forward kernel at the serving shapes, the training shape and
+    the BERT shape."""
     import torch.nn.functional as F
     from mxnet_tpu_torch.ops import flash_attention as fa
     g = torch.Generator(device="cuda").manual_seed(1234)
     cases = []
     H = 12
-    specs = [(1, S, 64, layout, dt, 0.0, True) for S in (128, 1024)
+    specs = [(1, S, 64, layout, dt, 0.0, True, True) for S in (128, 1024)
              for layout in ("BSHD", "BHSD")
              for dt in (torch.float32, torch.bfloat16)]
-    specs += [(1, 1024, 64, "BSHD", dt, 0.1, True)
+    specs += [(1, 1024, 64, "BSHD", dt, 0.1, True, True)
               for dt in (torch.float32, torch.bfloat16)]
-    specs += [(8, 512, D, "BSHD", torch.float32, 0.0, True) for D in (32, 128)]
-    specs += [(TRAIN_BATCH, TRAIN_SEQ, 64, "BSHD", dt, 0.0, False)
+    specs += [(8, 512, D, "BSHD", torch.float32, 0.0, True, True)
+              for D in (32, 128)]
+    specs += [(TRAIN_BATCH, TRAIN_SEQ, 64, "BSHD", dt, 0.0, False, True)
               for dt in (torch.float32, torch.bfloat16)]
-    for B, S, D, layout, dt, drop, masked in specs:
+    specs += bert_specs(torch)
+    for B, S, D, layout, dt, drop, masked, causal in specs:
         (q, k, v), mask = attention_inputs(torch, g, B, S, H, D, layout, dt,
                                            3, masked)
         fn = fa.flash_attention_bshd if layout == "BSHD" else \
             fa.flash_attention
         seed = 20240601 if drop else None
-        out = fn(q, k, v, mask, seed, True, drop)
+        out = fn(q, k, v, mask, seed, causal, drop)
         torch.cuda.synchronize()
-        ref = fa.flash_attention_plain(q, k, v, mask, seed, True, drop,
+        ref = fa.flash_attention_plain(q, k, v, mask, seed, causal, drop,
                                        layout=layout)
         tol = 2e-4 if dt == torch.float32 else 2e-2
         err = (out.float() - ref.float()).abs().max().item()
         if not torch.allclose(out.float(), ref.float(), atol=tol, rtol=tol):
-            fail("kernel != plain: B=%d S=%d D=%d %s %s dropout=%s "
-                 "max_err=%g" % (B, S, D, layout, dt, drop, err))
-        ms = time_ms(torch, lambda: fn(q, k, v, mask, seed, True, drop))
-        dev_ms = graph_ms(torch, lambda: fn(q, k, v, mask, seed, True, drop))
+            fail("kernel != plain: B=%d S=%d D=%d %s %s causal=%s "
+                 "dropout=%s max_err=%g" % (B, S, D, layout, dt, causal,
+                                            drop, err))
+        ms = time_ms(torch, lambda: fn(q, k, v, mask, seed, causal, drop))
+        dev_ms = graph_ms(torch, lambda: fn(q, k, v, mask, seed, causal,
+                                            drop))
         plain_ms = time_ms(torch, lambda: fa.flash_attention_plain(
-            q, k, v, mask, seed, True, drop, layout=layout), iters=5)
+            q, k, v, mask, seed, causal, drop, layout=layout), iters=5)
         lib_ms = lib_graph_ms = None
         if drop == 0.0:
             qb, kb, vb = ((x.transpose(1, 2) if layout == "BSHD" else x)
                           for x in (q, k, v))
-            lib = sdpa(torch, F, B, S, mask)
+            lib = sdpa(torch, F, B, S, mask, causal)
             lib_ms = time_ms(torch, lambda: lib(qb, kb, vb))
             lib_graph_ms = graph_ms(torch, lambda: lib(qb, kb, vb))
         dname = str(dt).replace("torch.", "")
-        b_ms, b_by = bound(B, H, S, D, dname, True)
+        b_ms, b_by = bound(B, H, S, D, dname, causal)
         cases.append({"B": B, "S": S, "H": H, "D": D, "layout": layout,
-                      "dtype": dname, "dropout": drop, "causal": True,
+                      "dtype": dname, "dropout": drop, "causal": causal,
                       "key_mask": masked, "max_abs_err": err, "tol": tol,
                       "ms": ms, "graph_ms": dev_ms, "plain_ms": plain_ms,
                       "library_ms": lib_ms, "library_graph_ms": lib_graph_ms,
@@ -586,55 +869,56 @@ def bwd_phase(torch):
     g = torch.Generator(device="cuda").manual_seed(4321)
     cases = []
     H = 12
-    specs = [(8, 512, 64, layout, dt, 0.0, True)
+    specs = [(8, 512, 64, layout, dt, 0.0, True, True)
              for layout in ("BSHD", "BHSD")
              for dt in (torch.float32, torch.bfloat16)]
-    specs += [(8, 512, D, "BSHD", dt, drop, True)
+    specs += [(8, 512, D, "BSHD", dt, drop, True, True)
               for dt in (torch.float32, torch.bfloat16)
               for D, drop in ((64, 0.1), (32, 0.0), (128, 0.0))]
-    specs += [(TRAIN_BATCH, TRAIN_SEQ, 64, "BSHD", dt, 0.0, False)
+    specs += [(TRAIN_BATCH, TRAIN_SEQ, 64, "BSHD", dt, 0.0, False, True)
               for dt in (torch.float32, torch.bfloat16)]
-    for B, S, D, layout, dt, drop, masked in specs:
+    specs += bert_specs(torch)
+    for B, S, D, layout, dt, drop, masked, causal in specs:
         (q, k, v, do), mask = attention_inputs(torch, g, B, S, H, D, layout,
                                                dt, 4, masked)
         fn = fa.flash_attention_bshd if layout == "BSHD" else \
             fa.flash_attention
         seed = 20240602 if drop else None
-        o, lse = fn(q, k, v, mask, seed, True, drop, return_lse=True)
+        o, lse = fn(q, k, v, mask, seed, causal, drop, return_lse=True)
         delta = fa._delta(do, o, layout)
-        args = (q, k, v, do, lse, delta, mask, seed, True, drop, layout)
+        args = (q, k, v, do, lse, delta, mask, seed, causal, drop, layout)
         dq = fa.flash_attention_bwd_dq(*args)
         dk, dv = fa.flash_attention_bwd_dkv(*args)
         torch.cuda.synchronize()
         ref = fa.flash_attention_bwd_plain(q, k, v, mask, seed, o, lse, do,
-                                           True, drop, layout)
+                                           causal, drop, layout)
         tol = 2e-4 if dt == torch.float32 else 2e-2
         errs = {}
         for name, a, r in zip(("dq", "dk", "dv"), (dq, dk, dv), ref):
             err = (a.float() - r.float()).abs().max().item()
             top = r.float().abs().max().item()
             if not err <= tol * top:
-                fail("%s kernel != plain: B=%d S=%d D=%d %s %s dropout=%s "
-                     "max_err=%g max|ref|=%g" % (name, B, S, D, layout, dt,
-                                                 drop, err, top))
+                fail("%s kernel != plain: B=%d S=%d D=%d %s %s causal=%s "
+                     "dropout=%s max_err=%g max|ref|=%g"
+                     % (name, B, S, D, layout, dt, causal, drop, err, top))
             errs[name] = (err, err / top)
         times = {}
         for name, kern, products, n_out in (
                 ("dq", fa.flash_attention_bwd_dq, 3, 1),
                 ("dkv", fa.flash_attention_bwd_dkv, 4, 2)):
             dname = str(dt).replace("torch.", "")
-            b_ms, b_by = bound(B, H, S, D, dname, True, products, 4, n_out,
-                               2)
+            b_ms, b_by = bound(B, H, S, D, dname, causal, products, 4,
+                               n_out, 2)
             times[name] = {"ms": time_ms(torch, lambda: kern(*args)),
                            "graph_ms": graph_ms(torch, lambda: kern(*args)),
                            "bound_ms": b_ms, "bound_by": b_by}
         plain_ms = time_ms(torch, lambda: fa.flash_attention_bwd_plain(
-            q, k, v, mask, seed, o, lse, do, True, drop, layout), iters=5)
+            q, k, v, mask, seed, o, lse, do, causal, drop, layout), iters=5)
         lib_ms = lib_graph_ms = None
         if drop == 0.0:
             leaves = [(x.transpose(1, 2) if layout == "BSHD" else x)
                       .detach().requires_grad_() for x in (q, k, v)]
-            lib = sdpa(torch, F, B, S, mask)
+            lib = sdpa(torch, F, B, S, mask, causal)
             lib_out = lib(*leaves)
             lib_do = do.transpose(1, 2) if layout == "BSHD" else do
             lib_ms = time_ms(torch, lambda: torch.autograd.grad(
@@ -653,7 +937,7 @@ def bwd_phase(torch):
             del leaves
         cases.append({"B": B, "S": S, "H": H, "D": D, "layout": layout,
                       "dtype": str(dt).replace("torch.", ""),
-                      "dropout": drop, "causal": True, "key_mask": masked,
+                      "dropout": drop, "causal": causal, "key_mask": masked,
                       "tol_rel_to_max": tol,
                       "max_abs_err": {n: e[0] for n, e in errs.items()},
                       "max_err_rel_to_max": {n: e[1]
@@ -696,13 +980,33 @@ def ptxas_summary(_build, name):
     return "%s: ptxas %d kernels: %s" % (name, len(parts), ", ".join(parts))
 
 
-def kernel_entries(serving, training, fwd_cases, bwd_cases):
+def kernel_entries(serving, training, bert, fwd_cases, bwd_cases):
     """The ``{"kernels": [...]}`` entries: numbers of the main path's
     training shape (B 32, S 512, H 12, D 64, BSHD, causal) in fp32, and
-    under ``*_bf16`` keys in bf16."""
+    under ``*_bf16`` keys in bf16; under ``bert``, the numbers of the BERT
+    shape (B 64, S 128, non-causal) without and with a key mask."""
     def main(cases, dtype="float32"):
         return next(c for c in cases if c["B"] == TRAIN_BATCH
                     and c["layout"] == "BSHD" and c["dtype"] == dtype)
+
+    def bert_rows(cases, part=None):
+        rows = {}
+        for c in cases:
+            if c["B"] != BERT_BATCH or c["dropout"]:
+                continue
+            t = c if part is None else c[part]
+            rows["%s_%s" % (c["dtype"], "key_mask" if c["key_mask"]
+                            else "no_mask")] = {
+                "ms": t["ms"], "graph_ms": t["graph_ms"],
+                "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+                "plain_ms": c["plain_ms" if part is None else "plain_bwd_ms"],
+                "library_ms": c["library_ms" if part is None
+                                else "library_bwd_ms"],
+                "library_graph_ms": c["library_graph_ms" if part is None
+                                      else "library_bwd_graph_ms"]}
+        rows["timed_case"] = "B=%d S=%d H=12 D=64 BSHD non-causal" % (
+            BERT_BATCH, BERT_SEQ)
+        return rows
 
     fm, fb = main(fwd_cases), main(fwd_cases, "bfloat16")
     timed = "B=%d S=%d H=12 D=64 BSHD causal, float32 (*_bf16: bfloat16)" \
@@ -718,10 +1022,13 @@ def kernel_entries(serving, training, fwd_cases, bwd_cases):
         "library_graph_ms_bf16": fb["library_graph_ms"],
         "max_abs_err": max(c["max_abs_err"] for c in fwd_cases),
         "launches": serving["flash_launches"]
-        + training["launches"]["flash_attn_fwd"],
+        + training["launches"]["flash_attn_fwd"]
+        + bert["launches"]["flash_attn_fwd"],
         "launches_by_path": {
             "serving": serving["flash_launches"],
-            "training": training["launches"]["flash_attn_fwd"]},
+            "training": training["launches"]["flash_attn_fwd"],
+            "bert": bert["launches"]["flash_attn_fwd"]},
+        "bert": bert_rows(fwd_cases),
         "cases": fwd_cases}]
     bm, bb = main(bwd_cases), main(bwd_cases, "bfloat16")
     for name, part in (("flash_attn_bwd_dq", "dq"),
@@ -742,9 +1049,12 @@ def kernel_entries(serving, training, fwd_cases, bwd_cases):
             "library_ms_bf16": bb["library_bwd_ms"],
             "library_graph_ms_bf16": bb["library_bwd_graph_ms"],
             "max_abs_err": max(errs),
-            "launches": training["launches"][name],
+            "launches": training["launches"][name]
+            + bert["launches"][name],
             "launches_by_path": {"serving": 0,
-                                 "training": training["launches"][name]}})
+                                 "training": training["launches"][name],
+                                 "bert": bert["launches"][name]},
+            "bert": bert_rows(bwd_cases, part)})
     for e in entries:
         src, main_line, also = KERNELS[e["name"]]
         e.update(route="cuda", source="mxnet_tpu_torch/csrc/%s.cu" % src,
@@ -808,11 +1118,18 @@ def main():
              training["dropout_losses"],
              training["dq_repeat_dropouts"]))
 
+    bert = bert_phase(args, torch)
+    print("bert: launches %s; valid_len %d..%d in the key-mask check; "
+          "dropout losses repeat %s"
+          % (bert["launches"], min(bert["valid_len"]),
+             max(bert["valid_len"]), bert["dropout_losses"]))
+
     for tag, prof in (("serving burst", serving["profile"]),
                       ("2 fp32 training steps",
                        training.get("profile_float32")),
                       ("2 bf16 training steps",
-                       training.get("profile_bfloat16"))):
+                       training.get("profile_bfloat16")),
+                      ("2 bf16 BERT steps", bert.get("profile_bfloat16"))):
         if prof is not None:
             print("profile %s: %.1f ms wall, device busy %.1f ms (%.1f%%), "
                   "%d kernels; top: %s" % (
@@ -827,35 +1144,36 @@ def main():
     for c in fwd_cases:
         lib = "-" if c["library_ms"] is None else "%.4f ms (graph %.4f)" % (
             c["library_ms"], c["library_graph_ms"])
-        print("kernel fwd: B=%-2d S=%-5d D=%-3d %s %-8s dropout=%.1f  %.4f "
-              "ms (graph %.4f)  plain %.4f ms  library %s  bound %.4f ms "
-              "(%s)  max_err %.3g" % (c["B"], c["S"], c["D"], c["layout"],
-                                      c["dtype"], c["dropout"], c["ms"],
-                                      c["graph_ms"], c["plain_ms"], lib,
-                                      c["bound_ms"], c["bound_by"],
-                                      c["max_abs_err"]))
+        print("kernel fwd: B=%-2d S=%-5d D=%-3d %s %-8s %s mask=%d "
+              "dropout=%.1f  %.4f ms (graph %.4f)  plain %.4f ms  library "
+              "%s  bound %.4f ms (%s)  max_err %.3g"
+              % (c["B"], c["S"], c["D"], c["layout"], c["dtype"],
+                 "causal" if c["causal"] else "full", c["key_mask"],
+                 c["dropout"], c["ms"], c["graph_ms"], c["plain_ms"], lib,
+                 c["bound_ms"], c["bound_by"], c["max_abs_err"]))
     bwd_cases = bwd_phase(torch)
     for c in bwd_cases:
         lib = "-" if c["library_bwd_ms"] is None else \
             "%.4f ms (graph %.4f)" % (c["library_bwd_ms"],
                                       c["library_bwd_graph_ms"])
-        print("kernel bwd: B=%-2d S=%d D=%-3d %s %-8s dropout=%.1f  dq %.4f "
-              "ms (graph %.4f, bound %.4f %s)  dkv %.4f ms (graph %.4f, "
-              "bound %.4f %s)  plain bwd %.4f ms  library bwd %s  err/max "
-              "%s" % (c["B"], c["S"], c["D"], c["layout"], c["dtype"],
-                      c["dropout"], c["dq"]["ms"], c["dq"]["graph_ms"],
-                      c["dq"]["bound_ms"], c["dq"]["bound_by"],
-                      c["dkv"]["ms"], c["dkv"]["graph_ms"],
-                      c["dkv"]["bound_ms"], c["dkv"]["bound_by"],
-                      c["plain_bwd_ms"], lib,
-                      ",".join("%.2g" % v for v in
-                               c["max_err_rel_to_max"].values())))
-    entries = kernel_entries(serving, training, fwd_cases, bwd_cases)
+        print("kernel bwd: B=%-2d S=%d D=%-3d %s %-8s %s mask=%d "
+              "dropout=%.1f  dq %.4f ms (graph %.4f, bound %.4f %s)  dkv "
+              "%.4f ms (graph %.4f, bound %.4f %s)  plain bwd %.4f ms  "
+              "library bwd %s  err/max %s"
+              % (c["B"], c["S"], c["D"], c["layout"], c["dtype"],
+                 "causal" if c["causal"] else "full", c["key_mask"],
+                 c["dropout"], c["dq"]["ms"], c["dq"]["graph_ms"],
+                 c["dq"]["bound_ms"], c["dq"]["bound_by"], c["dkv"]["ms"],
+                 c["dkv"]["graph_ms"], c["dkv"]["bound_ms"],
+                 c["dkv"]["bound_by"], c["plain_bwd_ms"], lib,
+                 ",".join("%.2g" % v for v in
+                          c["max_err_rel_to_max"].values())))
+    entries = kernel_entries(serving, training, bert, fwd_cases, bwd_cases)
     card = card_line()
     if args.out:
         with open(args.out, "w") as f:
             json.dump({"serving": serving, "training": training,
-                       "kernels": entries, "card": card,
+                       "bert": bert, "kernels": entries, "card": card,
                        "build_s": build_s}, f, indent=1)
     print(json.dumps({"kernels": [{k: v for k, v in e.items()
                                    if k != "cases"} for e in entries]}))

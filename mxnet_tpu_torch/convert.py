@@ -1,10 +1,11 @@
-"""Carry a ``TransformerLM``'s weights across from the JAX package.
+"""Carry a model's weights across from the JAX package.
 
-The reference names parameters the Gluon way, with instance counters:
-``transformerlm0_blocks_transformerencoderlayer1_multiheadattention0_qkv_weight``,
-``transformerlm0_layernorm0_gamma``, ... (``net.collect_params()``). The
-counters depend on how many blocks a process built before, so the names
-are mapped by their structure after the net's own ``prefix``:
+The reference names parameters the Gluon way, with instance counters
+(``net.collect_params()``): ``transformerlm0_blocks_transformerencoderlayer1_
+multiheadattention0_qkv_weight``, ``bertmodel0_encoder_layer0_
+_maskedattention0_qkv_weight``, ... The counters depend on how many blocks
+a process built before, so the names are mapped by their structure after
+the net's own ``prefix``. ``TransformerLM``:
 
 ==========================================================  ==========================
 reference (after the prefix)                                port (``state_dict``)
@@ -16,47 +17,153 @@ reference (after the prefix)                                port (``state_dict``
 ``blocks_<layer><i>_ffn_{up,down}_{weight,bias}``           ``blocks.<l>.ffn_{up,down}.{weight,bias}``
 ==========================================================  ==========================
 
-where layer ``l`` is the rank of counter ``i`` among the blocks. A missing
-or unexpected name, or a wrong shape, is refused with the name in the
-error.
+``BERTModel``:
+
+==========================================================  ==========================
+reference (after the prefix)                                port (``state_dict``)
+==========================================================  ==========================
+``encoder_{word,segment,pos}_embed_weight``                 ``encoder.{word,segment,pos}_embed.weight``
+``encoder_layernorm<n>_{gamma,beta}``                       ``encoder.ln.{gamma,beta}``
+``encoder_layer<i>_layernorm<j>_{gamma,beta}``              ``encoder.layers.<l>.ln1`` / ``ln2`` (by order of ``j``)
+``encoder_layer<i>__maskedattention<n>_{qkv,proj}_weight``  ``encoder.layers.<l>.attn.{qkv,proj}.weight``
+``encoder_layer<i>_ffn_{up,down}_{weight,bias}``            ``encoder.layers.<l>.ffn_{up,down}.{weight,bias}``
+``{pooler,mlm_transform,mlm_decoder,nsp}_{weight,bias}``    ``{pooler,...}.{weight,bias}``
+``layernorm<n>_{gamma,beta}``                               ``mlm_ln.{gamma,beta}``
+==========================================================  ==========================
+
+where layer ``l`` is the rank of counter ``i`` among the layers. A
+``PretrainStep`` holds its ``BERTModel`` as ``bert``; its reference names
+carry an outer prefix (``pretrainstep0_bertmodel0_``), which ``prefix``
+takes.
+
+:func:`load_mxnet_params` also reads a ``.params`` file
+(:mod:`mxnet_tpu_torch.ndarray.serialization`), with its names in any of
+three formats: ``export``'s ``arg:``/``aux:`` full names, plain full names,
+or ``save_parameters``' structural names (``encoder.word_embed.weight``,
+``blocks.0.attn.qkv.weight``, ...). Structural names equal the port's,
+except that BERT's encoder keys its layers by child index
+(``encoder.5.attn.qkv.weight``: five children register before the first
+layer), mapped by the rank of that index. A missing, unexpected or
+duplicate name, or a wrong shape, is refused with the name in the error.
 """
 from __future__ import annotations
 
+import os
 import re
 
 import numpy as np
 import torch
 
+from .models.bert import BERTModel, PretrainStep
+from .models.transformer import TransformerLM
+from .ndarray.serialization import load_ndarrays
+
 __all__ = ["state_dict_from_mxnet", "load_mxnet_params",
            "mxnet_params_from_state_dict"]
 
-_BLOCK = re.compile(r"^blocks_([a-z]+?)(\d+)_(.+)$")
+_NORM = re.compile(
+    r"^(?P<scope>(?:encoder_)?)layernorm\d+_(?P<leaf>gamma|beta)$")
 _LN = re.compile(r"^layernorm(\d+)_(gamma|beta)$")
-_ATTN = re.compile(r"^multiheadattention\d+_(qkv|proj)_weight$")
+_ATTN = re.compile(r"^_?[a-z]*attention\d+_(qkv|proj)_weight$")
 _FFN = re.compile(r"^(ffn_up|ffn_down)_(weight|bias)$")
-_TOP = {"embed_weight": "embed.weight", "pos_weight": "pos_embed.weight",
-        "head_weight": "head.weight"}
+
+
+class _Arch:
+    """One model family's name map: its top-level names, its layer names
+    (``layer`` matches a layer's reference name, ``path`` is the port's)
+    and the reference-name pieces used when writing names back."""
+
+    def __init__(self, name, top, norms, layer, path, layer_prefix, attn,
+                 prefix):
+        self.name = name
+        self.top = top
+        self.norms = norms
+        self.layer = re.compile(layer)
+        self.path = path
+        self.layer_prefix = layer_prefix
+        self.attn = attn
+        self.prefix = prefix
+
+
+_LM = _Arch(
+    "TransformerLM",
+    top={"embed_weight": "embed.weight", "pos_weight": "pos_embed.weight",
+         "head_weight": "head.weight"},
+    norms={"": "ln_f"},
+    layer=r"^blocks_[a-z]+?(?P<i>\d+)_(?P<inner>.+)$", path="blocks",
+    layer_prefix="blocks_transformerencoderlayer%d_",
+    attn="multiheadattention0_", prefix="transformerlm0_")
+_BERT = _Arch(
+    "BERTModel",
+    top=dict([("encoder_%s_embed_weight" % e, "encoder.%s_embed.weight" % e)
+              for e in ("word", "segment", "pos")]
+             + [("%s_%s" % (h, leaf), "%s.%s" % (h, leaf))
+                for h in ("pooler", "mlm_transform", "mlm_decoder", "nsp")
+                for leaf in ("weight", "bias")]),
+    norms={"encoder_": "encoder.ln", "": "mlm_ln"},
+    layer=r"^encoder_layer(?P<i>\d+)_(?P<inner>.+)$", path="encoder.layers",
+    layer_prefix="encoder_layer%d_", attn="_maskedattention0_",
+    prefix="bertmodel0_")
 
 
 def _ranks(values):
     return {v: r for r, v in enumerate(sorted(set(values)))}
 
 
-def _torch_name(rest, layer, ln_rank):
-    """The port's name for one reference name (after the prefix), or None."""
-    if rest in _TOP:
-        return _TOP[rest]
-    m = _LN.match(rest)
-    if m:
-        return "ln_f." + m.group(2)
-    m = _BLOCK.match(rest)
+def _arch_of(model):
+    """``(arch, outer)``: the name map of ``model``'s family and the port
+    name prefix of the mapped model within it (``"bert."`` in a
+    ``PretrainStep``)."""
+    if isinstance(model, PretrainStep):
+        return _arch_of(model.bert)[0], "bert."
+    if isinstance(model, BERTModel):
+        return _BERT, ""
+    if isinstance(model, TransformerLM):
+        return _LM, ""
+    raise TypeError("no reference name map for %s" % type(model).__name__)
+
+
+def _infer_prefix(names, arch):
+    end = "encoder_word_embed_weight" if arch is _BERT else "embed_weight"
+    for n in names:
+        if n.endswith(end) and not n.endswith("_pos_embed_weight"):
+            return n[:-len(end)]
+    raise ValueError("cannot infer the net's prefix: no '*%s' parameter "
+                     "among %d names" % (end, len(names)))
+
+
+def _full_names(rests, arch):
+    """``{reference name: port name or None}`` for names after the
+    prefix."""
+    counters, ln_ids = [], {}
+    for r in rests.values():
+        m = arch.layer.match(r)
+        if m:
+            i = int(m.group("i"))
+            counters.append(i)
+            lm = _LN.match(m.group("inner"))
+            if lm:
+                ln_ids.setdefault(i, []).append(int(lm.group(1)))
+    layer = _ranks(counters)
+    ln_rank = {i: _ranks(js) for i, js in ln_ids.items()}
+    return {n: _full_name(rest, arch, layer, ln_rank)
+            for n, rest in rests.items()}
+
+
+def _full_name(rest, arch, layer, ln_rank):
+    if rest in arch.top:
+        return arch.top[rest]
+    m = arch.layer.match(rest)
     if m is None:
+        m = _NORM.match(rest)
+        if m and m.group("scope") in arch.norms:
+            return "%s.%s" % (arch.norms[m.group("scope")], m.group("leaf"))
         return None
-    inner = m.group(3)
-    base = "blocks.%d." % layer[int(m.group(2))]
+    i, inner = int(m.group("i")), m.group("inner")
+    base = "%s.%d." % (arch.path, layer[i])
     lm = _LN.match(inner)
     if lm:
-        which = ln_rank[int(m.group(2))][int(lm.group(1))]
+        which = ln_rank[i][int(lm.group(1))]
         return base + ("ln1.", "ln2.")[which] + lm.group(2) \
             if which < 2 else None
     am = _ATTN.match(inner)
@@ -68,45 +175,72 @@ def _torch_name(rest, layer, ln_rank):
     return None
 
 
-def _infer_prefix(names):
-    for n in names:
-        if n.endswith("_embed_weight") and not n.endswith("_pos_embed_weight"):
-            return n[:-len("embed_weight")]
-    raise ValueError("cannot infer the net's prefix: no '*_embed_weight' "
-                     "parameter among %d names" % len(names))
+def _structural_names(names, arch):
+    """``{save_parameters name: port name}``: BERT's layers keyed by child
+    index become ``encoder.layers.<rank>``; a ``PretrainStep``'s outer
+    ``bert.`` is dropped."""
+    bare = {n: n[len("bert."):] if n.startswith("bert.") else n
+            for n in names}
+    if arch is not _BERT:
+        return bare
+    layer_key = re.compile(r"^encoder\.(\d+)\.(.+)$")
+    idx = _ranks(int(m.group(1)) for m in map(layer_key.match, bare.values())
+                 if m)
+    out = {}
+    for n, b in bare.items():
+        m = layer_key.match(b)
+        out[n] = "encoder.layers.%d.%s" % (idx[int(m.group(1))], m.group(2)) \
+            if m else b
+    return out
+
+
+def _read(params):
+    """``params`` as ``{name: np.ndarray}``: a dict, or a ``.params``
+    file's named arrays, with ``export``'s ``arg:``/``aux:`` dropped."""
+    if isinstance(params, (str, os.PathLike)):
+        arrays, names = load_ndarrays(params)
+        if not names:
+            raise ValueError("%s holds %d unnamed arrays, not parameters"
+                             % (params, len(arrays)))
+        params = dict(zip(names, arrays))
+    out = {}
+    for n, a in params.items():
+        key = n[4:] if n[:4] in ("arg:", "aux:") else n
+        if key in out:
+            raise ValueError("parameter %r appears twice" % key)
+        out[key] = a
+    return out
 
 
 def state_dict_from_mxnet(params, prefix=None):
-    """Map reference parameters ``{name: np.ndarray}`` to the port's
-    ``{state_dict name: torch.Tensor}`` (CPU tensors). ``prefix`` is the
-    reference net's own prefix (``net.prefix``, e.g. ``"transformerlm0_"``);
-    None infers it from the embedding's name. Raises :class:`ValueError`
-    naming any parameter outside the prefix or outside the structure."""
+    """Map reference parameters (``{name: np.ndarray}`` or a ``.params``
+    file) to a port ``{state_dict name: torch.Tensor}`` (CPU tensors) of a
+    ``TransformerLM`` or a ``BERTModel``, whichever the names describe.
+    Full names follow ``prefix``, the reference net's own (``net.prefix``,
+    e.g. ``"transformerlm0_"``; None infers it from the word embedding's
+    name); structural names (with a ``.``) need none. Raises
+    :class:`ValueError` naming any parameter outside the prefix or the
+    structure, or mapped twice."""
+    params = _read(params)
     names = list(params)
-    if prefix is None:
-        prefix = _infer_prefix(names)
-    rests = {}
-    for n in names:
-        if not n.startswith(prefix):
-            raise ValueError("unexpected parameter %r: outside prefix %r"
-                             % (n, prefix))
-        rests[n] = n[len(prefix):]
-    counters = [int(m.group(2)) for m in map(_BLOCK.match, rests.values())
-                if m]
-    layer = _ranks(counters)
-    ln_ids = {}
-    for r in rests.values():
-        m = _BLOCK.match(r)
-        lm = _LN.match(m.group(3)) if m else None
-        if lm:
-            ln_ids.setdefault(int(m.group(2)), []).append(int(lm.group(1)))
-    ln_rank = {i: _ranks(js) for i, js in ln_ids.items()}
+    arch = _BERT if any("word_embed" in n for n in names) else _LM
+    if names and all("." in n for n in names):
+        mapped = _structural_names(names, arch)
+    else:
+        if prefix is None:
+            prefix = _infer_prefix(names, arch)
+        rests = {}
+        for n in names:
+            if not n.startswith(prefix):
+                raise ValueError("unexpected parameter %r: outside prefix %r"
+                                 % (n, prefix))
+            rests[n] = n[len(prefix):]
+        mapped = _full_names(rests, arch)
     out = {}
-    for n, rest in rests.items():
-        t = _torch_name(rest, layer, ln_rank)
+    for n, t in mapped.items():
         if t is None:
             raise ValueError("unexpected parameter %r: no counterpart in the "
-                             "port's TransformerLM" % n)
+                             "port's %s" % (n, arch.name))
         if t in out:
             raise ValueError("parameter %r maps onto %r twice" % (n, t))
         out[t] = torch.from_numpy(np.array(params[n], copy=True))
@@ -114,10 +248,15 @@ def state_dict_from_mxnet(params, prefix=None):
 
 
 def load_mxnet_params(model, params, prefix=None):
-    """Load reference parameters into a port ``TransformerLM`` in place
-    (onto the model's device and dtype). Refuses a missing or unexpected
-    name, or a wrong shape, naming the parameter."""
-    sd = state_dict_from_mxnet(params, prefix)
+    """Load reference parameters into a port ``TransformerLM``,
+    ``BERTModel`` or ``PretrainStep`` in place (onto the model's device and
+    dtype). ``params`` is ``{name: np.ndarray}`` or the name of a
+    ``.params`` file, with names in any of the three formats of the module
+    docstring. Refuses a missing or unexpected name, or a wrong shape,
+    naming the parameter."""
+    outer = _arch_of(model)[1]
+    sd = {outer + k: v for k, v in
+          state_dict_from_mxnet(params, prefix).items()}
     own = model.state_dict()
     missing = sorted(set(own) - set(sd))
     if missing:
@@ -135,31 +274,44 @@ def load_mxnet_params(model, params, prefix=None):
     return model
 
 
-def mxnet_params_from_state_dict(state_dict, prefix="transformerlm0_"):
-    """The inverse map: a port state dict to reference-style names (with
-    counters from 0) and numpy arrays."""
+def mxnet_params_from_state_dict(state_dict, prefix=None):
+    """The inverse map: a port model, or its state dict, to reference-style
+    full names (counters from 0) and numpy arrays. The family comes from
+    the model's type (from its names for a state dict); ``prefix``
+    defaults to ``transformerlm0_``, ``bertmodel0_``, or
+    ``pretrainstep0_bertmodel0_`` for a ``PretrainStep``."""
+    if isinstance(state_dict, torch.nn.Module):
+        arch, outer = _arch_of(state_dict)
+        state_dict = state_dict.state_dict()
+    else:
+        outer = "bert." if all(n.startswith("bert.") for n in state_dict) \
+            else ""
+        arch = _BERT if any("word_embed" in n for n in state_dict) else _LM
+    if prefix is None:
+        prefix = ("pretrainstep0_" if outer else "") + arch.prefix
+    inv = {v: k for k, v in arch.top.items()}
+    inv.update(("%s.%s" % (port, leaf), "%slayernorm0_%s" % (scope, leaf))
+               for scope, port in arch.norms.items()
+               for leaf in ("gamma", "beta"))
+    layer = re.compile(r"^%s\.(\d+)\.(.+)$" % re.escape(arch.path))
     out = {}
-    inv = {v: k for k, v in _TOP.items()}
     for name, t in state_dict.items():
         arr = t.detach().cpu().numpy()
-        if name in inv:
-            out[prefix + inv[name]] = arr
+        bare = name[len(outer):] if name.startswith(outer) else None
+        m = layer.match(bare) if bare is not None else None
+        if bare in inv:
+            out[prefix + inv[bare]] = arr
             continue
-        parts = name.split(".")
-        if parts[0] == "ln_f":
-            out[prefix + "layernorm0_" + parts[1]] = arr
-            continue
-        if parts[0] != "blocks":
+        if m is None:
             raise ValueError("unexpected parameter %r" % name)
-        base = prefix + "blocks_transformerencoderlayer%s_" % parts[1]
-        sub = parts[2:]
+        sub = m.group(2).split(".")
         if sub[0] in ("ln1", "ln2"):
             key = "layernorm%d_%s" % (int(sub[0] == "ln2"), sub[1])
         elif sub[0] == "attn":
-            key = "multiheadattention0_%s_weight" % sub[1]
+            key = "%s%s_weight" % (arch.attn, sub[1])
         elif sub[0] in ("ffn_up", "ffn_down"):
             key = "%s_%s" % (sub[0], sub[1])
         else:
             raise ValueError("unexpected parameter %r" % name)
-        out[base + key] = arr
+        out[prefix + arch.layer_prefix % int(m.group(1)) + key] = arr
     return out

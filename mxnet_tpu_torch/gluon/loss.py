@@ -7,8 +7,9 @@ A loss returns one value per sample: the mean over every axis but
 """
 from __future__ import annotations
 
-import torch
 from torch import nn
+
+from ..ops import nn as _ops
 
 __all__ = ["Loss", "SoftmaxCrossEntropyLoss", "SoftmaxCELoss"]
 
@@ -45,11 +46,10 @@ class Loss(nn.Module):
 class SoftmaxCrossEntropyLoss(Loss):
     """Softmax cross-entropy against integer labels (``sparse_label``).
 
-    ``-log_softmax(pred)[label]`` along ``axis``, with the log-softmax in
-    fp32 whatever the type of ``pred`` (so bf16 logits lose no precision
-    here; the reference takes it in ``pred``'s type); ``from_logits``
-    takes ``pred`` as log-probabilities already. A label below 0 is
-    ignored: it contributes 0, as in the reference."""
+    ``-log_softmax(pred)[label]`` along ``axis``, op for op as the
+    reference and in ``pred``'s dtype (bf16 logits give a bf16 loss);
+    ``from_logits`` takes ``pred`` as log-probabilities already. A label
+    below 0 is ignored: it contributes 0, as in the reference."""
 
     def __init__(self, axis=-1, sparse_label=True, from_logits=False,
                  weight=None, batch_axis=0):
@@ -61,9 +61,8 @@ class SoftmaxCrossEntropyLoss(Loss):
         self._from_logits = from_logits
 
     def forward(self, pred, label, sample_weight=None):
-        pred = pred.float()
         if not self._from_logits:
-            pred = torch.log_softmax(pred, dim=self._axis)
+            pred = _ops.log_softmax(pred, axis=self._axis)
         valid = label >= 0
         idx = label.clamp_min(0).long().unsqueeze(self._axis)
         loss = -pred.gather(self._axis, idx)

@@ -74,9 +74,45 @@ class Dropout(nn.Module):
         return "p = {}, axes={}".format(self._rate, self._axes)
 
 
+# tables of at most this many rows take their weight gradient as a one-hot
+# product (see _Lookup)
+_ONE_HOT_ROWS = 1024
+
+
+class _Lookup(torch.autograd.Function):
+    """``weight[ids]`` with a weight gradient that is bitwise repeatable.
+
+    ``F.embedding``'s CUDA backward is not where one id repeats many times:
+    BERT's two segment rows take 4096 gradient rows each at batch 64,
+    sequence 128, and their sums differed between two runs in the last
+    bits. Here a table of at most ``_ONE_HOT_ROWS`` rows takes the product
+    of the ids' one-hot matrix with the gradient (one matmul, float32
+    accumulation); a larger one an ``index_put_`` accumulation in float32,
+    which sorts the ids and adds each id's rows in their order."""
+
+    @staticmethod
+    def forward(ctx, ids, weight):
+        ctx.save_for_backward(ids)
+        ctx.rows = weight.shape[0]
+        return nn.functional.embedding(ids, weight)
+
+    @staticmethod
+    def backward(ctx, grad):
+        ids, = ctx.saved_tensors
+        ids = ids.reshape(-1)
+        grad = grad.reshape(ids.numel(), -1)
+        if ctx.rows <= _ONE_HOT_ROWS:
+            hot = nn.functional.one_hot(ids, ctx.rows).to(grad.dtype)
+            return None, hot.t() @ grad
+        acc = grad.new_zeros((ctx.rows, grad.shape[1]), dtype=torch.float32)
+        acc.index_put_((ids,), grad.float(), accumulate=True)
+        return None, acc.to(grad.dtype)
+
+
 class Embedding(nn.Module):
     """Embedding lookup: ``weight (input_dim, output_dim)``; integer ids
-    of any integer dtype."""
+    of any integer dtype. The weight gradient is the same, bit for bit,
+    in every run (:class:`_Lookup`)."""
 
     def __init__(self, input_dim, output_dim, device=None,
                  dtype=torch.float32):
@@ -89,7 +125,7 @@ class Embedding(nn.Module):
         _xavier_(self.weight)
 
     def forward(self, x):
-        return nn.functional.embedding(x.long(), self.weight)
+        return _Lookup.apply(x.long(), self.weight)
 
 
 class LayerNorm(nn.Module):

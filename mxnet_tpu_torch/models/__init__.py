@@ -1,8 +1,13 @@
-"""Model zoo (counterpart of ``mxnet_tpu.models``): the transformer LM."""
+"""Model zoo (counterpart of ``mxnet_tpu.models``): the transformer LM and
+BERT, with BERT's pretraining step."""
+from .bert import (BERTEncoder, BERTModel, BERTPretrainingLoss, PretrainLoss,
+                   PretrainStep, bert_base, bert_tiny, synthetic_batch)
 from .transformer import (MultiHeadAttention, TransformerEncoderLayer,
                           TransformerLM, transformer_lm_base,
                           transformer_lm_small, transformer_lm_tiny)
 
 __all__ = ["MultiHeadAttention", "TransformerEncoderLayer", "TransformerLM",
            "transformer_lm_tiny", "transformer_lm_small",
-           "transformer_lm_base"]
+           "transformer_lm_base", "BERTModel", "BERTEncoder",
+           "BERTPretrainingLoss", "bert_tiny", "bert_base", "PretrainStep",
+           "PretrainLoss", "synthetic_batch"]

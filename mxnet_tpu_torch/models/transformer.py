@@ -67,7 +67,8 @@ class MultiHeadAttention(nn.Module):
     def forward_kv(self, x, kv_mask=None):
         """Full-prefix forward that also returns this layer's K/V:
         ``(out (B, T, C), k (B, T, H, D), v (B, T, H, D))``. ``kv_mask``
-        ``(B, T)`` keeps the valid prompt positions (None = all)."""
+        ``(B, T)`` (or BERT's ``(B, 1, 1, T)``) keeps the valid key
+        positions (None = all)."""
         B, T, C = x.shape
         q, k, v = self._split_qkv(x)
         out = _ops.dot_product_attention(

@@ -1,14 +1,25 @@
 """Neural-network operators on the slice's path.
 
 Counterpart of the subset of ``mxnet_tpu/ops/nn.py`` that the transformer
-LM calls: ``FullyConnected``, the exact ``gelu``, ``LayerNorm``,
-``Dropout`` (with the reference's lowbias32 counter-hash mask) and
-``dot_product_attention`` (the ``_contrib_dot_product_attention`` op) with
-its key-mask reduction and kernel dispatch. Plain functions on tensors.
+LM and BERT call: ``FullyConnected``, the exact ``gelu``, ``LayerNorm``,
+``log_softmax``, ``Dropout`` (with the reference's lowbias32 counter-hash
+mask) and ``dot_product_attention`` (the ``_contrib_dot_product_attention``
+op) with its key-mask reduction and kernel dispatch. Plain functions on
+tensors.
+
+``dot_product_attention`` takes the TransformerLM's causal calls (every
+prefill and training step) and BERT's non-causal ones, which carry a
+``(B, 1, 1, T)`` key mask when a ``valid_len`` is given: both reach the
+CUDA flash kernels in the ``(B, S, H, D)`` layout. As in the reference,
+``MXNET_FLASH_ATTENTION=0`` or a non-empty ``MXTPU_DISABLE_FLASH`` sends
+every call to the plain path. ``MXTPU_DROPOUT_THREEFRY=1``, the reference's
+switch to ``jax.random.bernoulli`` dropout masks, is refused: threefry is
+not ported.
 """
 from __future__ import annotations
 
 import math
+import os
 
 import numpy as np
 import torch
@@ -20,7 +31,7 @@ from .flash_attention import (_M32, SUPPORTED_DTYPES, SUPPORTED_HEAD_DIMS,
                               _mul32, _threshold, flash_attention,
                               flash_attention_bshd, lowbias32)
 
-__all__ = ["FullyConnected", "gelu", "LayerNorm", "Dropout",
+__all__ = ["FullyConnected", "gelu", "LayerNorm", "log_softmax", "Dropout",
            "dot_product_attention"]
 
 
@@ -50,6 +61,17 @@ def LayerNorm(data, gamma, beta, axis=-1, eps=1e-5):
         + beta.reshape(shape)
 
 
+def log_softmax(data, axis=-1):
+    """``jax.nn.log_softmax`` op for op, in ``data``'s dtype: the shift by
+    the (constant) max, ``exp``, the sum, ``log`` and the difference, each
+    rounded to the dtype as the reference rounds it (``torch.log_softmax``
+    rounds bf16 once, and so differs from the reference by up to a bf16
+    ulp)."""
+    shifted = data - data.amax(dim=axis, keepdim=True).detach()
+    return shifted - torch.log(torch.exp(shifted).sum(dim=axis,
+                                                      keepdim=True))
+
+
 def _hash_keep_mask(key, shape, keep_prob, device=None):
     """Counter-hash keep mask of ``shape``: lowbias32 over each element's
     row-major linear index mixed with the key's first and last words,
@@ -70,9 +92,17 @@ def Dropout(data, p=0.5, mode="training", axes=(), key=None, train=False):
     (or ``mode="always"``) and ``p > 0``; else ``data / (1 - p)`` where the
     hash keep mask holds and 0 elsewhere. The mask has size 1 on ``axes``
     and broadcasts there. ``key`` is the two uint32 words; None draws them
-    with :func:`mxnet_tpu_torch.random.next_key`."""
+    with :func:`mxnet_tpu_torch.random.next_key`.
+
+    Raises :class:`NotImplementedError` when dropout would run under
+    ``MXTPU_DROPOUT_THREEFRY=1``, the reference's switch to threefry
+    (``jax.random.bernoulli``) masks, which the port does not have."""
     if (not train and mode != "always") or p <= 0.0:
         return data
+    if os.environ.get("MXTPU_DROPOUT_THREEFRY", "0") == "1":
+        raise NotImplementedError(
+            "MXTPU_DROPOUT_THREEFRY=1: threefry dropout masks are not "
+            "ported; unset it to draw the lowbias32 counter-hash masks")
     if key is None:
         key = _random.next_key()
     shape = list(data.shape)
@@ -97,6 +127,15 @@ def _reduce_key_mask(mask, batch, key_len):
     return None, False
 
 
+def _flash_enabled():
+    """The reference's ``_flash_enabled``: False when ``MXTPU_DISABLE_FLASH``
+    is set to a non-empty value or ``MXNET_FLASH_ATTENTION`` is 0; both are
+    read at each call."""
+    if os.environ.get("MXTPU_DISABLE_FLASH"):
+        return False
+    return bool(_config.get("MXNET_FLASH_ATTENTION"))
+
+
 def _kernel_gate(query, key, value, mask_ok, scaled):
     """The port's own gate for the CUDA flash kernel (not the TPU's VMEM
     and tiling gates): all of
@@ -106,16 +145,19 @@ def _kernel_gate(query, key, value, mask_ok, scaled):
     - the mask reduces to ``(B, S)``;
     - ``scaled``;
     - head_dim in ``SUPPORTED_HEAD_DIMS`` and a supported dtype;
-    - ``MXNET_FLASH_ATTENTION`` set.
+    - :func:`_flash_enabled`: ``MXNET_FLASH_ATTENTION`` set and
+      ``MXTPU_DISABLE_FLASH`` unset, both read at each call.
 
-    Every prefill of the transformer LM passes it at full width; the
-    one-token decode step (``key.shape != query.shape``) does not."""
+    Every prefill and training step of the transformer LM (causal) and
+    every BERT layer (non-causal, with its ``(B, 1, 1, T)`` key mask when a
+    ``valid_len`` is given) passes it at full width; the one-token decode
+    step (``key.shape != query.shape``) does not."""
     return (query.is_cuda and query.dim() == 4
             and key.shape == query.shape and value.shape == query.shape
             and mask_ok and scaled
             and query.shape[-1] in SUPPORTED_HEAD_DIMS
             and query.dtype in SUPPORTED_DTYPES
-            and bool(_config.get("MXNET_FLASH_ATTENTION")))
+            and _flash_enabled())
 
 
 def _kernel_seed(drop, generator, device):

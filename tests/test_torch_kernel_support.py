@@ -1,12 +1,14 @@
 """CPU tests of the Python around the port's CUDA kernels: the build digest
-(``_build._target``) and the operand normalisation of the kernel wrappers
-(``flash_attention._aligned``). Neither needs a card or ``nvcc``."""
+(``_build._target``), the operand normalisation of the kernel wrappers
+(``flash_attention._aligned``) and the switches of the kernel gate
+(``ops.nn._kernel_gate``). None needs a card or ``nvcc``."""
 import numpy as np
 import pytest
 import torch
 
 from mxnet_tpu_torch import _build
 from mxnet_tpu_torch.ops import flash_attention as tfa
+from mxnet_tpu_torch.ops import nn as tnn
 
 
 @pytest.fixture
@@ -109,3 +111,36 @@ def test_check_normalises_every_operand():
     assert dims == [B, H, S, D]
     assert q2 is q and v2 is v and k2 is not k
     torch.testing.assert_close(k2, k, atol=0, rtol=0)
+
+
+class _CardTensor:
+    """Stands for a CUDA tensor of ``shape`` at the gate, which reads only
+    ``is_cuda``, ``dim()``, ``shape`` and ``dtype``."""
+
+    is_cuda = True
+    dtype = torch.float32
+
+    def __init__(self, shape):
+        self.shape = torch.Size(shape)
+
+    def dim(self):
+        return len(self.shape)
+
+
+@pytest.mark.parametrize("env,on", [
+    ({}, True), ({"MXTPU_DISABLE_FLASH": "1"}, False),
+    ({"MXTPU_DISABLE_FLASH": ""}, True),
+    ({"MXNET_FLASH_ATTENTION": "0"}, False),
+    ({"MXNET_FLASH_ATTENTION": "1", "MXTPU_DISABLE_FLASH": "yes"}, False)])
+def test_flash_switches_are_read_at_each_call(monkeypatch, env, on):
+    """``MXTPU_DISABLE_FLASH`` (any non-empty value) and
+    ``MXNET_FLASH_ATTENTION=0`` turn the kernel off, as the reference's
+    ``_flash_enabled`` does; both are read when the gate is asked."""
+    for name in ("MXTPU_DISABLE_FLASH", "MXNET_FLASH_ATTENTION"):
+        monkeypatch.delenv(name, raising=False)
+    q = _CardTensor((2, 16, 3, 64))
+    assert tnn._kernel_gate(q, q, q, True, True)
+    for name, value in env.items():
+        monkeypatch.setenv(name, value)
+    assert tnn._flash_enabled() is on
+    assert tnn._kernel_gate(q, q, q, True, True) is on

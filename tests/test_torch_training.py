@@ -12,6 +12,11 @@
   ``sync_back`` at atol 1e-4 (summation order only). Both take their plain
   attention path on the CPU; the flash backward is held against the Pallas
   one in ``tests/test_torch_flash_backward.py``.
+- The same 5 steps with ``dtype="bfloat16"`` on both sides: bf16 losses
+  within one bf16 ulp, the parameters within the drift that Adam allows
+  (see ``test_trainer_follows_reference_adam_bf16``).
+- ``MXTPU_DROPOUT_THREEFRY=1`` is refused by name wherever dropout would
+  run.
 """
 import numpy as np
 import pytest
@@ -88,6 +93,23 @@ def test_softmax_ce_matches():
                                     torch.from_numpy(label)).numpy()
     assert out.shape == (3,)
     np.testing.assert_allclose(out, ref, atol=1e-6, rtol=1e-6)
+
+
+def test_softmax_ce_bf16_matches_bitwise():
+    """In bf16 the loss is taken in ``pred``'s type, op for op, as the
+    reference takes it: the same bf16 values."""
+    rng = np.random.default_rng(1)
+    pred = (3 * rng.standard_normal((4, 6, 50))).astype("float32")
+    label = rng.integers(0, 50, (4, 6)).astype("int32")
+    label[1, 3] = -1
+    ref = jgluon.loss.SoftmaxCrossEntropyLoss()(
+        nd.array(pred).astype("bfloat16"), nd.array(label))
+    assert str(ref.dtype) == "bfloat16"
+    out = SoftmaxCrossEntropyLoss()(torch.from_numpy(pred).bfloat16(),
+                                    torch.from_numpy(label))
+    assert out.dtype == torch.bfloat16
+    np.testing.assert_array_equal(out.float().numpy(),
+                                  ref.astype("float32").asnumpy())
 
 
 def _rule_inputs(seed):
@@ -180,6 +202,64 @@ def test_trainer_follows_reference_adam():
     for name, r in ref.items():
         np.testing.assert_allclose(own[name].numpy(), r.numpy(), atol=ATOL,
                                    rtol=ATOL, err_msg=name)
+
+
+def test_trainer_follows_reference_adam_bf16():
+    """``test_trainer_follows_reference_adam`` with ``dtype="bfloat16"`` on
+    both sides.
+
+    Tolerances: each loss is bf16 and within one bf16 ulp (2^-7 relative)
+    of the reference's; on this CPU they come out equal. The parameters
+    are bf16 and within ``5 steps x 2 x lr`` = 1e-2 absolute: where a bf16
+    gradient is near zero, the two packages' bf16 backward passes (rounded
+    op by op, in other orders) can give it opposite signs, and Adam's first
+    steps move such a weight by about ``lr`` in the sign's direction. The
+    mean difference of every tensor must stay under 1e-3, a tenth of that,
+    so the bound cannot hide a systematic drift."""
+    jnet, tnet = _pair()
+    lr = 1e-3
+    jtr = jparallel.ShardedTrainer(
+        jnet, jgluon.loss.SoftmaxCrossEntropyLoss(), "adam",
+        {"learning_rate": lr}, dtype="bfloat16",
+        mesh=jparallel.make_mesh(dp=1, devices=jax.devices()[:1]))
+    ttr = ShardedTrainer(tnet, SoftmaxCrossEntropyLoss(), "adam",
+                         {"learning_rate": lr}, dtype="bfloat16",
+                         device="cpu")
+    steps = _batches(5)
+    for x, y in steps:
+        ref = jtr.step(nd.array(x), nd.array(y)).asnumpy()
+        loss = ttr.step(x, y)
+        assert str(ref.dtype) == "bfloat16" and loss.dtype == torch.bfloat16
+        np.testing.assert_allclose(float(loss), float(ref), rtol=2.0 ** -7,
+                                   atol=0)
+    jtr.sync_back()
+    ttr.sync_back()
+    ref = convert.state_dict_from_mxnet(
+        {k: p.data().asnumpy().astype("float32")
+         for k, p in jnet.collect_params().items()}, prefix=jnet.prefix)
+    own = tnet.state_dict()
+    assert set(own) == set(ref)
+    for name, r in ref.items():
+        assert own[name].dtype == torch.bfloat16, name
+        diff = np.abs(own[name].float().numpy() - r.numpy())
+        assert diff.max() <= len(steps) * 2 * lr, (name, diff.max())
+        assert diff.mean() <= 0.1 * len(steps) * 2 * lr, (name, diff.mean())
+
+
+@pytest.mark.parametrize("where", ["op", "layer"])
+def test_dropout_refuses_threefry(monkeypatch, where):
+    x = torch.randn(4, 8)
+    monkeypatch.setenv("MXTPU_DROPOUT_THREEFRY", "1")
+    # no dropout runs: nothing to refuse
+    assert tnn.Dropout(x, p=0.5, key=(1, 2)) is x
+    assert tnn.Dropout(x, p=0.0, key=(1, 2), train=True) is x
+    with pytest.raises(NotImplementedError, match="MXTPU_DROPOUT_THREEFRY"):
+        if where == "op":
+            tnn.Dropout(x, p=0.5, key=(1, 2), train=True)
+        else:
+            DropoutLayer(0.5).train()(x)
+    monkeypatch.setenv("MXTPU_DROPOUT_THREEFRY", "0")
+    assert tnn.Dropout(x, p=0.5, key=(1, 2), train=True).shape == x.shape
 
 
 def _tiny_net():
