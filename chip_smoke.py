@@ -59,7 +59,32 @@ Builds the package's CUDA kernels from the sources in this checkout
    twice the plain path's. Two dropout-0.1 steps under one
    ``random.seed``, run twice, must give bitwise-equal losses and
    second-step gradients.
-4. **Forward kernel phase.** At the serving shapes (B 1, H 12, D 64, S 128
+4. **Surface phase: the Gluon training surface at full width.**
+   (a) ``bert_base`` at the BERT phase's configuration (b64 s128 m20,
+   dropout 0.1), initialized as the reference's recipe does: after
+   ``random.seed(--seed)``, ``collect_params(PretrainStep(net))
+   .initialize(Xavier())`` (numpy draws, the reference's values bit for
+   bit). ``ShardedTrainer`` with ``"lamb"`` (lr 1e-4, wd 0.01), the lr of
+   step ``i`` from ``PolyScheduler(max_update=8, base_lr=1e-4, pwr=1,
+   warmup_steps=2)`` at ``num_update = i`` (printed), 8 steps in float32
+   and 8 in bf16, then 8 bf16 Adam steps on the same weights and schedule
+   (LAMB's cost beside Adam's). Checks: finite losses, each kernel steps x
+   12 launches, and one dropout-0 LAMB step against the plain path with
+   the BERT phase's tolerances (fp32: loss 1e-4 relative, gradients 1e-3
+   of their max; bf16: the kernel path's worst distance from the fp32
+   plain path at most twice the bf16 plain path's). (b)
+   ``transformer_lm_base`` at the training phase's b32 s512, initialized
+   with ``collect_params(net).initialize(Xavier())``, trained eagerly as a
+   Gluon script does: forward, the per-sample ``SoftmaxCrossEntropyLoss``,
+   ``backward`` of the loss vector, ``clip_global_norm`` of the gradients
+   at 0.25 a sample, ``gluon.Trainer(params, "adam", {lr 1e-4})
+   .step(32)``; 8 steps in float32, then 8 with the net in bf16 and
+   ``multi_precision=True`` (fp32 master copies, checked). Checks: finite
+   losses, the fp32 loss falls, each kernel steps x 12 launches, and the
+   first fp32 step equals one ``ShardedTrainer`` Adam step from the same
+   weights (``rescale_grad`` = the clip's scale): the loss to 1e-6
+   relative and every parameter to 1e-5 of its largest |value|.
+5. **Forward kernel phase.** At the serving shapes (B 1, H 12, D 64, S 128
    and 1024; causal with a key mask; both layouts; fp32 and bf16; a
    dropout case in each type), at B 8, S 512 with D 32 and D 128 (fp32,
    BSHD, causal with a key mask), at the training shape (B 32, S 512,
@@ -73,24 +98,26 @@ Builds the package's CUDA kernels from the sources in this checkout
    no mask where the case has no key mask, so that SDPA can take its flash
    backend, and with the same boolean mask (and the causal one, where the
    case is causal) where it has one.
-5. **Backward kernel phase.** At B 8, S 512, H 12, D 64, causal with a key
+6. **Backward kernel phase.** At B 8, S 512, H 12, D 64, causal with a key
    mask (both layouts, fp32 and bf16, a dropout case in each type, D 32 and
    D 128 cases in each type), at the training shape (B 32, S 512, causal;
-   fp32 and bf16) and at the BERT shape (the cases of phase 4), the dQ and
+   fp32 and bf16) and at the BERT shape (the cases of phase 5), the dQ and
    the dK/dV kernels are held against ``flash_attention_bwd_plain`` on the
    card (the largest error at most 2e-4 of the largest |value| in fp32,
    2e-2 in bf16) and timed eager and from a CUDA graph, beside their bound,
    the plain backward and ``torch.autograd.grad`` through SDPA (the
-   yardstick only; SDPA called as in phase 4): eager with the forward
+   yardstick only; SDPA called as in phase 5): eager with the forward
    outside the timed region, and from a CUDA graph as the graph time of
    forward + backward less that of the forward alone.
 
 With ``--profile`` the burst is served a second time, and two fp32 and two
-bf16 training steps and two bf16 BERT steps are run, under
-``torch.profiler`` (after the checked runs) to print the device's busy
-share and its top kernels.
+bf16 training steps, two bf16 BERT steps and two bf16 BERT steps each with
+LAMB and Adam (surface phase) are run, under ``torch.profiler`` (after the
+checked runs) to print the device's busy share, its kernel count and its
+top kernels.
 
-Prints the serving, training and BERT numbers, one ``{"kernels": [...]}``
+Prints the serving, training, BERT and surface numbers, one
+``{"kernels": [...]}``
 line (the numbers of the training shape in fp32, under ``*_bf16`` keys in
 bf16, and under ``bert`` those of the BERT shape), the card's name and
 power limit, and last ``{"ok": true, "device": {...}}``.
@@ -140,6 +167,16 @@ BERT_BATCH, BERT_SEQ, BERT_MASKS, BERT_VOCAB, BERT_STEPS = 64, 128, 20, \
 # twice the bf16 plain path's.
 BF16_LOSS_RTOL = 1e-2
 BF16_GRAD_FACTOR = 2.0
+# the Gluon training surface: LAMB as the reference's BERT recipe takes it
+SURFACE_STEPS = 8
+SURFACE_LAMB = {"learning_rate": 1e-4, "wd": 0.01}
+# clip_global_norm over the gradient of the batch's summed loss: 0.25 a
+# sample (example/gluon/word_language_model.py clips 0.25 x bptt x batch)
+SURFACE_CLIP = 0.25 * TRAIN_BATCH
+# the first eager step against ShardedTrainer's: the same mean, the same
+# kernels, the batch's 1/B applied at another point
+SURFACE_LOSS_RTOL = 1e-6
+SURFACE_PARAM_TOL = 1e-5
 
 
 def fail(msg):
@@ -335,12 +372,18 @@ def lm_batch(seed):
 
 def train_steps(torch, trainer, x, y, n):
     """``n`` steps; (losses, per-step ms from CUDA events)."""
+    return timed_steps(torch, lambda i: trainer.step(x, y), n)
+
+
+def timed_steps(torch, step, n):
+    """``step(i)`` for i in 0..n-1, each returning its loss (a tensor);
+    (losses as floats, per-step ms from CUDA events)."""
     events, losses = [], []
-    for _ in range(n):
+    for i in range(n):
         e0 = torch.cuda.Event(enable_timing=True)
         e1 = torch.cuda.Event(enable_timing=True)
         e0.record()
-        losses.append(trainer.step(x, y))
+        losses.append(step(i))
         e1.record()
         events.append((e0, e1))
     torch.cuda.synchronize()
@@ -455,14 +498,9 @@ def train_phase(args, torch):
             "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9}
         del tr
         torch.cuda.empty_cache()
-    steps = 2 * TRAIN_STEPS
-    launches = kernel_launches()
-    out["launches"] = launches
-    want = steps * model.num_layers
-    for name in ("flash_attn_fwd", "flash_attn_bwd_dq", "flash_attn_bwd_dkv"):
-        if launches[name] != want:
-            fail("%s launched %d times in %d steps x %d layers"
-                 % (name, launches[name], steps, model.num_layers))
+    out["launches"] = kernel_launches()
+    check_launches(out["launches"], 2 * TRAIN_STEPS, model.num_layers,
+                   "training")
     fp32 = out["float32"]["losses"]
     if not fp32[-1] < fp32[0]:
         fail("the fp32 loss did not fall: %r" % fp32)
@@ -503,6 +541,60 @@ def train_phase(args, torch):
     del net, model
     torch.cuda.empty_cache()
     return out
+
+
+def bert_plain_checks(torch, model, runs, tag):
+    """For dropout-0 fp32 and bf16 copies of the BERT ``model``: each
+    ``(what, make)`` of ``runs``, where ``make(net)()`` gives ``(loss,
+    {name: gradient})``, on the kernel path (each kernel once per layer)
+    against the plain path: fp32 at ``LOSS_RTOL`` / ``GRAD_TOL``; bf16 at
+    ``BF16_LOSS_RTOL``, its gradients held against the fp32 plain path on
+    the same (bf16) weights with ``BF16_GRAD_FACTOR``. Returns
+    ``{dtype: {what: comparison}}``."""
+    from mxnet_tpu_torch.models import bert_base
+
+    def dropout_free(dt):
+        net = bert_base(vocab_size=BERT_VOCAB, max_length=BERT_SEQ,
+                        dropout=0.0, device=torch.device("cuda"), dtype=dt)
+        net.load_state_dict(model.state_dict())
+        return net
+
+    layers = len(model.encoder.layers)
+    checks = {}
+    for dname, dt, ltol, gtol in (
+            ("float32", torch.float32, LOSS_RTOL, GRAD_TOL),
+            ("bfloat16", torch.bfloat16, BF16_LOSS_RTOL, BF16_GRAD_FACTOR)):
+        net = dropout_free(dt)
+        if dt == torch.bfloat16:
+            net32 = dropout_free(torch.float32)
+            net32.load_state_dict(net.state_dict())   # the bf16 values
+        checks[dname] = {}
+        for what, make in runs:
+            truth = None
+            if dt == torch.bfloat16:
+                truth = on_plain_path(make(net32), "%s fp32 %s" % (tag, what))
+            label = "%s %s %s" % (tag, dname, what)
+            c = against_plain(make(net), ltol, gtol, label,
+                              kernel=launched_per_layer(make(net), layers,
+                                                        label),
+                              truth=truth)
+            checks[dname][what] = c
+            print("%s vs plain path (dropout 0): loss rel err %.3g "
+                  "(tol %g), worst gradient %s at %.3g of its max%s"
+                  % (label, c["loss_rel_err"], c["loss_tol"],
+                     c["grad_worst_param"], c["grad_worst_rel_to_max"],
+                     " (tol %g)" % c["grad_tol"] if truth is None else
+                     " from the fp32 path, the bf16 plain path's worst %s "
+                     "at %.3g (tol: %g times it); top kernel %s; top plain "
+                     "%s" % (
+                         c["grad_worst_plain_param"],
+                         c["grad_worst_plain_rel_to_max"], c["grad_tol"],
+                         c["grad_top_kernel"], c["grad_top_plain"])),
+                  flush=True)
+            del truth
+        del net
+        torch.cuda.empty_cache()
+    return checks
 
 
 def bert_phase(args, torch):
@@ -566,16 +658,9 @@ def bert_phase(args, torch):
                  ", ".join("%.4f" % v for v in t["losses"])), flush=True)
         del tr
         torch.cuda.empty_cache()
-    launches = kernel_launches()
-    out["launches"] = launches
-    want = 2 * BERT_STEPS * len(model.encoder.layers)
-    for name in ("flash_attn_fwd", "flash_attn_bwd_dq", "flash_attn_bwd_dkv"):
-        if launches[name] != want:
-            fail("BERT: %s launched %d times in %d steps x %d layers"
-                 % (name, launches[name], 2 * BERT_STEPS,
-                    len(model.encoder.layers)))
-    if launches["flash_attn_fwd_bhsd"]:
-        fail("BERT launched the (B, H, S, D) forward")
+    out["launches"] = kernel_launches()
+    check_launches(out["launches"], 2 * BERT_STEPS, len(model.encoder.layers),
+                   "BERT")
 
     # against the plain path, dropout 0, from the same weights: one step
     # through PretrainStep (valid_len None), and a forward and backward of
@@ -585,18 +670,6 @@ def bert_phase(args, torch):
                             .astype("float32")).to(dev)
     tokens, segments, positions, labels, weights, nsp = data
     loss_fn = BERTPretrainingLoss(picked=True)
-
-    def launched(run):
-        """``run()``, which must launch each kernel once per layer."""
-        n0 = kernel_launches()
-        res = run()
-        n1 = kernel_launches()
-        for name in ("flash_attn_fwd", "flash_attn_bwd_dq",
-                     "flash_attn_bwd_dkv"):
-            if n1[name] - n0[name] != len(model.encoder.layers):
-                fail("BERT check: %s launched %d times"
-                     % (name, n1[name] - n0[name]))
-        return res
 
     def one_step(net):
         def run():
@@ -615,44 +688,8 @@ def bert_phase(args, torch):
                                           for n, p in net.named_parameters()}
         return run
 
-    def dropout_free(dt):
-        net = bert_base(vocab_size=BERT_VOCAB, max_length=BERT_SEQ,
-                        dropout=0.0, device=dev, dtype=dt)
-        net.load_state_dict(model.state_dict())
-        return net
-
-    checks = {}
-    for dname, dt, ltol, gtol in (
-            ("float32", torch.float32, LOSS_RTOL, GRAD_TOL),
-            ("bfloat16", torch.bfloat16, BF16_LOSS_RTOL, BF16_GRAD_FACTOR)):
-        net = dropout_free(dt)
-        if dt == torch.bfloat16:
-            net32 = dropout_free(torch.float32)
-            net32.load_state_dict(net.state_dict())   # the bf16 values
-        checks[dname] = {}
-        for what, make in (("step", one_step), ("valid_len", masked)):
-            truth = None
-            if dt == torch.bfloat16:
-                truth = on_plain_path(make(net32), "BERT fp32 " + what)
-            c = against_plain(make(net), ltol, gtol,
-                              "BERT %s %s" % (dname, what),
-                              kernel=launched(make(net)), truth=truth)
-            checks[dname][what] = c
-            print("bert %s %s vs plain path (dropout 0): loss rel err %.3g "
-                  "(tol %g), worst gradient %s at %.3g of its max%s"
-                  % (dname, what, c["loss_rel_err"], c["loss_tol"],
-                     c["grad_worst_param"], c["grad_worst_rel_to_max"],
-                     " (tol %g)" % c["grad_tol"] if truth is None else
-                     " from the fp32 path, the bf16 plain path's worst %s "
-                     "at %.3g (tol: %g times it); top kernel %s; top plain "
-                     "%s" % (
-                         c["grad_worst_plain_param"],
-                         c["grad_worst_plain_rel_to_max"], c["grad_tol"],
-                         c["grad_top_kernel"], c["grad_top_plain"])),
-                  flush=True)
-            del truth
-        del net
-        torch.cuda.empty_cache()
+    checks = bert_plain_checks(torch, model, (("step", one_step),
+                                              ("valid_len", masked)), "bert")
     out["plain_check"] = checks
     out["valid_len"] = [int(v) for v in lens.tolist()]
 
@@ -681,6 +718,263 @@ def bert_phase(args, torch):
             torch, lambda: train_steps(torch, tr, data, dummy, 2))
         del tr
     del model
+    torch.cuda.empty_cache()
+    return out
+
+
+def launched_per_layer(run, layers, what):
+    """``run()``, which must launch each training kernel once per layer."""
+    n0 = kernel_launches()
+    res = run()
+    n1 = kernel_launches()
+    for name in ("flash_attn_fwd", "flash_attn_bwd_dq", "flash_attn_bwd_dkv"):
+        if n1[name] - n0[name] != layers:
+            fail("%s: %s launched %d times, not once per each of %d layers"
+                 % (what, name, n1[name] - n0[name], layers))
+    return res
+
+
+def check_launches(launches, steps, layers, what):
+    """Each training kernel launched ``steps x layers`` times, the (B, H,
+    S, D) forward never."""
+    for name in ("flash_attn_fwd", "flash_attn_bwd_dq", "flash_attn_bwd_dkv"):
+        if launches[name] != steps * layers:
+            fail("%s: %s launched %d times in %d steps x %d layers"
+                 % (what, name, launches[name], steps, layers))
+    if launches["flash_attn_fwd_bhsd"]:
+        fail("%s launched the (B, H, S, D) forward" % what)
+
+
+def surface_bert(args, torch):
+    """Part (a): BERT-base pretraining from the reference's Xavier
+    initialization with LAMB under a PolyScheduler."""
+    from mxnet_tpu_torch import initializer, lr_scheduler
+    from mxnet_tpu_torch.gluon import collect_params
+    from mxnet_tpu_torch.models import (PretrainLoss, PretrainStep,
+                                        bert_base, synthetic_batch)
+    from mxnet_tpu_torch.ops import flash_attention as fa
+    from mxnet_tpu_torch.parallel import ShardedTrainer
+    from mxnet_tpu_torch import random as trandom
+    dev = torch.device("cuda")
+    trandom.seed(args.seed)
+    model = bert_base(vocab_size=BERT_VOCAB, max_length=BERT_SEQ, device=dev)
+    t0 = time.perf_counter()
+    collect_params(PretrainStep(model)).initialize(initializer.Xavier())
+    init_s = time.perf_counter() - t0
+    layers = len(model.encoder.layers)
+    batch = synthetic_batch(np.random.default_rng(args.seed + 7), BERT_BATCH,
+                            BERT_SEQ, BERT_VOCAB, BERT_MASKS)
+    data = tuple(torch.from_numpy(a).to(dev) for a in batch)
+    dummy = torch.zeros(BERT_BATCH, device=dev)
+
+    def trainer(net, dtype=None, optimizer="lamb"):
+        return ShardedTrainer(PretrainStep(net), PretrainLoss(), optimizer,
+                              dict(SURFACE_LAMB), dtype=dtype, device=dev)
+
+    def schedule():
+        return lr_scheduler.PolyScheduler(max_update=SURFACE_STEPS,
+                                          base_lr=SURFACE_LAMB[
+                                              "learning_rate"],
+                                          pwr=1, warmup_steps=2)
+
+    def run(tr):
+        sched = schedule()
+        # the optimizer's num_update is 1 on the first step
+        lrs = [sched(i + 1) for i in range(SURFACE_STEPS)]
+        torch.cuda.reset_peak_memory_stats()
+        losses, ms = timed_steps(
+            torch, lambda i: tr.step(data, dummy, lr=lrs[i]), SURFACE_STEPS)
+        step_ms = float(np.mean(ms[1:]))
+        return {"losses": losses, "lrs": lrs, "first_step_ms": ms[0],
+                "step_ms_mean": step_ms, "step_ms": ms,
+                "tokens_s": BERT_BATCH * BERT_SEQ / step_ms * 1e3,
+                "max_memory_allocated_gb":
+                    torch.cuda.max_memory_allocated() / 1e9}
+
+    out = {"model": "bert_base", "init": "Xavier() from --seed",
+           "init_s": init_s, "optimizer": "lamb", "hyper": SURFACE_LAMB,
+           "schedule": "PolyScheduler(max_update=%d, base_lr=1e-4, pwr=1, "
+                       "warmup_steps=2)" % SURFACE_STEPS,
+           "steps_per_dtype": SURFACE_STEPS}
+    fa.reset_launches()
+    for dname in ("float32", "bfloat16"):
+        tr = trainer(model, None if dname == "float32" else dname)
+        t = out[dname] = run(tr)
+        if not all(np.isfinite(t["losses"])):
+            fail("surface BERT LAMB %s losses not finite: %r"
+                 % (dname, t["losses"]))
+        del tr
+        torch.cuda.empty_cache()
+    out["launches"] = kernel_launches()
+    check_launches(out["launches"], 2 * SURFACE_STEPS, layers,
+                   "surface BERT LAMB")
+    # Adam on the same weights, batch and schedule: LAMB's cost beside it
+    tr = trainer(model, "bfloat16", "adam")
+    out["bfloat16_adam"] = run(tr)
+    del tr
+    for dname in ("float32", "bfloat16"):
+        t = out[dname]
+        print("surface bert %s: LAMB from Xavier, lr per step %s, step %.2f "
+              "ms mean (first %.2f ms), %.1f tokens/s, peak memory %.2f GB, "
+              "losses %s" % (
+                  dname, ", ".join("%.3g" % v for v in t["lrs"]),
+                  t["step_ms_mean"], t["first_step_ms"], t["tokens_s"],
+                  t["max_memory_allocated_gb"],
+                  ", ".join("%.4f" % v for v in t["losses"])), flush=True)
+    print("surface bert bfloat16 Adam (same weights and schedule): step "
+          "%.2f ms mean; LAMB adds %.2f ms a step"
+          % (out["bfloat16_adam"]["step_ms_mean"],
+             out["bfloat16"]["step_ms_mean"]
+             - out["bfloat16_adam"]["step_ms_mean"]), flush=True)
+
+    # one LAMB step at dropout 0 against the plain path, as the BERT phase
+    def one_step(net):
+        def run_one():
+            tr = trainer(net)
+            return float(tr.step(data, dummy, lr=schedule()(1))), {
+                n: v.grad for n, v in tr.values.items()}
+        return run_one
+
+    out["plain_check"] = bert_plain_checks(
+        torch, model, (("LAMB step", one_step),), "surface bert")
+    if args.profile:
+        for name in ("lamb", "adam"):
+            tr = trainer(model, "bfloat16", name)
+            tr.step(data, dummy, lr=1e-4)
+            out["profile_bfloat16_" + name] = profile(
+                torch, lambda: train_steps(torch, tr, data, dummy, 2))
+            del tr
+    del model
+    torch.cuda.empty_cache()
+    return out
+
+
+def surface_eager(args, torch):
+    """Part (b): eager TransformerLM training through ``gluon.Trainer``,
+    from the reference's Xavier initialization, with
+    ``clip_global_norm`` over the gradients each step."""
+    from mxnet_tpu_torch import initializer
+    from mxnet_tpu_torch import random as trandom
+    from mxnet_tpu_torch.gluon import Trainer, collect_params
+    from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+    from mxnet_tpu_torch.gluon.utils import clip_global_norm
+    from mxnet_tpu_torch.models import transformer_lm_base
+    from mxnet_tpu_torch.ops import flash_attention as fa
+    from mxnet_tpu_torch.parallel import ShardedTrainer
+    dev = torch.device("cuda")
+    trandom.seed(args.seed)
+    net = transformer_lm_base(vocab_size=32000, max_len=TRAIN_SEQ,
+                              device=dev)
+    params = collect_params(net)
+    params.initialize(initializer.Xavier())
+    plist = list(params.values())
+    start = {k: v.detach().clone() for k, v in net.state_dict().items()}
+    x, y = (torch.from_numpy(a).to(dev) for a in lm_batch(args.seed + 2))
+    loss_fn = SoftmaxCrossEntropyLoss()
+    norms = []
+
+    def eager_step(trainer):
+        """One step as a Gluon script takes it: forward, per-sample loss,
+        backward of the loss vector, clip, ``step(batch)``."""
+        def step(_):
+            losses = loss_fn(net(x), y)
+            losses.backward(torch.ones_like(losses))
+            norms.append(clip_global_norm([p.grad() for p in plist],
+                                          SURFACE_CLIP))
+            trainer.step(TRAIN_BATCH)
+            return losses.detach().float().mean()
+        return step
+
+    def summary(losses, ms):
+        step_ms = float(np.mean(ms[1:]))
+        return {"losses": losses, "first_step_ms": ms[0],
+                "step_ms_mean": step_ms, "step_ms": ms,
+                "tokens_s": TRAIN_BATCH * TRAIN_SEQ / step_ms * 1e3,
+                "max_memory_allocated_gb":
+                    torch.cuda.max_memory_allocated() / 1e9}
+
+    out = {"model": "transformer_lm_base", "batch": TRAIN_BATCH,
+           "seq": TRAIN_SEQ, "optimizer": "adam", "lr": 1e-4,
+           "clip_global_norm": SURFACE_CLIP, "steps_per_dtype": SURFACE_STEPS}
+    fa.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    tr = Trainer(params, "adam", {"learning_rate": 1e-4})
+    first, ms0 = timed_steps(torch, eager_step(tr), 1)
+    after1 = {k: v.detach().clone() for k, v in net.state_dict().items()}
+    rest, ms = timed_steps(torch, eager_step(tr), SURFACE_STEPS - 1)
+    out["float32"] = summary(first + rest, ms0 + ms)
+    del tr
+    # bf16 weights with fp32 master copies, from the same start
+    net.load_state_dict(start)
+    net.to(torch.bfloat16)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    tr = Trainer(params, "adam", {"learning_rate": 1e-4,
+                                  "multi_precision": True})
+    out["bfloat16"] = summary(*timed_steps(torch, eager_step(tr),
+                                           SURFACE_STEPS))
+    masters = [s[0].dtype for s in tr._updaters[0].states.values()]
+    if not all(d == torch.float32 for d in masters) or \
+            net.head.weight.dtype != torch.bfloat16:
+        fail("surface eager bf16: no fp32 master copies (%s)" % masters)
+    del tr
+    out["launches"] = kernel_launches()
+    check_launches(out["launches"], 2 * SURFACE_STEPS, net.num_layers,
+                   "surface eager TransformerLM")
+    out["clip_norms"] = [float(v) for v in norms]
+    for dname in ("float32", "bfloat16"):
+        t = out[dname]
+        if not all(np.isfinite(t["losses"])):
+            fail("surface eager %s losses not finite: %r"
+                 % (dname, t["losses"]))
+        print("surface eager %s: TransformerLM b%d s%d gluon.Trainer "
+              "%s, step %.2f ms mean (first %.2f ms), %.1f tokens/s, peak "
+              "memory %.2f GB, losses %s" % (
+                  dname, TRAIN_BATCH, TRAIN_SEQ,
+                  "Adam multi_precision" if dname == "bfloat16" else "Adam",
+                  t["step_ms_mean"], t["first_step_ms"], t["tokens_s"],
+                  t["max_memory_allocated_gb"],
+                  ", ".join("%.4f" % v for v in t["losses"])), flush=True)
+    fp32 = out["float32"]["losses"]
+    if not fp32[-1] < fp32[0]:
+        fail("the eager fp32 loss did not fall: %r" % fp32)
+
+    # the first eager step against one ShardedTrainer Adam step from the
+    # same weights: both minimise the batch mean; the clip's scale enters
+    # as rescale_grad
+    scale = min(1.0, SURFACE_CLIP / (norms[0] + 1e-8))
+    del net, params, plist
+    torch.cuda.empty_cache()
+    ref_net = transformer_lm_base(vocab_size=32000, max_len=TRAIN_SEQ,
+                                  device=dev)
+    ref_net.load_state_dict(start)
+    sharded = ShardedTrainer(ref_net, loss_fn, "adam",
+                             {"learning_rate": 1e-4, "rescale_grad": scale},
+                             device=dev)
+    loss_sharded = float(sharded.step(x, y))
+    loss_rel = abs(fp32[0] - loss_sharded) / abs(loss_sharded)
+    errs = {n: rel_to_max(after1[n], v) for n, v in sharded.values.items()}
+    worst = max(errs, key=errs.get)
+    out["sharded_check"] = {
+        "clip_scale": scale, "loss_eager": fp32[0],
+        "loss_sharded": loss_sharded, "loss_rel_err": loss_rel,
+        "loss_tol": SURFACE_LOSS_RTOL, "param_worst": worst,
+        "param_worst_rel_to_max": errs[worst],
+        "param_tol": SURFACE_PARAM_TOL,
+        "param_top": sorted(errs.items(), key=lambda kv: -kv[1])[:4]}
+    print("surface eager first step vs ShardedTrainer Adam (clip scale "
+          "%.4g): loss rel err %.3g (tol %g), worst parameter %s at %.3g "
+          "of its max (tol %g); top %s" % (
+              scale, loss_rel, SURFACE_LOSS_RTOL, worst, errs[worst],
+              SURFACE_PARAM_TOL, out["sharded_check"]["param_top"]),
+          flush=True)
+    if not loss_rel <= SURFACE_LOSS_RTOL:
+        fail("surface eager first step: loss %r != ShardedTrainer %r"
+             % (fp32[0], loss_sharded))
+    if errs[worst] > SURFACE_PARAM_TOL:
+        fail("surface eager first step: parameter %s off by %g of its max "
+             "from ShardedTrainer's" % (worst, errs[worst]))
+    del sharded, ref_net, start, after1
     torch.cuda.empty_cache()
     return out
 
@@ -980,7 +1274,7 @@ def ptxas_summary(_build, name):
     return "%s: ptxas %d kernels: %s" % (name, len(parts), ", ".join(parts))
 
 
-def kernel_entries(serving, training, bert, fwd_cases, bwd_cases):
+def kernel_entries(serving, training, bert, surface, fwd_cases, bwd_cases):
     """The ``{"kernels": [...]}`` entries: numbers of the main path's
     training shape (B 32, S 512, H 12, D 64, BSHD, causal) in fp32, and
     under ``*_bf16`` keys in bf16; under ``bert``, the numbers of the BERT
@@ -1023,11 +1317,13 @@ def kernel_entries(serving, training, bert, fwd_cases, bwd_cases):
         "max_abs_err": max(c["max_abs_err"] for c in fwd_cases),
         "launches": serving["flash_launches"]
         + training["launches"]["flash_attn_fwd"]
-        + bert["launches"]["flash_attn_fwd"],
+        + bert["launches"]["flash_attn_fwd"]
+        + surface["launches"]["flash_attn_fwd"],
         "launches_by_path": {
             "serving": serving["flash_launches"],
             "training": training["launches"]["flash_attn_fwd"],
-            "bert": bert["launches"]["flash_attn_fwd"]},
+            "bert": bert["launches"]["flash_attn_fwd"],
+            "surface": surface["launches"]["flash_attn_fwd"]},
         "bert": bert_rows(fwd_cases),
         "cases": fwd_cases}]
     bm, bb = main(bwd_cases), main(bwd_cases, "bfloat16")
@@ -1050,10 +1346,11 @@ def kernel_entries(serving, training, bert, fwd_cases, bwd_cases):
             "library_graph_ms_bf16": bb["library_bwd_graph_ms"],
             "max_abs_err": max(errs),
             "launches": training["launches"][name]
-            + bert["launches"][name],
+            + bert["launches"][name] + surface["launches"][name],
             "launches_by_path": {"serving": 0,
                                  "training": training["launches"][name],
-                                 "bert": bert["launches"][name]},
+                                 "bert": bert["launches"][name],
+                                 "surface": surface["launches"][name]},
             "bert": bert_rows(bwd_cases, part)})
     for e in entries:
         src, main_line, also = KERNELS[e["name"]]
@@ -1124,12 +1421,29 @@ def main():
           % (bert["launches"], min(bert["valid_len"]),
              max(bert["valid_len"]), bert["dropout_losses"]))
 
+    surface = {"bert_lamb": surface_bert(args, torch),
+               "eager_lm": surface_eager(args, torch)}
+    surface["launches"] = {
+        k: surface["bert_lamb"]["launches"][k]
+        + surface["eager_lm"]["launches"][k]
+        for k in surface["bert_lamb"]["launches"]}
+    print("surface: launches %s (BERT LAMB %s, eager TransformerLM %s); "
+          "eager clip norms %s" % (
+              surface["launches"], surface["bert_lamb"]["launches"],
+              surface["eager_lm"]["launches"],
+              ", ".join("%.4g" % v for v in
+                        surface["eager_lm"]["clip_norms"])))
+
     for tag, prof in (("serving burst", serving["profile"]),
                       ("2 fp32 training steps",
                        training.get("profile_float32")),
                       ("2 bf16 training steps",
                        training.get("profile_bfloat16")),
-                      ("2 bf16 BERT steps", bert.get("profile_bfloat16"))):
+                      ("2 bf16 BERT steps", bert.get("profile_bfloat16")),
+                      ("2 bf16 BERT LAMB steps (surface)",
+                       surface["bert_lamb"].get("profile_bfloat16_lamb")),
+                      ("2 bf16 BERT Adam steps (surface)",
+                       surface["bert_lamb"].get("profile_bfloat16_adam"))):
         if prof is not None:
             print("profile %s: %.1f ms wall, device busy %.1f ms (%.1f%%), "
                   "%d kernels; top: %s" % (
@@ -1168,12 +1482,14 @@ def main():
                  c["dkv"]["bound_by"], c["plain_bwd_ms"], lib,
                  ",".join("%.2g" % v for v in
                           c["max_err_rel_to_max"].values())))
-    entries = kernel_entries(serving, training, bert, fwd_cases, bwd_cases)
+    entries = kernel_entries(serving, training, bert, surface, fwd_cases,
+                             bwd_cases)
     card = card_line()
     if args.out:
         with open(args.out, "w") as f:
             json.dump({"serving": serving, "training": training,
-                       "bert": bert, "kernels": entries, "card": card,
+                       "bert": bert, "surface": surface,
+                       "kernels": entries, "card": card,
                        "build_s": build_s}, f, indent=1)
     print(json.dumps({"kernels": [{k: v for k, v in e.items()
                                    if k != "cases"} for e in entries]}))

@@ -15,13 +15,17 @@ The port carries two paths of TransformerLM so far:
   flash-attention forward (``csrc/flash_attn_fwd.cu``) under every prefill;
 - training: ``parallel.ShardedTrainer(lm, gluon.loss.SoftmaxCrossEntropyLoss(),
   "adam", ...)`` on one device, whose backward runs the hand-written CUDA
-  flash-attention backward kernels (``csrc/flash_attn_bwd.cu``).
+  flash-attention backward kernels (``csrc/flash_attn_bwd.cu``);
+- the Gluon training surface: ``initializer``, ``lr_scheduler``, every
+  ``optimizer``, ``gluon.collect_params`` and the eager ``gluon.Trainer``,
+  ``gluon.utils.clip_global_norm`` and every ``gluon.loss``.
 """
-from . import (config, context, convert, gluon, models, ops, optimizer,
-               parallel, random, serving)
+from . import (config, context, convert, gluon, initializer, lr_scheduler,
+               models, ops, optimizer, parallel, random, serving)
 from .context import default_device
 
 __version__ = "0.2.0"
 
-__all__ = ["config", "context", "convert", "gluon", "models", "ops",
-           "optimizer", "parallel", "random", "serving", "default_device"]
+__all__ = ["config", "context", "convert", "gluon", "initializer",
+           "lr_scheduler", "models", "ops", "optimizer", "parallel", "random",
+           "serving", "default_device"]

@@ -59,7 +59,7 @@ from .models.transformer import TransformerLM
 from .ndarray.serialization import load_ndarrays
 
 __all__ = ["state_dict_from_mxnet", "load_mxnet_params",
-           "mxnet_params_from_state_dict"]
+           "mxnet_params_from_state_dict", "reference_names"]
 
 _NORM = re.compile(
     r"^(?P<scope>(?:encoder_)?)layernorm\d+_(?P<leaf>gamma|beta)$")
@@ -274,6 +274,50 @@ def load_mxnet_params(model, params, prefix=None):
     return model
 
 
+def _reference_namer(arch, outer, prefix):
+    """``name(port name) -> reference full name`` for one model family."""
+    inv = {v: k for k, v in arch.top.items()}
+    inv.update(("%s.%s" % (port, leaf), "%slayernorm0_%s" % (scope, leaf))
+               for scope, port in arch.norms.items()
+               for leaf in ("gamma", "beta"))
+    layer = re.compile(r"^%s\.(\d+)\.(.+)$" % re.escape(arch.path))
+
+    def name(port_name):
+        bare = port_name[len(outer):] if port_name.startswith(outer) \
+            else None
+        m = layer.match(bare) if bare is not None else None
+        if bare in inv:
+            return prefix + inv[bare]
+        if m is None:
+            raise ValueError("unexpected parameter %r" % port_name)
+        sub = m.group(2).split(".")
+        if sub[0] in ("ln1", "ln2"):
+            key = "layernorm%d_%s" % (int(sub[0] == "ln2"), sub[1])
+        elif sub[0] == "attn":
+            key = "%s%s_weight" % (arch.attn, sub[1])
+        elif sub[0] in ("ffn_up", "ffn_down"):
+            key = "%s_%s" % (sub[0], sub[1])
+        else:
+            raise ValueError("unexpected parameter %r" % port_name)
+        return prefix + arch.layer_prefix % int(m.group(1)) + key
+    return name
+
+
+def _default_prefix(arch, outer):
+    return ("pretrainstep0_" if outer else "") + arch.prefix
+
+
+def reference_names(model, prefix=None):
+    """``{port parameter name: reference full name}`` of a
+    ``TransformerLM``, ``BERTModel`` or ``PretrainStep``, in the order of
+    ``model.named_parameters()``, which is the reference's registration
+    order. ``prefix`` defaults as in :func:`mxnet_params_from_state_dict`."""
+    arch, outer = _arch_of(model)
+    name = _reference_namer(arch, outer, _default_prefix(arch, outer)
+                            if prefix is None else prefix)
+    return {n: name(n) for n, _ in model.named_parameters()}
+
+
 def mxnet_params_from_state_dict(state_dict, prefix=None):
     """The inverse map: a port model, or its state dict, to reference-style
     full names (counters from 0) and numpy arrays. The family comes from
@@ -287,31 +331,6 @@ def mxnet_params_from_state_dict(state_dict, prefix=None):
         outer = "bert." if all(n.startswith("bert.") for n in state_dict) \
             else ""
         arch = _BERT if any("word_embed" in n for n in state_dict) else _LM
-    if prefix is None:
-        prefix = ("pretrainstep0_" if outer else "") + arch.prefix
-    inv = {v: k for k, v in arch.top.items()}
-    inv.update(("%s.%s" % (port, leaf), "%slayernorm0_%s" % (scope, leaf))
-               for scope, port in arch.norms.items()
-               for leaf in ("gamma", "beta"))
-    layer = re.compile(r"^%s\.(\d+)\.(.+)$" % re.escape(arch.path))
-    out = {}
-    for name, t in state_dict.items():
-        arr = t.detach().cpu().numpy()
-        bare = name[len(outer):] if name.startswith(outer) else None
-        m = layer.match(bare) if bare is not None else None
-        if bare in inv:
-            out[prefix + inv[bare]] = arr
-            continue
-        if m is None:
-            raise ValueError("unexpected parameter %r" % name)
-        sub = m.group(2).split(".")
-        if sub[0] in ("ln1", "ln2"):
-            key = "layernorm%d_%s" % (int(sub[0] == "ln2"), sub[1])
-        elif sub[0] == "attn":
-            key = "%s%s_weight" % (arch.attn, sub[1])
-        elif sub[0] in ("ffn_up", "ffn_down"):
-            key = "%s_%s" % (sub[0], sub[1])
-        else:
-            raise ValueError("unexpected parameter %r" % name)
-        out[prefix + arch.layer_prefix % int(m.group(1)) + key] = arr
-    return out
+    name = _reference_namer(arch, outer, _default_prefix(arch, outer)
+                            if prefix is None else prefix)
+    return {name(n): t.detach().cpu().numpy() for n, t in state_dict.items()}

@@ -36,6 +36,10 @@ class Dense(nn.Module):
     ``bias (units,)``. With ``flatten`` the input is flattened to
     ``(batch, -1)``; without, the last axis is contracted."""
 
+    # the reference layer's init default of each parameter (read by
+    # gluon.parameter.collect_params)
+    _param_init = {"weight": None, "bias": "zeros"}
+
     def __init__(self, units, in_units, use_bias=True, flatten=True,
                  device=None, dtype=torch.float32):
         super().__init__()
@@ -114,6 +118,8 @@ class Embedding(nn.Module):
     of any integer dtype. The weight gradient is the same, bit for bit,
     in every run (:class:`_Lookup`)."""
 
+    _param_init = {"weight": None}
+
     def __init__(self, input_dim, output_dim, device=None,
                  dtype=torch.float32):
         super().__init__()
@@ -131,6 +137,8 @@ class Embedding(nn.Module):
 class LayerNorm(nn.Module):
     """Layer norm over ``axis`` with ``gamma``/``beta`` of
     ``(in_channels,)``, eps 1e-5."""
+
+    _param_init = {"gamma": "ones", "beta": "zeros"}
 
     def __init__(self, in_channels, axis=-1, epsilon=1e-5, device=None,
                  dtype=torch.float32):

@@ -1,4 +1,4 @@
 """Operators: plain functions on tensors, and the CUDA kernels' wrappers."""
-from . import flash_attention, generation_ops, nn
+from . import ctc, flash_attention, generation_ops, nn
 
-__all__ = ["flash_attention", "generation_ops", "nn"]
+__all__ = ["ctc", "flash_attention", "generation_ops", "nn"]

@@ -17,7 +17,8 @@ __all__ = ["functional_optimizer"]
 
 def functional_optimizer(name, **hyper):
     """``(init_state, update)`` over one tensor for ``"sgd"`` (with or
-    without ``momentum``) or ``"adam"``, with the reference's
+    without ``momentum``), ``"nag"``, ``"adam"`` or ``"lamb"`` (no bounds on
+    the weight norm, bias correction on), with the reference's
     hyper-parameter names and defaults. ``init_state(w)`` returns a tuple of
     state tensors; ``update(w, g, state, t, lr)`` updates ``w`` and
     ``state`` in place (``t`` is the 1-based step) and returns them."""
@@ -47,6 +48,14 @@ def functional_optimizer(name, **hyper):
             def update(w, g, state, t, lr):
                 return _opt._sgd(w, g, lr, wd, rescale, clip), ()
         return init, update
+    if name == "nag":
+        def init(w):
+            return (torch.zeros_like(w),)
+
+        def update(w, g, state, t, lr):
+            w, m = _opt._nag_mom(w, state[0], g, lr, wd, mom, rescale, clip)
+            return w, (m,)
+        return init, update
     if name == "adam":
         def init(w):
             return (torch.zeros_like(w), torch.zeros_like(w))
@@ -56,5 +65,14 @@ def functional_optimizer(name, **hyper):
                                  eps, rescale, clip, t)
             return w, (m, v)
         return init, update
-    raise ValueError("functional optimizer %r not ported (use sgd or adam)"
-                     % name)
+    if name == "lamb":
+        def init(w):
+            return (torch.zeros_like(w), torch.zeros_like(w))
+
+        def update(w, g, state, t, lr):
+            w, m, v = _opt._lamb(w, state[0], state[1], g, lr, wd, b1, b2,
+                                 eps, t, 0.0, _opt._INF, 1.0, rescale, clip)
+            return w, (m, v)
+        return init, update
+    raise ValueError("functional optimizer %r not supported (use sgd, nag, "
+                     "adam, lamb)" % name)

@@ -5,8 +5,9 @@
   must match.
 - ``SoftmaxCrossEntropyLoss`` and the Adam/SGD update rules must match the
   reference at atol/rtol 1e-6 (fp32; the same arithmetic, op for op).
-- The port's single-device ``ShardedTrainer`` with Adam must follow the
-  JAX ``ShardedTrainer`` (``make_mesh(dp=1)`` over one device) on a small
+- The port's single-device ``ShardedTrainer`` with Adam (and NAG, LAMB)
+  must follow the JAX ``ShardedTrainer`` (``make_mesh(dp=1)`` over one
+  device) on a small
   TransformerLM (units 64, 2 layers, 2 heads, vocab 64, batch 4, seq 16,
   dropout 0, lr 1e-3, fp32) over 5 steps: losses and the parameters after
   ``sync_back`` at atol 1e-4 (summation order only). Both take their plain
@@ -147,10 +148,22 @@ def test_update_rules_match(rule):
 
 
 def test_functional_optimizer_refuses_unported():
+    """``nag`` and ``lamb`` are ported; a name the reference does not take
+    raises the reference's ``ValueError``."""
     init, _ = functional_optimizer("sgd")
     assert init(torch.zeros(3)) == ()
-    with pytest.raises(ValueError, match="not ported"):
-        functional_optimizer("lamb")
+    for name, n_states in (("nag", 1), ("lamb", 2)):
+        init, update = functional_optimizer(name, momentum=0.9)
+        w = torch.ones(3)
+        state = init(w)
+        assert len(state) == n_states
+        update(w, torch.ones(3), state, 1, 0.1)
+        assert bool((w < 1).all())
+    with pytest.raises(ValueError) as ref:
+        jparallel.functional_optimizer("rmsprop")
+    with pytest.raises(ValueError) as own:
+        functional_optimizer("rmsprop")
+    assert str(own.value) == str(ref.value)
 
 
 def _batches(n):
@@ -179,14 +192,20 @@ def _pair():
     return jnet, tnet
 
 
-def test_trainer_follows_reference_adam():
+@pytest.mark.parametrize("name,hyper", [
+    ("adam", {"learning_rate": 1e-3}),
+    ("nag", {"learning_rate": 0.05, "momentum": 0.9, "wd": 1e-4}),
+    ("lamb", {"learning_rate": 1e-3, "wd": 0.01})],
+    ids=["adam", "nag", "lamb"])
+def test_trainer_follows_reference_adam(name, hyper):
+    """5 steps of the functional ``name`` (Adam, and since the eager
+    surface was ported NAG and LAMB) against the reference's."""
     jnet, tnet = _pair()
     jtr = jparallel.ShardedTrainer(
-        jnet, jgluon.loss.SoftmaxCrossEntropyLoss(), "adam",
-        {"learning_rate": 1e-3},
+        jnet, jgluon.loss.SoftmaxCrossEntropyLoss(), name, dict(hyper),
         mesh=jparallel.make_mesh(dp=1, devices=jax.devices()[:1]))
-    ttr = ShardedTrainer(tnet, SoftmaxCrossEntropyLoss(), "adam",
-                         {"learning_rate": 1e-3}, device="cpu")
+    ttr = ShardedTrainer(tnet, SoftmaxCrossEntropyLoss(), name, dict(hyper),
+                         device="cpu")
     for x, y in _batches(5):
         ref = float(jtr.step(nd.array(x), nd.array(y)).asnumpy())
         loss = ttr.step(x, y)
