@@ -9,7 +9,8 @@ Builds the package's CUDA kernels from the sources in this checkout
    ``transformer_lm_base`` (units 768, 12 layers, 12 heads, head_dim 64,
    vocab 32000, max_len 2048) with random weights made from ``--seed`` with
    numpy and loaded through ``convert.load_mxnet_params``; ``DecodeEngine``
-   (8 slots, max_seq 2048, ladder 16..1024, float32) behind
+   (8 slots, max_seq 2048, ladder 16..1024, float32, no prefix cache and
+   no chunking: the monolithic path) behind
    ``GenerationScheduler`` behind ``ModelServer`` on an ephemeral port.
    Eight concurrent ``POST /generate`` requests (prompt lengths 5, 37, 100,
    128, 200, 511, 700, 1000; 32 greedy tokens each). Checks that every
@@ -18,7 +19,49 @@ Builds the package's CUDA kernels from the sources in this checkout
    and that the two longest streams equal greedy decoding by re-prefill: one
    full ``forward`` over prompt + stream on the plain attention path, whose
    argmax at each position must be the next streamed token.
-2. **Training phase: TransformerLM training at full width.** The same
+2. **Serving v2 phase: chunked prefill, the prefix cache, speculative
+   decoding, lanes and retry at full width.** ``transformer_lm_base`` with
+   the serving phase's weights; every engine has 8 slots, max_seq 2048,
+   ladder 16..1024 and float32; prompt tokens from
+   ``numpy.random.default_rng(seed + ...)``. (a) A 640-token shared system
+   prompt plus 8 suffixes of 7..120 tokens, 32 greedy tokens each, with
+   ``chunk=128``: a cold pass without a prefix cache, then a warm pass
+   over a ``PrefixCache(block=128)`` primed by one request and flushed.
+   Checks 8 hits saving 8 x 640 tokens, warm streams equal to cold ones,
+   bitwise-equal arena rows of a cold and a hit slot (direct engine
+   calls), the two longest streams equal to greedy re-prefill, and no
+   flash launch (the chunk program is the plain path). (b) Three live
+   100-token streams of 96 tokens; after 8 tokens a 1000-token prompt
+   arrives, monolithic (``chunk=0``: one flash prefill) and chunked
+   (``chunk=128``); the live streams' inter-token p99 and max are printed.
+   Then a 1900-token prompt (beyond the ladder) through ``chunk=128``: its
+   16 tokens must equal greedy re-prefill. (c) The serving burst's 8
+   prompts, 32 greedy tokens each, plain, with a self-draft (a second
+   ``transformer_lm_base`` with the same weights) and with an independent
+   draft (units 256, 2 layers, 4 heads, weights from ``seed + 7``), k = 4,
+   each run serving the burst 3 times (tokens/s: median and range):
+   every speculative burst must be token-exact against the plain run,
+   except that a stream's comparison stops at a near tie (the plain
+   path's top-2 logit margin under 1e-5 of its largest |logit|, by
+   re-prefill), which is printed and counted. (d) A ``"prefill"`` lane and
+   a ``"decode"`` lane over one ``PrefixCache(block=128)``: a 700-token
+   prompt retires on the prefill lane with reason ``"prefill"``, then hits
+   640 tokens on the decode lane with no ``decode_lane_misses``, its
+   stream equal to a mixed lane's. (e) A 4-request burst under a
+   ``RetryPolicy`` with ``chaos.arm("generation.step", "transient",
+   first=2)``: every stream equals its unarmed run, with 2 retries. (f)
+   Each program alone, every slot holding a 1000-token prompt: the flash
+   prefill at rung 1024, a 128-token chunk at 0 and at 896, the decode
+   step, the verify (8 slots x 5) and the 2-layer draft's step, 10 calls
+   each between CUDA events (and with ``--profile`` under
+   ``torch.profiler``: kernel busy ms and kernels a call). Flash launches
+   are counted per part against the prefills that take the monolithic
+   path. The tracer is on through the phase: each part prints its
+   generation spans' counts and mean host ms (the draft engine's as
+   ``generation.draft.*``). After both serving phases every engine is
+   closed or dropped: more than 512 MiB of device memory still allocated
+   fails the run.
+3. **Training phase: TransformerLM training at full width.** The same
    weights in ``transformer_lm_base`` with max_len 512 (the configuration of
    the reference's ``bench_translm``), ``ShardedTrainer`` with
    ``SoftmaxCrossEntropyLoss`` over the shifted logits (labels are the next
@@ -35,7 +78,7 @@ Builds the package's CUDA kernels from the sources in this checkout
    atomics anywhere on the path), and the dQ kernel, run twice on the same
    inputs at the training shape (fp32 and bf16, dropout 0 and 0.1), must
    give bitwise-equal results.
-3. **BERT phase: BERT-base pretraining at full width.** ``bert_base``
+4. **BERT phase: BERT-base pretraining at full width.** ``bert_base``
    (units 768, 12 layers, 12 heads, hidden 3072, vocab 30522, max_length
    128, dropout 0.1) with random N(0, 0.02) weights made from ``--seed``
    with numpy (LayerNorm 1 and 0), written under reference names with
@@ -59,7 +102,7 @@ Builds the package's CUDA kernels from the sources in this checkout
    twice the plain path's. Two dropout-0.1 steps under one
    ``random.seed``, run twice, must give bitwise-equal losses and
    second-step gradients.
-4. **Surface phase: the Gluon training surface at full width.**
+5. **Surface phase: the Gluon training surface at full width.**
    (a) ``bert_base`` at the BERT phase's configuration (b64 s128 m20,
    dropout 0.1), initialized as the reference's recipe does: after
    ``random.seed(--seed)``, ``collect_params(PretrainStep(net))
@@ -84,7 +127,7 @@ Builds the package's CUDA kernels from the sources in this checkout
    first fp32 step equals one ``ShardedTrainer`` Adam step from the same
    weights (``rescale_grad`` = the clip's scale): the loss to 1e-6
    relative and every parameter to 1e-5 of its largest |value|.
-5. **Forward kernel phase.** At the serving shapes (B 1, H 12, D 64, S 128
+6. **Forward kernel phase.** At the serving shapes (B 1, H 12, D 64, S 128
    and 1024; causal with a key mask; both layouts; fp32 and bf16; a
    dropout case in each type), at B 8, S 512 with D 32 and D 128 (fp32,
    BSHD, causal with a key mask), at the training shape (B 32, S 512,
@@ -98,25 +141,26 @@ Builds the package's CUDA kernels from the sources in this checkout
    no mask where the case has no key mask, so that SDPA can take its flash
    backend, and with the same boolean mask (and the causal one, where the
    case is causal) where it has one.
-6. **Backward kernel phase.** At B 8, S 512, H 12, D 64, causal with a key
+7. **Backward kernel phase.** At B 8, S 512, H 12, D 64, causal with a key
    mask (both layouts, fp32 and bf16, a dropout case in each type, D 32 and
    D 128 cases in each type), at the training shape (B 32, S 512, causal;
-   fp32 and bf16) and at the BERT shape (the cases of phase 5), the dQ and
+   fp32 and bf16) and at the BERT shape (the cases of phase 6), the dQ and
    the dK/dV kernels are held against ``flash_attention_bwd_plain`` on the
    card (the largest error at most 2e-4 of the largest |value| in fp32,
    2e-2 in bf16) and timed eager and from a CUDA graph, beside their bound,
    the plain backward and ``torch.autograd.grad`` through SDPA (the
-   yardstick only; SDPA called as in phase 5): eager with the forward
+   yardstick only; SDPA called as in phase 6): eager with the forward
    outside the timed region, and from a CUDA graph as the graph time of
    forward + backward less that of the forward alone.
 
-With ``--profile`` the burst is served a second time, and two fp32 and two
-bf16 training steps, two bf16 BERT steps and two bf16 BERT steps each with
-LAMB and Adam (surface phase) are run, under ``torch.profiler`` (after the
-checked runs) to print the device's busy share, its kernel count and its
+With ``--profile`` the burst is served a second time, serving v2's part
+(f) is profiled, and two fp32 and two bf16 training steps, two bf16 BERT
+steps and two bf16 BERT steps each with LAMB and Adam (surface phase) are
+run, under ``torch.profiler`` (after the checked runs) to print the
+device's busy share, its kernel count and its
 top kernels.
 
-Prints the serving, training, BERT and surface numbers, one
+Prints the serving, serving v2, training, BERT and surface numbers, one
 ``{"kernels": [...]}``
 line (the numbers of the training shape in fp32, under ``*_bf16`` keys in
 bf16, and under ``bert`` those of the BERT shape), the card's name and
@@ -126,6 +170,7 @@ Any failure exits non-zero before that line. Without CUDA it exits 2.
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import os
 import re
@@ -278,7 +323,8 @@ def serving_phase(args, torch):
     convert.load_mxnet_params(model, random_params(model, args.seed))
     model.eval()
     eng = DecodeEngine(model, num_slots=8, max_seq=2048, ladder=LADDER,
-                       dtype="float32", seed=args.seed, device=dev)
+                       dtype="float32", seed=args.seed, device=dev,
+                       prefix_cache=False, chunk=0)
     rng = np.random.default_rng(args.seed + 1)
     prompts = [rng.integers(0, 32000, n).tolist() for n in PROMPT_LENS]
     # warm-up (library handles, kernel load), outside the measured run
@@ -306,6 +352,8 @@ def serving_phase(args, torch):
             if args.profile else None
     finally:
         srv.stop()
+        sched.close()
+        eng.close()
     streams = []
     for n, res in zip(PROMPT_LENS, results):
         if res is None:
@@ -323,29 +371,10 @@ def serving_phase(args, torch):
     if launches != prefills * model.num_layers:
         fail("flash kernel launched %d times for %d prefills x %d layers"
              % (launches, prefills, model.num_layers))
-    # greedy by re-prefill: one causal forward over prompt + stream on the
-    # plain attention path; position len(prompt)-1+i must predict token i
     checked = []
-    before = fa.flash_attention_bshd.launches + fa.flash_attention.launches
-    os.environ["MXNET_FLASH_ATTENTION"] = "0"
-    try:
-        for idx in np.argsort(PROMPT_LENS)[-2:]:
-            p, toks = prompts[idx], streams[idx]
-            seq = torch.tensor([p + toks[:-1]], device=dev)
-            with torch.no_grad():
-                logits = model(seq)[0, len(p) - 1:]
-            if not bool(torch.isfinite(logits).all()):
-                fail("non-finite logits on the plain path")
-            ref = logits.argmax(dim=-1).tolist()
-            if ref != toks:
-                fail("prompt %d: stream %r != re-prefill %r"
-                     % (len(p), toks, ref))
-            checked.append(len(p))
-    finally:
-        del os.environ["MXNET_FLASH_ATTENTION"]
-    if fa.flash_attention_bshd.launches + fa.flash_attention.launches \
-            != before:
-        fail("the plain-path check launched the kernel")
+    for idx in np.argsort(PROMPT_LENS)[-2:]:
+        check_reprefill(torch, model, prompts[idx], streams[idx], "serving")
+        checked.append(PROMPT_LENS[idx])
     ttfts = sorted(r["ttft_s"] for r in results)
     return {
         "model": "transformer_lm_base", "requests": len(prompts),
@@ -359,6 +388,543 @@ def serving_phase(args, torch):
         "wall_s": wall, "greedy_reprefill_checked": checked,
         "profile": prof,
     }
+
+
+# serving v2: the shared system prompt of chat and agent deployments
+# (benchmark/generation_bench.py:172) at the card's widths
+SYSTEM_LEN, SUFFIX_LENS, PREFIX_BLOCK, CHUNK = 640, (7, 19, 33, 48, 64, 80,
+                                                     101, 120), 128, 128
+LIVE_LEN, LIVE_TOKENS, LONG_LEN, BEYOND_LEN = 100, 96, 1000, 1900
+SPEC_K = 4
+# (c)'s bursts are short (~0.4-0.8 s): each run serves it this many times
+SPEC_REPEATS = 3
+# (f): calls of each program per timing
+PROGRAM_CALLS = 10
+# device memory still allocated once both serving phases have returned:
+# an engine's arena alone is 1.21 GB
+LEFTOVER_BYTES = 512 << 20
+# a speculative stream's comparison with the plain one stops where the
+# plain path's top-2 logit margin is under this share of its largest
+# |logit|: GEMMs of another M (the verify's k + 1 rows against the decode
+# step's 1) may round the last bits otherwise
+NEAR_TIE = 1e-5
+
+
+def flash_launches():
+    from mxnet_tpu_torch.ops import flash_attention as fa
+    return fa.flash_attention_bshd.launches + fa.flash_attention.launches
+
+
+def reprefill_logits(torch, model, prompt, toks):
+    """One causal forward over ``prompt + toks[:-1]`` on the plain
+    attention path (it must launch no kernel): row ``i`` of the result
+    predicts ``toks[i]``."""
+    seq = torch.tensor([list(prompt) + list(toks[:-1])], device=model.device)
+
+    def run():
+        with torch.no_grad():
+            return model(seq)[0, len(prompt) - 1:]
+
+    logits = on_plain_path(run, "greedy re-prefill")
+    if not bool(torch.isfinite(logits).all()):
+        fail("non-finite logits on the plain path")
+    return logits
+
+
+def check_reprefill(torch, model, prompt, toks, what):
+    """Greedy by re-prefill: position ``len(prompt) - 1 + i`` of one
+    forward must predict streamed token ``i``."""
+    ref = reprefill_logits(torch, model, prompt, toks).argmax(dim=-1).tolist()
+    if ref != list(toks):
+        fail("%s: prompt %d: stream %r != re-prefill %r"
+             % (what, len(prompt), list(toks), ref))
+
+
+def compare_exact(torch, model, prompt, plain, got, what, ties):
+    """``got`` must equal ``plain`` token for token. At the first
+    difference, a near tie of the plain path there (by re-prefill) ends the
+    comparison and is recorded in ``ties``; anything else fails."""
+    if got == plain:
+        return
+    i = next((j for j, (a, b) in enumerate(zip(plain, got)) if a != b),
+             min(len(plain), len(got)))
+    if i >= len(plain):
+        fail("%s: prompt %d: stream %r != plain %r"
+             % (what, len(prompt), got, plain))
+    logits = reprefill_logits(torch, model, prompt, plain[:i + 1])[-1]
+    top = logits.topk(2).values
+    margin = float(top[0] - top[1])
+    scale = float(logits.abs().max())
+    if margin >= NEAR_TIE * scale:
+        fail("%s: prompt %d: token %d is %r, the plain path's %r (top-2 "
+             "margin %.3g of max |logit| %.3g)"
+             % (what, len(prompt), i, got[i:i + 1], plain[i], margin, scale))
+    tie = {"what": what, "prompt_len": len(prompt), "position": i,
+           "margin": margin, "max_abs_logit": scale}
+    print("serving v2: near tie %s" % json.dumps(tie))
+    ties.append(tie)
+
+
+def spans():
+    """Count and mean host ms of each generation span since the last call
+    (the tracer is on through serving v2), then reset. The draft engine's
+    programs are ``generation.draft.*``. A span's host time is not its
+    program's device time: a chunk call ends without a sync, and a span
+    may open by waiting on earlier launches; part (f) times the programs
+    on the device."""
+    from mxnet_tpu_torch.observability import tracer
+    out = {name: {"count": st["count"], "mean_ms": st["mean_ms"]}
+           for name, st in tracer.phase_stats().items()
+           if name.startswith("generation.")}
+    tracer.reset_phase_stats()
+    return out
+
+
+def v2_engine(args, dev, model, chunk, prefix_cache, name):
+    from mxnet_tpu_torch.serving.generation import DecodeEngine
+    return DecodeEngine(model, num_slots=8, max_seq=2048, ladder=LADDER,
+                        dtype="float32", seed=args.seed, device=dev,
+                        chunk=chunk, prefix_cache=prefix_cache, name=name)
+
+
+def sched_burst(sched, prompts, n):
+    """Every prompt submitted at once, ``n`` tokens each; (streams, wall
+    s, requests). Each stream must end by its budget."""
+    t0 = time.perf_counter()
+    reqs = [sched.submit(p, max_new_tokens=n) for p in prompts]
+    streams = [r.result(timeout=600) for r in reqs]
+    wall = time.perf_counter() - t0
+    for p, r, toks in zip(prompts, reqs, streams):
+        if r.finish_reason != "length" or len(toks) != n or \
+                not all(0 <= t < 32000 for t in toks):
+            fail("%s: prompt %d ended %r with %r"
+                 % (sched.name, len(p), r.finish_reason, toks))
+    return streams, wall, reqs
+
+
+def v2_prefix(args, torch, model, dev):
+    """(a) A shared system prompt, cold and then through the prefix
+    cache."""
+    from mxnet_tpu_torch.serving.generation import (GenerationScheduler,
+                                                    PrefixCache)
+    rng = np.random.default_rng(args.seed + 2)
+    system = rng.integers(0, 32000, SYSTEM_LEN).tolist()
+    prompts = [system + rng.integers(0, 32000, n).tolist()
+               for n in SUFFIX_LENS]
+    prime = system + rng.integers(0, 32000, 5).tolist()
+    f0 = flash_launches()
+    eng = v2_engine(args, dev, model, CHUNK, False, "v2.cold")
+    sched = GenerationScheduler(eng, name="v2.cold")
+    try:
+        spans()
+        cold, cold_wall, _ = sched_burst(sched, prompts, NEW_TOKENS)
+        cold_snap = sched.metrics.snapshot()
+        cold_spans = spans()
+    finally:
+        sched.close()
+        eng.close()
+    pc = PrefixCache(block=PREFIX_BLOCK, name="v2.prefix")
+    eng = v2_engine(args, dev, model, CHUNK, pc, "v2.warm")
+    try:
+        primer = GenerationScheduler(eng, name="v2.primer")
+        try:
+            primer.generate(prime, max_new_tokens=1)
+        finally:
+            primer.close()
+        eng.prefix_flush()
+        store = pc.stats()
+        stored_tokens = sum(range(PREFIX_BLOCK, SYSTEM_LEN + 1,
+                                  PREFIX_BLOCK))
+        if store["entries"] != SYSTEM_LEN // PREFIX_BLOCK or \
+                store["bytes"] != stored_tokens * 2 * model.num_layers * \
+                model.num_heads * model.head_dim * 4:
+            fail("prefix cache after priming: %r" % store)
+        sched = GenerationScheduler(eng, name="v2.warm")
+        try:
+            spans()
+            warm, warm_wall, reqs = sched_burst(sched, prompts, NEW_TOKENS)
+            warm_snap = sched.metrics.snapshot()
+            warm_spans = spans()
+            st = sched.stats()
+        finally:
+            sched.close()
+        if st["prefix_hits"] != len(prompts) or \
+                st["prefix_tokens_saved"] != len(prompts) * SYSTEM_LEN or \
+                any(r.prefix_skipped != SYSTEM_LEN for r in reqs):
+            fail("warm pass: %d hits saving %d tokens (%r)"
+                 % (st["prefix_hits"], st["prefix_tokens_saved"],
+                    [r.prefix_skipped for r in reqs]))
+        for p, a, b in zip(prompts, cold, warm):
+            if a != b:
+                fail("prompt %d: warm stream %r != cold %r" % (len(p), b, a))
+        # a cold and a hit slot, by direct engine calls: bitwise rows
+        p = prompts[-1]
+        n = len(p)
+        s_cold = eng.cache.acquire()
+        s_hit = eng.cache.acquire()
+        _, tok_cold = eng.prefill_chunks(s_cold, p, 0)
+        skipped = eng.prefix_admit(s_hit, p)
+        _, tok_hit = eng.prefill_chunks(s_hit, p, skipped)
+        rows_equal = all(
+            torch.equal(a[:, s_cold, :n], a[:, s_hit, :n])
+            for a in (eng.cache.k_arena, eng.cache.v_arena))
+        if skipped != SYSTEM_LEN or tok_cold != tok_hit or not rows_equal:
+            fail("hit slot vs cold slot: skipped %d, first tokens %d/%d, "
+                 "rows bitwise equal %s" % (skipped, tok_cold, tok_hit,
+                                            rows_equal))
+        eng.cache.release(s_cold)
+        eng.cache.release(s_hit)
+    finally:
+        eng.close()
+        pc.close()
+    flash = flash_launches() - f0
+    if flash:
+        fail("the prefix-cache passes launched the flash kernel %d times"
+             % flash)
+    for idx in np.argsort(SUFFIX_LENS)[-2:]:
+        check_reprefill(torch, model, prompts[idx], warm[idx], "warm")
+    return {"system_len": SYSTEM_LEN, "suffix_lens": list(SUFFIX_LENS),
+            "block": PREFIX_BLOCK, "chunk": CHUNK, "hits": st["prefix_hits"],
+            "tokens_saved": st["prefix_tokens_saved"],
+            "slab_entries": store["entries"], "slab_tokens": stored_tokens,
+            "slab_bytes": store["bytes"],
+            "ttft_ms_cold": cold_snap["ttft_ms"],
+            "ttft_ms_warm": warm_snap["ttft_ms"],
+            "wall_s_cold": cold_wall, "wall_s_warm": warm_wall,
+            "prefill_ms_mean_cold": cold_snap["prefill_ms_mean"],
+            "prefill_ms_mean_warm": warm_snap["prefill_ms_mean"],
+            "rows_bitwise_equal": rows_equal, "flash_launches": flash,
+            "spans_cold": cold_spans, "spans_warm": warm_spans}
+
+
+def nearest_rank(values, q):
+    vals = sorted(values)
+    return vals[min(len(vals) - 1, max(0, int(np.ceil(q / 100.0
+                                                      * len(vals))) - 1))]
+
+
+def v2_chunked(args, torch, model, dev):
+    """(b) Live streams while a long prompt prefills, monolithic and
+    chunked; then a prompt beyond the ladder."""
+    from mxnet_tpu_torch.serving.generation import GenerationScheduler
+    rng = np.random.default_rng(args.seed + 4)
+    live_prompts = [rng.integers(0, 32000, LIVE_LEN).tolist()
+                    for _ in range(3)]
+    long_prompt = rng.integers(0, 32000, LONG_LEN).tolist()
+    runs = {}
+    for label, chunk in (("monolithic", 0), ("chunked", CHUNK)):
+        f0 = flash_launches()
+        eng = v2_engine(args, dev, model, chunk, False, "v2." + label)
+        sched = GenerationScheduler(eng, name="v2." + label)
+        stamps = [[] for _ in live_prompts]
+        spans()
+        try:
+            live = [sched.submit(p, max_new_tokens=LIVE_TOKENS)
+                    for p in live_prompts]
+            threads = [threading.Thread(
+                target=lambda r=r, st=st: st.extend(
+                    time.perf_counter() for _ in r.tokens(timeout=600)))
+                for r, st in zip(live, stamps)]
+            for t in threads:
+                t.start()
+            deadline = time.monotonic() + 600
+            while any(len(st) < 8 for st in stamps):
+                if time.monotonic() > deadline:
+                    fail("%s: live streams stalled" % label)
+                time.sleep(0.001)
+            long_req = sched.submit(long_prompt, max_new_tokens=8)
+            long_toks = long_req.result(timeout=600)
+            for t in threads:
+                t.join(600)
+            for r in live:
+                if r.finish_reason != "length" or \
+                        len(r.tokens_out) != LIVE_TOKENS:
+                    fail("%s: live stream ended %r after %d tokens"
+                         % (label, r.finish_reason, len(r.tokens_out)))
+            chunks = eng.stats()["chunk_total"]
+        finally:
+            sched.close()
+            eng.close()
+        gaps = [b - a for st in stamps for a, b in zip(st, st[1:])]
+        runs[label] = {
+            "chunk": chunk, "inter_token_p99_ms": 1e3 * nearest_rank(gaps, 99),
+            "inter_token_max_ms": 1e3 * max(gaps),
+            "inter_token_p50_ms": 1e3 * nearest_rank(gaps, 50),
+            "long_ttft_ms": 1e3 * (long_req.first_token_t
+                                   - long_req.enqueue_t),
+            "long_tokens": long_toks, "chunk_calls": chunks,
+            "flash_launches": flash_launches() - f0, "spans": spans()}
+    want = {"monolithic": 4 * model.num_layers, "chunked": 0}
+    for label, n in want.items():
+        if runs[label]["flash_launches"] != n:
+            fail("%s: %d flash launches, want %d"
+                 % (label, runs[label]["flash_launches"], n))
+    eng = v2_engine(args, dev, model, CHUNK, False, "v2.beyond")
+    sched = GenerationScheduler(eng, name="v2.beyond")
+    beyond = rng.integers(0, 32000, BEYOND_LEN).tolist()
+    try:
+        toks = sched.generate(beyond, max_new_tokens=16)
+        chunks = eng.stats()["chunk_total"]
+    finally:
+        sched.close()
+        eng.close()
+    if chunks != -(-BEYOND_LEN // CHUNK):
+        fail("%d-token prompt took %d chunks" % (BEYOND_LEN, chunks))
+    check_reprefill(torch, model, beyond, toks, "beyond the ladder")
+    runs["beyond_ladder"] = {"prompt_len": BEYOND_LEN, "chunk_calls": chunks,
+                             "tokens": len(toks)}
+    return runs
+
+
+def v2_speculative(args, torch, model, dev, ties):
+    """(c) The serving burst plain, with a self-draft and with an
+    independent draft; both token-exact against the plain run."""
+    from mxnet_tpu_torch import convert
+    from mxnet_tpu_torch.models import TransformerLM, transformer_lm_base
+    from mxnet_tpu_torch.serving.generation import (GenerationScheduler,
+                                                    SpeculativeDecoder)
+    rng = np.random.default_rng(args.seed + 1)
+    prompts = [rng.integers(0, 32000, n).tolist() for n in PROMPT_LENS]
+    self_draft = transformer_lm_base(vocab_size=32000, max_len=2048,
+                                     device=dev)
+    convert.load_mxnet_params(self_draft, random_params(self_draft,
+                                                        args.seed))
+    small = TransformerLM(32000, units=256, num_layers=2, num_heads=4,
+                          max_len=2048, device=dev)
+    convert.load_mxnet_params(small, random_params(small, args.seed + 7))
+    runs, plain = {}, None
+    for label, draft in (("plain", None), ("self_draft", self_draft.eval()),
+                         ("independent_draft", small.eval())):
+        f0 = flash_launches()
+        eng = v2_engine(args, dev, model, 0, False, "v2.spec." + label)
+        spec = None if draft is None else SpeculativeDecoder(eng, draft,
+                                                             k=SPEC_K)
+        sched = GenerationScheduler(eng, speculative=spec,
+                                    name="v2.spec." + label)
+        spans()
+        walls = []
+        try:
+            for _ in range(SPEC_REPEATS):
+                streams, wall, _ = sched_burst(sched, prompts, NEW_TOKENS)
+                walls.append(wall)
+                if plain is None:
+                    plain = streams
+                for p, a, b in zip(prompts, plain, streams):
+                    compare_exact(torch, model, p, a, b, label, ties)
+            snap = sched.metrics.snapshot()
+            sst = None if spec is None else spec.stats()
+            run_spans = spans()
+        finally:
+            sched.close()
+            if spec is not None:
+                spec.close()
+            eng.close()
+        flash = flash_launches() - f0
+        if flash != SPEC_REPEATS * len(prompts) * model.num_layers:
+            fail("%s: %d flash launches for %d prefills"
+                 % (label, flash, SPEC_REPEATS * len(prompts)))
+        tokens_s = sorted(len(prompts) * NEW_TOKENS / w for w in walls)
+        run = {"walls_s": walls, "tokens_s": tokens_s[len(walls) // 2],
+               "tokens_s_min": tokens_s[0], "tokens_s_max": tokens_s[-1],
+               "decode_tokens_s": snap["decode_tokens_s"],
+               "steps": snap["steps"], "step_ms_mean": snap["step_ms_mean"],
+               "flash_launches": flash, "spans": run_spans}
+        if sst is not None:
+            run.update(acceptance_rate=sst["acceptance_rate"],
+                       rounds=sst["rounds"], syncs=sst["syncs"],
+                       drafted=sst["drafted"], accepted=sst["accepted"])
+        runs[label] = run
+    runs["k"] = SPEC_K
+    return runs
+
+
+def v2_lanes(args, torch, model, dev):
+    """(d) A prefill lane hands a prompt to a decode lane through one
+    prefix cache."""
+    from mxnet_tpu_torch.serving.generation import (GenerationScheduler,
+                                                    PrefixCache)
+    prompt = np.random.default_rng(args.seed + 5).integers(
+        0, 32000, 700).tolist()
+    pc = PrefixCache(block=PREFIX_BLOCK, name="v2.lanes")
+    pre_eng = v2_engine(args, dev, model, CHUNK, pc, "v2.lane.prefill")
+    dec_eng = v2_engine(args, dev, model, CHUNK, pc, "v2.lane.decode")
+    pre = GenerationScheduler(pre_eng, lane_policy="prefill",
+                              name="v2.lane.prefill")
+    dec = GenerationScheduler(dec_eng, lane_policy="decode",
+                              name="v2.lane.decode")
+    try:
+        req = pre.submit(prompt, max_new_tokens=NEW_TOKENS)
+        first = req.result(timeout=600)
+        pre_eng.prefix_flush()
+        dreq = dec.submit(prompt, max_new_tokens=NEW_TOKENS)
+        got = dreq.result(timeout=600)
+        st = dec.stats()
+    finally:
+        pre.close()
+        dec.close()
+        pre_eng.close()
+        dec_eng.close()
+        pc.close()
+    if req.finish_reason != "prefill" or len(first) != 1:
+        fail("prefill lane ended %r with %r" % (req.finish_reason, first))
+    want_skip = (len(prompt) - 1) // PREFIX_BLOCK * PREFIX_BLOCK
+    if dreq.prefix_skipped != want_skip or st["decode_lane_misses"] or \
+            st["prefix_hits"] != 1:
+        fail("decode lane: skipped %d, %d hits, %d misses"
+             % (dreq.prefix_skipped, st["prefix_hits"],
+                st["decode_lane_misses"]))
+    eng = v2_engine(args, dev, model, CHUNK, False, "v2.lane.mixed")
+    mixed = GenerationScheduler(eng, name="v2.lane.mixed")
+    try:
+        want = mixed.generate(prompt, max_new_tokens=NEW_TOKENS)
+    finally:
+        mixed.close()
+        eng.close()
+    if got != want or first[0] != want[0]:
+        fail("decode lane stream %r != mixed lane %r (prefill lane's first "
+             "token %d)" % (got, want, first[0]))
+    return {"prompt_len": len(prompt), "prefill_reason": req.finish_reason,
+            "decode_prefix_skipped": dreq.prefix_skipped,
+            "decode_lane_misses": st["decode_lane_misses"]}
+
+
+def v2_retry(args, torch, model, dev):
+    """(e) Transient step faults absorbed by the retry policy."""
+    from mxnet_tpu_torch.resilience import RetryPolicy, chaos
+    from mxnet_tpu_torch.serving.generation import GenerationScheduler
+    rng = np.random.default_rng(args.seed + 6)
+    prompts = [rng.integers(0, 32000, n).tolist() for n in PROMPT_LENS[::2]]
+    f0 = flash_launches()
+    eng = v2_engine(args, dev, model, 0, False, "v2.retry")
+    pol = RetryPolicy(max_attempts=3, base_delay_ms=1.0, jitter=0.0,
+                      name="retry.smoke", register=False)
+    sched = GenerationScheduler(eng, retry_policy=pol, name="v2.retry")
+    try:
+        clean, _, _ = sched_burst(sched, prompts, NEW_TOKENS)
+        r0 = pol.stats()["retries"]
+        chaos.arm("generation.step", "transient", first=2)
+        try:
+            armed, _, _ = sched_burst(sched, prompts, NEW_TOKENS)
+        finally:
+            chaos.clear()
+        retries = pol.stats()["retries"] - r0
+        failures = sched.metrics.snapshot()["step_failures"]
+    finally:
+        sched.close()
+        eng.close()
+    flash = flash_launches() - f0
+    if armed != clean or retries != 2 or failures:
+        fail("under chaos: streams equal %s, %d retries, %d step failures"
+             % (armed == clean, retries, failures))
+    if flash != 2 * len(prompts) * model.num_layers:
+        fail("retry: %d flash launches" % flash)
+    return {"requests": len(prompts), "retries": retries,
+            "flash_launches": flash}
+
+
+def v2_programs(args, torch, model, dev):
+    """(f) Each program of serving v2 alone, on an engine whose 8 slots
+    hold a 1000-token prompt: ``PROGRAM_CALLS`` back-to-back calls between
+    two CUDA events (ms a call on the device's clock, host work included
+    where the device waits on it), and with ``--profile`` the same calls
+    under ``torch.profiler`` (the kernels' busy ms a call)."""
+    from mxnet_tpu_torch import convert
+    from mxnet_tpu_torch.models import TransformerLM
+    from mxnet_tpu_torch.serving.generation import SpeculativeDecoder
+    prompt = np.random.default_rng(args.seed + 8).integers(
+        0, 32000, LONG_LEN).tolist()
+    small = TransformerLM(32000, units=256, num_layers=2, num_heads=4,
+                          max_len=2048, device=dev)
+    convert.load_mxnet_params(small, random_params(small, args.seed + 7))
+    f0 = flash_launches()
+    eng = v2_engine(args, dev, model, CHUNK, False, "v2.programs")
+    spec = SpeculativeDecoder(eng, small.eval(), k=SPEC_K)
+    zeros = np.zeros(eng.num_slots, np.int64)
+    temps = np.zeros(eng.num_slots, np.float32)
+    verify_tokens = np.tile(np.asarray(prompt[:SPEC_K + 1], np.int64),
+                            (eng.num_slots, 1))
+    last = LONG_LEN // CHUNK * CHUNK
+    programs = (
+        ("prefill_1024_flash", lambda: eng.prefill(0, prompt)),
+        ("chunk_128_at_0", lambda: eng.prefill_chunks(
+            1, prompt, 0, max_chunks=1, sample=False)),
+        ("chunk_128_at_%d" % last, lambda: eng.prefill_chunks(
+            1, prompt, last, max_chunks=1, sample=False)),
+        ("decode_step", lambda: eng.decode_step(zeros, temps)),
+        ("verify_k%d" % SPEC_K, lambda: spec.verify(verify_tokens)),
+        ("draft_step", lambda: spec.draft.decode_step(zeros, temps)))
+    out = {}
+    try:
+        for _ in range(eng.num_slots):
+            eng.prefill(eng.cache.acquire(), prompt)
+        for name, fn in programs:
+            fn()                                     # warm-up
+            torch.cuda.synchronize()
+            t0, t1 = (torch.cuda.Event(enable_timing=True)
+                      for _ in range(2))
+            t0.record()
+            for _ in range(PROGRAM_CALLS):
+                fn()
+            t1.record()
+            t1.synchronize()
+            row = {"ms": t0.elapsed_time(t1) / PROGRAM_CALLS}
+            if args.profile:
+                prof = profile(torch, lambda: [fn() for _ in
+                                               range(PROGRAM_CALLS)])
+                row.update(busy_ms=prof["device_busy_ms"] / PROGRAM_CALLS,
+                           kernels=prof["kernels_launched"] / PROGRAM_CALLS,
+                           top=prof["top_kernels"][:3])
+            out[name] = row
+    finally:
+        spec.close()
+        eng.close()
+    flash = flash_launches() - f0
+    # the prefill program runs once more per call under the profiler
+    calls = eng.num_slots + 1 + PROGRAM_CALLS * (2 if args.profile else 1)
+    if flash != calls * model.num_layers:
+        fail("programs: %d flash launches for %d prefills" % (flash, calls))
+    return {"calls": PROGRAM_CALLS, "programs": out, "flash_launches": flash}
+
+
+def serving_v2_phase(args, torch):
+    from mxnet_tpu_torch import convert
+    from mxnet_tpu_torch.models import transformer_lm_base
+    from mxnet_tpu_torch.observability import tracer
+    from mxnet_tpu_torch.ops import flash_attention as fa
+    dev = torch.device("cuda")
+    model = transformer_lm_base(vocab_size=32000, max_len=2048, device=dev)
+    convert.load_mxnet_params(model, random_params(model, args.seed))
+    model.eval()
+    ties = []
+    t0 = time.perf_counter()
+    tracer.enable()
+    fa.reset_launches()
+    try:
+        out = {"prefix": v2_prefix(args, torch, model, dev),
+               "chunked": v2_chunked(args, torch, model, dev),
+               "speculative": v2_speculative(args, torch, model, dev, ties),
+               "lanes": v2_lanes(args, torch, model, dev),
+               "retry": v2_retry(args, torch, model, dev),
+               "programs": v2_programs(args, torch, model, dev)}
+    finally:
+        tracer.disable()
+    launches = kernel_launches()
+    if launches["flash_attn_bwd_dq"] or launches["flash_attn_bwd_dkv"]:
+        fail("serving v2 launched a backward kernel")
+    parts = (out["prefix"]["flash_launches"]
+             + sum(out["chunked"][k]["flash_launches"]
+                   for k in ("monolithic", "chunked"))
+             + sum(out["speculative"][k]["flash_launches"]
+                   for k in ("plain", "self_draft", "independent_draft"))
+             + out["retry"]["flash_launches"]
+             + out["programs"]["flash_launches"])
+    flash = launches["flash_attn_fwd"] + launches["flash_attn_fwd_bhsd"]
+    if flash != parts or not flash:
+        fail("serving v2: %d flash launches, the parts count %d"
+             % (flash, parts))
+    out.update(near_ties=ties, flash_launches=flash,
+               wall_s=time.perf_counter() - t0)
+    return out
 
 
 def lm_batch(seed):
@@ -1274,7 +1840,8 @@ def ptxas_summary(_build, name):
     return "%s: ptxas %d kernels: %s" % (name, len(parts), ", ".join(parts))
 
 
-def kernel_entries(serving, training, bert, surface, fwd_cases, bwd_cases):
+def kernel_entries(serving, v2, training, bert, surface, fwd_cases,
+                   bwd_cases):
     """The ``{"kernels": [...]}`` entries: numbers of the main path's
     training shape (B 32, S 512, H 12, D 64, BSHD, causal) in fp32, and
     under ``*_bf16`` keys in bf16; under ``bert``, the numbers of the BERT
@@ -1315,12 +1882,13 @@ def kernel_entries(serving, training, bert, surface, fwd_cases, bwd_cases):
         "bound_by_bf16": fb["bound_by"], "library_ms_bf16": fb["library_ms"],
         "library_graph_ms_bf16": fb["library_graph_ms"],
         "max_abs_err": max(c["max_abs_err"] for c in fwd_cases),
-        "launches": serving["flash_launches"]
+        "launches": serving["flash_launches"] + v2["flash_launches"]
         + training["launches"]["flash_attn_fwd"]
         + bert["launches"]["flash_attn_fwd"]
         + surface["launches"]["flash_attn_fwd"],
         "launches_by_path": {
             "serving": serving["flash_launches"],
+            "serving_v2": v2["flash_launches"],
             "training": training["launches"]["flash_attn_fwd"],
             "bert": bert["launches"]["flash_attn_fwd"],
             "surface": surface["launches"]["flash_attn_fwd"]},
@@ -1347,7 +1915,7 @@ def kernel_entries(serving, training, bert, surface, fwd_cases, bwd_cases):
             "max_abs_err": max(errs),
             "launches": training["launches"][name]
             + bert["launches"][name] + surface["launches"][name],
-            "launches_by_path": {"serving": 0,
+            "launches_by_path": {"serving": 0, "serving_v2": 0,
                                  "training": training["launches"][name],
                                  "bert": bert["launches"][name],
                                  "surface": surface["launches"][name]},
@@ -1359,6 +1927,69 @@ def kernel_entries(serving, training, bert, surface, fwd_cases, bwd_cases):
                  timed_case=timed)
     entries[1]["cases"] = bwd_cases
     return entries
+
+
+def print_v2(v2):
+    """The serving v2 lines of the output."""
+    a, b, c = v2["prefix"], v2["chunked"], v2["speculative"]
+    print("serving v2 (a) prefix cache: %d hits saving %d tokens (slabs: %d "
+          "entries, %d tokens, %.1f MB); TTFT p50 %.2f ms cold, %.2f ms warm "
+          "(server); prefill %.2f / %.2f ms mean; rows bitwise equal %s"
+          % (a["hits"], a["tokens_saved"], a["slab_entries"],
+             a["slab_tokens"], a["slab_bytes"] / 1e6,
+             a["ttft_ms_cold"]["p50"], a["ttft_ms_warm"]["p50"],
+             a["prefill_ms_mean_cold"], a["prefill_ms_mean_warm"],
+             a["rows_bitwise_equal"]))
+    for label in ("monolithic", "chunked"):
+        r = b[label]
+        print("serving v2 (b) %s: live inter-token p50 %.2f ms, p99 %.2f ms, "
+              "max %.2f ms; the %d-token prompt's TTFT %.2f ms; %d chunk "
+              "calls; flash launches %d"
+              % (label, r["inter_token_p50_ms"], r["inter_token_p99_ms"],
+                 r["inter_token_max_ms"], LONG_LEN, r["long_ttft_ms"],
+                 r["chunk_calls"], r["flash_launches"]))
+    print("serving v2 (b) a %d-token prompt beyond the ladder in %d chunks "
+          "equals greedy re-prefill" % (b["beyond_ladder"]["prompt_len"],
+                                        b["beyond_ladder"]["chunk_calls"]))
+    for label in ("plain", "self_draft", "independent_draft"):
+        r = c[label]
+        spec = "" if label == "plain" else (
+            "; acceptance %.3f, %d rounds, %d syncs"
+            % (r["acceptance_rate"], r["rounds"], r["syncs"]))
+        print("serving v2 (c) %s: %.1f tokens/s median of %d bursts (%.1f.."
+              "%.1f; walls %s s), decode %.1f tokens/s, %d steps of %.2f "
+              "ms%s"
+              % (label, r["tokens_s"], len(r["walls_s"]), r["tokens_s_min"],
+                 r["tokens_s_max"], ", ".join("%.3f" % w
+                                             for w in r["walls_s"]),
+                 r["decode_tokens_s"], r["steps"], r["step_ms_mean"], spec))
+    for tag, sp in (("(a) cold", a["spans_cold"]),
+                    ("(a) warm", a["spans_warm"]),
+                    ("(b) monolithic", b["monolithic"]["spans"]),
+                    ("(b) chunked", b["chunked"]["spans"]),
+                    ("(c) plain", c["plain"]["spans"]),
+                    ("(c) self_draft", c["self_draft"]["spans"]),
+                    ("(c) independent_draft",
+                     c["independent_draft"]["spans"])):
+        print("serving v2 %s spans (host ms): %s" % (tag, ", ".join(
+            "%s x%d %.2f" % (k.split(".", 1)[1], v["count"], v["mean_ms"])
+            for k, v in sorted(sp.items()))))
+    for name, r in v2["programs"]["programs"].items():
+        print("serving v2 (f) %s: %.3f ms a call (CUDA events, %d calls)%s"
+              % (name, r["ms"], v2["programs"]["calls"],
+                 "" if "busy_ms" not in r else
+                 "; device busy %.3f ms, %.0f kernels a call; top: %s"
+                 % (r["busy_ms"], r["kernels"], "; ".join(
+                     "%s x%d %.2f ms" % (k["name"][:40], k["calls"], k["ms"])
+                     for k in r["top"]))))
+    print("serving v2 (c) speculative streams token-exact against plain; "
+          "near ties %d; (d) lanes: prefill lane retired %r, decode lane "
+          "skipped %d tokens, %d misses; (e) retry: %d retries, streams "
+          "equal; flash launches %d in %.1f s"
+          % (len(v2["near_ties"]), v2["lanes"]["prefill_reason"],
+             v2["lanes"]["decode_prefix_skipped"],
+             v2["lanes"]["decode_lane_misses"], v2["retry"]["retries"],
+             v2["flash_launches"], v2["wall_s"]))
 
 
 def main():
@@ -1396,6 +2027,18 @@ def main():
           "tokens; flash launches %d = %d prefills x 12 layers"
           % (serving["greedy_reprefill_checked"], serving["flash_launches"],
              serving["prefills"]))
+
+    v2 = serving_v2_phase(args, torch)
+    print_v2(v2)
+    # every engine of both serving phases is closed or dropped: their
+    # arenas, prefix slabs and models must be freed
+    gc.collect()
+    leftover = torch.cuda.memory_allocated()
+    print("serving: %d bytes of device memory still allocated after both "
+          "serving phases" % leftover)
+    if leftover > LEFTOVER_BYTES:
+        fail("%d bytes of device memory outlive the serving phases"
+             % leftover)
 
     training = train_phase(args, torch)
     for dname in ("float32", "bfloat16"):
@@ -1482,12 +2125,13 @@ def main():
                  c["dkv"]["bound_by"], c["plain_bwd_ms"], lib,
                  ",".join("%.2g" % v for v in
                           c["max_err_rel_to_max"].values())))
-    entries = kernel_entries(serving, training, bert, surface, fwd_cases,
+    entries = kernel_entries(serving, v2, training, bert, surface, fwd_cases,
                              bwd_cases)
     card = card_line()
     if args.out:
         with open(args.out, "w") as f:
-            json.dump({"serving": serving, "training": training,
+            json.dump({"serving": serving, "serving_v2": v2,
+                       "training": training,
                        "bert": bert, "surface": surface,
                        "kernels": entries, "card": card,
                        "build_s": build_s}, f, indent=1)

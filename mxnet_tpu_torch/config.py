@@ -1,7 +1,8 @@
 """Environment-variable knobs the port reads.
 
 Counterpart of ``mxnet_tpu/config.py``: the same ``MXNET_*`` names and
-defaults, for only the knobs that the generation-serving slice reads.
+defaults, for only the knobs that generation serving, its resilience stack
+and the tracer read.
 :func:`get` is a typed read of the environment, so a knob set after import
 takes effect at its next read.
 """
@@ -44,6 +45,52 @@ KNOBS = dict([
     _k("MXNET_GEN_QUEUE_SIZE", 64, int,
        "generation serving: waiting-request bound before ServerBusy "
        "backpressure (serving/generation/scheduler.py)"),
+    _k("MXNET_GEN_PREFILL_CHUNK", 0, int,
+       "generation serving: chunked-prefill size: long prompts are split "
+       "into chunks of this many tokens interleaved with decode "
+       "iterations (0 = monolithic prefill)"),
+    _k("MXNET_GEN_PREFIX_CACHE", 1, int,
+       "generation serving: copy-on-admit prefix KV cache: admits whose "
+       "prompt starts with a cached prefix copy its slab into their slot "
+       "and skip that many prefill tokens "
+       "(serving/generation/prefix_cache.py; 0 = off)"),
+    _k("MXNET_GEN_PREFIX_BLOCK", 32, int,
+       "prefix cache sharing granularity: prefixes are stored and probed "
+       "at multiples of this many tokens"),
+    _k("MXNET_GEN_PREFIX_CACHE_MB", 256, int,
+       "prefix cache slab-byte budget; exceeding it LRU-evicts entries "
+       "whose refcount is zero (<= 0 disables the bound)"),
+    _k("MXNET_GEN_SPEC_K", 4, int,
+       "speculative decoding: draft tokens proposed per verify step "
+       "(serving/generation/speculative.py)"),
+    _k("MXNET_GEN_LANE", "mixed", str,
+       "generation lane policy: 'mixed', 'prefill' (requests retire after "
+       "the first token and publish their prompt K/V to the prefix cache) "
+       "or 'decode' (admits expect prefix-cache coverage; misses are "
+       "counted as decode_lane_misses)"),
+    _k("MXNET_CHAOS_SPEC", "", str,
+       "fault-injection spec armed at import (resilience/chaos.py): "
+       "'point:kind[:trigger];...' e.g. generation.step:transient:first=2"),
+    _k("MXNET_RETRY_MAX_ATTEMPTS", 3, int,
+       "default RetryPolicy total attempts (resilience/retry.py)"),
+    _k("MXNET_RETRY_BASE_DELAY_MS", 10.0, float,
+       "default RetryPolicy first backoff delay"),
+    _k("MXNET_RETRY_MAX_DELAY_MS", 1000.0, float,
+       "default RetryPolicy backoff cap"),
+    _k("MXNET_RETRY_DEADLINE_MS", 0.0, float,
+       "default RetryPolicy wall-clock budget across attempts (0 = none)"),
+    _k("MXNET_BREAKER_FAILURE_THRESHOLD", 5, int,
+       "serving circuit breaker: consecutive failures before opening "
+       "(resilience/breaker.py; <= 0 disables the ModelServer breaker)"),
+    _k("MXNET_BREAKER_RECOVERY_MS", 1000.0, float,
+       "serving circuit breaker: open-state hold before half-open probes"),
+    _k("MXNET_BREAKER_HALF_OPEN_PROBES", 1, int,
+       "serving circuit breaker: successful probes required to close"),
+    _k("MXNET_TRACE_ENABLE", 0, int,
+       "record host-side spans from import (observability/tracer.py)"),
+    _k("MXNET_TRACE_BUFFER", 65536, int,
+       "span ring-buffer capacity in events; a full buffer drops the "
+       "oldest record"),
     _k("MXNET_FLASH_ATTENTION", 1, int,
        "dispatch dot_product_attention to the CUDA flash-attention kernel "
        "when its gate holds (ops/nn.py; 0 = always take the plain path)"),

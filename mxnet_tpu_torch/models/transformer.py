@@ -4,18 +4,20 @@ Counterpart of ``mxnet_tpu/models/transformer.py``: ``MultiHeadAttention``,
 ``TransformerEncoderLayer`` and ``TransformerLM`` as ``nn.Module``s with
 the same parameter structure (``qkv``/``proj``/``ffn_up``/``ffn_down``,
 pre-norm blocks) and the same incremental-decode contract: ``forward``,
-``forward_kv``, ``prefill``, ``init_cache`` and ``step``. Attention routes
+``forward_kv``, ``prefill``, ``init_cache``, ``step`` and the multi-token
+``prefill_chunk`` (``step_chunk`` in the layers) behind chunked prefill,
+the prefix cache's suffix fill and the speculative verify. Attention routes
 through :func:`~mxnet_tpu_torch.ops.nn.dot_product_attention` in the
 ``(B, S, H, D)`` layout, so every prefill on the card reaches the CUDA
-flash kernel and the one-token decode step takes the plain path, as in the
-reference. In training mode the residual dropout is the reference's
+flash kernel, and the decode and chunk steps (their keys are the cache,
+their mask per query) take the plain path, as in the reference. In training mode the residual dropout is the reference's
 lowbias32 ``Dropout`` (``gluon.nn.Dropout``, keys from
 :mod:`mxnet_tpu_torch.random`) and attention dropout runs inside the flash
 kernel, seeded from :func:`mxnet_tpu_torch.random.default_generator`.
 
-Unlike the reference's functional ``step``, the port writes the new K/V
-into the cache tensors in place (one row per sequence instead of a copy of
-the whole cache) and returns the same tensors.
+Unlike the reference's functional ``step`` and ``prefill_chunk``, the port
+writes the new K/V into the cache tensors in place (the new rows only
+instead of a copy of the whole cache) and returns the same tensors.
 """
 from __future__ import annotations
 
@@ -95,6 +97,28 @@ class MultiHeadAttention(nn.Module):
             layout="BSHD")
         return self.proj(out.reshape(B, 1, C)), k_cache, v_cache
 
+    def step_chunk(self, x, k_cache, v_cache, start):
+        """Append a chunk of ``C`` consecutive positions per row: ``x (B, C,
+        units)`` starts at absolute position ``start[b]``; writes the
+        chunk's K/V into ``k_cache``/``v_cache (B, S, H, D)`` at ``start``
+        in place and attends query ``i`` to every cached position ``<=
+        start[b] + i`` (causal within the chunk, full over the prefix).
+        ``step`` is the ``C == 1`` case. Rows past the caller's valid count
+        write garbage K/V that committed lengths keep masked."""
+        B, C, _ = x.shape
+        q, k, v = self._split_qkv(x)
+        _gen.kv_cache_update(k_cache, k, start)
+        _gen.kv_cache_update(v_cache, v, start)
+        S = k_cache.shape[1]
+        span = torch.arange(S, device=x.device).reshape(1, 1, S)
+        qpos = start.reshape(B, 1, 1) + \
+            torch.arange(C, device=x.device).reshape(1, C, 1)
+        kv_mask = (span < qpos + 1).reshape(B, 1, C, S)
+        out = _ops.dot_product_attention(
+            q, k_cache, v_cache, mask=kv_mask, dropout=0.0, causal=False,
+            layout="BSHD")
+        return self.proj(out.reshape(B, C, self._units)), k_cache, v_cache
+
 
 class TransformerEncoderLayer(nn.Module):
     """Pre-norm block (attention + MLP)."""
@@ -126,6 +150,11 @@ class TransformerEncoderLayer(nn.Module):
     def step(self, x, k_cache, v_cache, positions):
         a, k_cache, v_cache = self.attn.step(self.ln1(x), k_cache, v_cache,
                                              positions)
+        return self._ffn(x + self.dropout(a)), k_cache, v_cache
+
+    def step_chunk(self, x, k_cache, v_cache, start):
+        a, k_cache, v_cache = self.attn.step_chunk(self.ln1(x), k_cache,
+                                                   v_cache, start)
         return self._ffn(x + self.dropout(a)), k_cache, v_cache
 
 
@@ -220,6 +249,26 @@ class TransformerLM(nn.Module):
         x = self.ln_f(x)
         h_last = x[torch.arange(B, device=x.device), lengths - 1]
         return self.head(h_last), cache
+
+    def prefill_chunk(self, tokens, cache, start):
+        """Append a chunk of ``C`` tokens per row at per-row offsets:
+        ``tokens (B, C)`` whose first element sits at absolute position
+        ``start[b]``; ``cache`` holds ``start[b]`` committed positions per
+        row. Writes the chunk's K/V into the cache in place; returns
+        ``(logits (B, C, vocab), cache)``, ``logits[b, i]`` the next-token
+        distribution after ``tokens[b, :i + 1]``. Positions clamp at
+        ``max_len - 1`` for the position embedding only (pad rows of a
+        final chunk may run past it; their rows are garbage either
+        way)."""
+        B, C = tokens.shape
+        start = start.to(tokens.device).long()
+        pos = start.reshape(B, 1) + \
+            torch.arange(C, device=tokens.device).reshape(1, C)
+        pos = pos.clamp_max(self._max_len - 1)
+        x = self.embed(tokens) + self.pos_embed(pos)
+        for (k_c, v_c), blk in zip(cache, self.blocks):
+            x, _, _ = blk.step_chunk(x, k_c, v_c, start)
+        return self.head(self.ln_f(x)), cache
 
     def step(self, tokens, cache, lengths):
         """One decode step for a batch: ``tokens (B, 1)``, ``cache`` as from

@@ -16,10 +16,16 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["sample_temperature", "sample_top_k", "generation_sample",
+__all__ = ["sample_greedy", "sample_temperature", "sample_top_k", "generation_sample",
            "kv_cache_update", "arena_update", "arena_slice"]
 
 _NEG_INF = -1e9  # large-negative fill that stays finite in fp16/bf16
+
+
+def sample_greedy(logits):
+    """Argmax over the last axis (the first maximum on ties, as
+    ``jnp.argmax``): token ids of shape ``logits.shape[:-1]``."""
+    return torch.argmax(logits, dim=-1)
 
 
 def sample_temperature(logits, generator=None, temperature=1.0):

@@ -10,7 +10,9 @@ or leaving changes only data. Prefill and decode write into the arenas in
 place (``ops/generation_ops.py``), so the cache never holds a second copy.
 
 Host-side state is small and lock-guarded: the free-list, the per-slot
-length counters and the occupancy counters.
+length counters and the occupancy counters. Stats flow through the
+resilience :class:`~mxnet_tpu_torch.resilience._stats.Registry`
+(:func:`cache_stats`, rows ``generation.kvcache.<name>.*``).
 """
 from __future__ import annotations
 
@@ -20,9 +22,12 @@ import numpy as np
 import torch
 
 from ...context import default_device
+from ...resilience._stats import Registry, export_rows
 from ..batcher import ServingError
 
-__all__ = ["SlotKVCache", "CacheFull"]
+__all__ = ["SlotKVCache", "CacheFull", "cache_stats"]
+
+_registry = Registry(weak=True)
 
 
 class CacheFull(ServingError):
@@ -32,7 +37,7 @@ class CacheFull(ServingError):
 class SlotKVCache:
     """Preallocated K/V slot arena + free-list + per-slot length counters.
 
-    ``acquire``/``release`` manage slot ownership;
+    ``acquire``/``release``/``reset`` manage slot ownership;
     ``advance``/``set_length`` keep the per-slot valid-prefix lengths that
     the decode step turns into its attention mask. Release does not zero a
     slot's data: stale positions are unreachable, because attention is
@@ -60,7 +65,8 @@ class SlotKVCache:
         self._held = set()
         self._lock = threading.Lock()
         self._c = {"acquires": 0, "releases": 0, "acquire_failures": 0,
-                   "peak_in_use": 0, "hwm": 0}
+                   "resets": 0, "peak_in_use": 0, "hwm": 0}
+        _registry.add(self)
 
     @classmethod
     def for_model(cls, model, num_slots, max_seq=None, dtype=torch.float32,
@@ -110,6 +116,15 @@ class SlotKVCache:
             self._lengths[slot] = 0
             self._free.append(slot)
             self._c["releases"] += 1
+
+    def reset(self):
+        """Free every slot and zero every length (arena data stays; the
+        masks make it unreachable)."""
+        with self._lock:
+            self._held.clear()
+            self._free = list(range(self.num_slots - 1, -1, -1))
+            self._lengths[:] = 0
+            self._c["resets"] += 1
 
     # ---- length counters --------------------------------------------------
     @property
@@ -161,7 +176,34 @@ class SlotKVCache:
                 "max_seq": self.max_seq,
                 "tokens_cached": tokens,
                 "slots_peak": self._c["peak_in_use"],
+                # held-but-empty share of the in-use slots' capacity
+                "fragmentation": (1.0 - tokens /
+                                  float(in_use * self.max_seq)
+                                  if in_use else 0.0),
                 "arena_bytes": 2 * self.k_arena.numel()
                 * self.k_arena.element_size(),
             })
         return out
+
+    def close(self):
+        """Unregister from the stats registry now (the registry holds the
+        cache weakly, so a dropped cache leaves it anyway)."""
+        _registry.discard(self)
+
+
+def cache_stats():
+    """``{name: stats}`` over all registered arenas."""
+    return _registry.map(lambda c: c.stats())
+
+
+def _stats_rows():
+    rows = {}
+    for name, st in cache_stats().items():
+        prefix = "generation.kvcache.%s" % name
+        for key in ("in_use", "acquires", "releases", "acquire_failures",
+                    "tokens_cached", "hwm", "slots_peak"):
+            rows["%s.%s" % (prefix, key)] = (st[key], 0.0)
+    return rows
+
+
+export_rows(_stats_rows)

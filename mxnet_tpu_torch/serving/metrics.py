@@ -3,7 +3,8 @@
 Counterpart of the ``GenerationMetrics`` subset of
 ``mxnet_tpu/serving/metrics.py``: time to first token (submit -> first
 streamed token: queue wait + prefill), prefill time, decode step time and
-emitted tokens, and the admit/step/retire ledger. :meth:`snapshot` is the
+emitted tokens, chunked-prefill calls, speculative rounds with their
+drafted and accepted tokens, and the admit/step/retire ledger. :meth:`snapshot` is the
 ``/metrics`` ``"generation"`` section of ``ModelServer``. Percentiles are
 nearest-rank over a sliding window of recent requests.
 """
@@ -39,9 +40,11 @@ class GenerationMetrics:
         self._ttft = deque(maxlen=window)       # seconds
         self._tps = deque(maxlen=window)        # per-request tokens/s
         self._c = {"requests": 0, "ok": 0, "errors": 0, "rejected": 0,
-                   "expired": 0, "prefills": 0, "steps": 0,
-                   "step_failures": 0, "tokens_out": 0, "retired_eos": 0,
-                   "retired_length": 0, "retired_max_seq": 0}
+                   "expired": 0, "prefills": 0, "prefill_chunks": 0,
+                   "steps": 0, "step_failures": 0, "tokens_out": 0,
+                   "retired_eos": 0, "retired_length": 0,
+                   "retired_max_seq": 0, "retired_prefill": 0,
+                   "spec_rounds": 0, "spec_drafted": 0, "spec_accepted": 0}
         self._ttft_total = 0.0
         self._step_time = 0.0
         self._prefill_time = 0.0
@@ -68,11 +71,31 @@ class GenerationMetrics:
             self._c["prefills"] += 1
             self._prefill_time += seconds
 
+    def record_prefill_chunk(self):
+        """One chunked-prefill call (a slice of a long prompt between two
+        decode iterations)."""
+        with self._lock:
+            self._c["prefill_chunks"] += 1
+
     def record_step(self, live_slots, seconds):
         """One decode iteration over ``live_slots`` sequences."""
         with self._lock:
             self._c["steps"] += 1
             self._c["tokens_out"] += live_slots
+            self._step_slots += live_slots
+            self._step_time += seconds
+
+    def record_spec_round(self, live_slots, drafted, emitted, seconds):
+        """One speculative iteration: ``drafted`` proposals went into the
+        verify, ``emitted`` tokens came out across ``live_slots``
+        sequences (``emitted - live_slots`` of them accepted drafts, the
+        rest each sequence's bonus token)."""
+        with self._lock:
+            self._c["steps"] += 1
+            self._c["spec_rounds"] += 1
+            self._c["spec_drafted"] += drafted
+            self._c["spec_accepted"] += max(0, emitted - live_slots)
+            self._c["tokens_out"] += emitted
             self._step_slots += live_slots
             self._step_time += seconds
 
@@ -131,6 +154,9 @@ class GenerationMetrics:
                              if c["steps"] else 0.0),
             "avg_step_occupancy": (step_slots / c["steps"]
                                    if c["steps"] else 0.0),
+            "spec_acceptance_rate": (c["spec_accepted"] /
+                                     float(c["spec_drafted"])
+                                     if c["spec_drafted"] else 0.0),
         }
         out.update(c)
         if self._queue_depth_fn is not None:
@@ -138,4 +164,6 @@ class GenerationMetrics:
         if self._engine is not None:
             out["kvcache"] = self._engine.cache.stats()
             out["engine"] = self._engine.stats()
+            if self._engine.prefix is not None:
+                out["prefix"] = self._engine.prefix.stats()
         return out

@@ -11,15 +11,22 @@ Counterpart of ``mxnet_tpu/serving/server.py`` in its generation-only mode
   line. ``stream=false`` returns ``{"tokens": [...], "reason": ...}``.
   Failures before the first token keep typed codes: malformed body or
   prompt 400, ``ServerBusy``/``ServerClosed``/draining 503 (with
-  ``Retry-After``), queue ``DeadlineExceeded`` 504. A fault after the
-  first token becomes an in-band ``{"error": ...}`` line.
-- ``GET /healthz``: ``{"status": "ok"}``, or ``"draining"`` during
-  shutdown.
-- ``GET /metrics``: the scheduler's ``GenerationMetrics.snapshot()`` under
-  ``"generation"``.
+  ``Retry-After``), queue ``DeadlineExceeded`` 504, a model fault 500. A
+  fault after the first token becomes an in-band ``{"error": ...}`` line.
+- ``GET /healthz``: ``{"status": "ok"}``; ``"degraded"`` with the
+  breaker's snapshot while the circuit breaker is open or half-open;
+  ``"draining"`` during shutdown.
+- ``GET /metrics``: the scheduler's stats, its
+  ``GenerationMetrics.snapshot()`` under ``"generation"``, and the
+  ``"breaker"`` and ``"retry"`` gauges.
 
-``/predict``, the fleet registry, the circuit breaker, telemetry and the
-gateway are not ported yet.
+Model faults feed a :class:`~mxnet_tpu_torch.resilience.CircuitBreaker`;
+while it is open, ``/generate`` fast-fails with 503 + ``Retry-After``
+instead of queueing doomed work. Backpressure, drain and queue expiry are
+not faults and leave it alone.
+
+``/predict``, the fleet registry, telemetry and the gateway are not ported
+yet.
 """
 from __future__ import annotations
 
@@ -28,6 +35,9 @@ import threading
 import uuid
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
+from .. import config as _config
+from ..resilience import retry as _retry
+from ..resilience.breaker import CircuitBreaker
 from .batcher import DeadlineExceeded, ServerBusy, ServerClosed, ServingError
 
 __all__ = ["ModelServer"]
@@ -120,27 +130,57 @@ class _Handler(BaseHTTPRequestHandler):
         except (ValueError, TypeError, KeyError, AttributeError) as e:
             self._reply(400, {"error": str(e)})
             return
+        breaker = srv.breaker
+        admission = breaker.allow() if breaker is not None else True
+        if not admission:
+            snap = breaker.snapshot()
+            self._reply(503, {"error": "circuit open: %s" % snap["state"],
+                              "breaker": snap},
+                        headers={"Retry-After": str(max(1, int(round(
+                            breaker.retry_after_s()))))})
+            return
+
+        def release():
+            # not a model fault: the breaker must not count it
+            if breaker is not None:
+                breaker.release(admission)
+
+        def failed():
+            if breaker is not None:
+                breaker.record_failure(admission)
+
         try:
             req = srv.generator.submit(
                 prompt, max_new_tokens=max_new, temperature=temperature,
                 eos_id=eos_id, timeout_ms=timeout_ms, request_id=rid)
         except (ServerBusy, ServerClosed) as e:
+            release()
             self._reply(503, {"error": str(e)}, headers={"Retry-After": "1"})
             return
         except ServingError as e:  # PromptTooLong / bad request shape
+            release()
             self._reply(400, {"error": str(e)})
+            return
+        except Exception as e:  # noqa: BLE001 — submit-time fault
+            failed()
+            self._reply(500, {"error": "%s: %s" % (type(e).__name__, e)})
             return
         if not stream:
             try:
                 toks = req.result()
             except DeadlineExceeded as e:
+                release()
                 self._reply(504, {"error": str(e)})
             except ServerClosed as e:
+                release()
                 self._reply(503, {"error": str(e)},
                             headers={"Retry-After": "1"})
             except Exception as e:  # noqa: BLE001 — model fault
+                failed()
                 self._reply(500, {"error": "%s: %s" % (type(e).__name__, e)})
             else:
+                if breaker is not None:
+                    breaker.record_success(admission)
                 self._reply(200, {"tokens": toks,
                                   "reason": req.finish_reason})
             return
@@ -149,11 +189,14 @@ class _Handler(BaseHTTPRequestHandler):
         kind, val = req.next_event()
         if kind == "error":
             if isinstance(val, DeadlineExceeded):
+                release()
                 self._reply(504, {"error": str(val)})
             elif isinstance(val, (ServerBusy, ServerClosed)):
+                release()
                 self._reply(503, {"error": str(val)},
                             headers={"Retry-After": "1"})
             else:
+                failed()
                 self._reply(500, {"error": "%s: %s"
                                   % (type(val).__name__, val)})
             return
@@ -171,10 +214,16 @@ class _Handler(BaseHTTPRequestHandler):
                                "n_tokens": len(req.tokens_out),
                                "reason": req.finish_reason})
             self.wfile.write(b"0\r\n\r\n")
+            if breaker is not None:
+                breaker.record_success(admission)
         except Exception as e:  # noqa: BLE001 — fault mid-stream
             # the consumer is gone or the sequence failed: retire it at
             # the next iteration instead of decoding to budget for nobody
             req.cancel()
+            if isinstance(e, (DeadlineExceeded, ServerClosed, OSError)):
+                release()
+            else:
+                failed()
             try:
                 self._write_chunk({"error": "%s: %s"
                                    % (type(e).__name__, e)})
@@ -198,18 +247,32 @@ class _QuietThreadingHTTPServer(ThreadingHTTPServer):
 class ModelServer:
     """HTTP listener over a ``GenerationScheduler``.
 
-    ``model`` must be None (the ``/predict`` path is not ported yet);
-    ``generator`` backs ``POST /generate`` and is closed with the server.
-    ``port=0`` picks an ephemeral port."""
+    ``model`` must be None: ``/predict`` needs the core runtime (ROADMAP.md
+    Queue A item 5), which is not ported yet. ``generator`` backs ``POST
+    /generate`` and is closed with the server. ``port=0`` picks an
+    ephemeral port. ``breaker=None`` builds a :class:`CircuitBreaker` from
+    the ``MXNET_BREAKER_*`` knobs (``MXNET_BREAKER_FAILURE_THRESHOLD <= 0``
+    disables it); pass a configured breaker, or False for none."""
 
     def __init__(self, model=None, host="127.0.0.1", port=8080,
-                 generator=None):
+                 generator=None, breaker=None):
         if model is not None:
-            raise NotImplementedError("/predict serving is not ported yet: "
-                                      "pass model=None and generator=")
+            raise NotImplementedError(
+                "/predict serving is not ported yet (it needs the core "
+                "runtime, ROADMAP.md Queue A item 5): pass model=None and "
+                "generator=")
         if generator is None:
             raise ValueError("need a generator")
         self.generator = generator
+        if breaker is None:
+            threshold = _config.get("MXNET_BREAKER_FAILURE_THRESHOLD")
+            breaker = CircuitBreaker(
+                failure_threshold=threshold,
+                recovery_ms=_config.get("MXNET_BREAKER_RECOVERY_MS"),
+                half_open_probes=_config.get(
+                    "MXNET_BREAKER_HALF_OPEN_PROBES"),
+                name="serving") if threshold > 0 else False
+        self.breaker = breaker or None
         self._draining = False
         self._httpd = _QuietThreadingHTTPServer((host, port), _Handler)
         self._httpd.daemon_threads = True
@@ -221,12 +284,23 @@ class ModelServer:
         return self._draining
 
     def health(self):
-        return {"status": "draining" if self._draining else "ok"}
+        """``ok`` | ``degraded`` (with the breaker's state) |
+        ``draining``: what a load balancer keys off."""
+        if self._draining:
+            return {"status": "draining"}
+        if self.breaker is not None:
+            snap = self.breaker.snapshot()
+            if snap["state"] != "closed":
+                return {"status": "degraded", "breaker": snap}
+        return {"status": "ok"}
 
     def metrics_snapshot(self):
-        out = {"scheduler": self.generator.stats()}
+        out = {"scheduler": self.generator.stats(),
+               "retry": _retry.all_stats()}
         if self.generator.metrics is not None:
             out["generation"] = self.generator.metrics.snapshot()
+        if self.breaker is not None:
+            out["breaker"] = self.breaker.snapshot()
         return out
 
     @property

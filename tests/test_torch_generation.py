@@ -55,8 +55,10 @@ def pair():
 
 @pytest.fixture(scope="module")
 def engine(pair):
-    return DecodeEngine(pair[1], num_slots=4, max_seq=64, ladder=(8, 16),
-                        device="cpu")
+    eng = DecodeEngine(pair[1], num_slots=4, max_seq=64, ladder=(8, 16),
+                       device="cpu")
+    yield eng
+    eng.close()
 
 
 @pytest.fixture
@@ -165,6 +167,7 @@ def test_eos_and_max_seq_retirement(pair):
         toks = r.result(timeout=60)
         assert r.finish_reason == "max_seq" and len(toks) == 5
     assert eng.cache.in_use == 0
+    eng.close()
 
 
 class _Gate:
@@ -264,17 +267,13 @@ def test_slot_cache_lifecycle():
 
 
 def test_deferred_features_raise(pair, engine):
+    """``/predict`` is the one serving path left unported; a lane policy
+    outside mixed/prefill/decode is refused."""
     _, tnet = pair
-    with pytest.raises(NotImplementedError):
-        DecodeEngine(tnet, chunk=16, device="cpu")
-    with pytest.raises(NotImplementedError):
-        DecodeEngine(tnet, prefix_cache=True, device="cpu")
-    with pytest.raises(NotImplementedError):
-        GenerationScheduler(engine, draft_model=tnet)
-    with pytest.raises(NotImplementedError):
-        GenerationScheduler(engine, lane_policy="prefill")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match="Queue A item 5"):
         ModelServer(tnet, port=0, generator=None)
+    with pytest.raises(ServingError, match="lane_policy"):
+        GenerationScheduler(engine, lane_policy="bogus")
 
 
 def test_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch, pair):
