@@ -153,6 +153,46 @@ Builds the package's CUDA kernels from the sources in this checkout
    outside the timed region, and from a CUDA graph as the graph time of
    forward + backward less that of the forward alone.
 
+8. **Predict phase: ``/predict`` serving of BERT-base through the core
+   runtime.** ``bert_base`` (vocab 30522, max_length 128) with the BERT
+   phase's random weights (a ``.params`` file written under ``build/``
+   and loaded through ``convert``), ``eval()``, ``hybridize()``, under
+   ``autograd.predict_mode()``. The served function takes NDArrays
+   ``(tokens, segments, valid_len)`` and returns the pooled [CLS] row and
+   its NSP logits (``net.encoder``, ``net.pooler``, ``nd.tanh``,
+   ``net.nsp``). ``InferenceEngine`` (buckets 1..32) over it, ``warmup``
+   (one CUDA graph per bucket), then ``ModelServer`` over the engine
+   (``max_batch_size`` 32, 5 ms window): 8 client threads x 8 ``POST
+   /predict`` of S = 128 with ``valid_len`` drawn from 16..128; in fp32,
+   then with the net cast to bf16 and a new engine. Checks, per dtype: 6
+   misses and 6 graphs after warmup, 2 x 12 flash forward launches per
+   bucket in it (the side-stream run and the capture), and no new miss
+   under traffic; at every bucket the graph replay equals the
+   non-hybridized forward bit for bit (12 flash launches per eager call);
+   0 errors and a mean batch above 1 over HTTP; each output over all
+   replies within 1e-5 (fp32) or 2e-2 (bf16) of its largest |value| of
+   the rows run alone. Prints the capture ms per bucket, eager and replay
+   ms per bucket (CUDA events, 20 calls), the graph pool's bytes, client
+   p50/p99 and rows/s (``--profile``: kernels and busy ms of one eager
+   call at bucket 32). The whole ``BERTModel`` (MLM logits too) is served
+   in-process at bucket 8 and must equal its eager forward bit for bit.
+9. **Autograd phase: the Gluon loop over NDArrays.**
+   ``transformer_lm_base`` at max_len 512 from surface (b)'s weights
+   (``random.seed``, ``collect_params().initialize(Xavier())``), batch 32
+   x 512: surface (b)'s first step on tensors, then the same step as a
+   script writes it (``nd.array`` inputs, ``with autograd.record():``,
+   ``loss.backward()``); the per-sample losses and every gradient must be
+   equal bit for bit. Then 3 fp32 and 3 bf16 (``cast``, fp32 masters)
+   steps with ``gluon.Trainer`` Adam, step ms printed; each training
+   kernel launches 12 times a step.
+10. **Registry-op phase.** ``nd._contrib_dot_product_attention`` in its
+    default (B, H, S, D) layout at B 8, S 512, H 12, D 64, causal and
+    not, fp32 and bf16, forward and backward under
+    ``autograd.record()``, against the plain path
+    (``MXNET_FLASH_ATTENTION=0``): output and gradients within 2e-4
+    (fp32) or 2e-2 (bf16) of their largest |value|; the (B, H, S, D)
+    forward, dQ and dK/dV kernels launch once a call each.
+
 With ``--profile`` the burst is served a second time, serving v2's part
 (f) is profiled, and two fp32 and two bf16 training steps, two bf16 BERT
 steps and two bf16 BERT steps each with LAMB and Adam (surface phase) are
@@ -160,11 +200,13 @@ run, under ``torch.profiler`` (after the checked runs) to print the
 device's busy share, its kernel count and its
 top kernels.
 
-Prints the serving, serving v2, training, BERT and surface numbers, one
-``{"kernels": [...]}``
-line (the numbers of the training shape in fp32, under ``*_bf16`` keys in
-bf16, and under ``bert`` those of the BERT shape), the card's name and
-power limit, and last ``{"ok": true, "device": {...}}``.
+Prints the serving, serving v2, training, BERT, surface, predict,
+autograd and registry-op numbers, one ``{"kernels": [...]}`` line with an
+entry per TPU kernel (the three (B, S, H, D) ones with the numbers of the
+training shape in fp32, under ``*_bf16`` keys in bf16, and under ``bert``
+those of the BERT shape; the three (B, H, S, D) ones with the numbers of
+the registry op's shape), the card's name and power limit, and last
+``{"ok": true, "device": {...}}``.
 Any failure exits non-zero before that line. Without CUDA it exits 2.
 """
 from __future__ import annotations
@@ -189,13 +231,6 @@ PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}   # H100 SXM, dense
 PEAK_BYTES = 3.35e12
 SOURCES = ("flash_attn_fwd", "flash_attn_bwd")
 PALLAS = "mxnet_tpu/ops/pallas_kernels.py:%d"
-# name: (source, TPU kernel on the main path, the per-head one it also
-# stands for)
-KERNELS = {
-    "flash_attn_fwd": ("flash_attn_fwd", 589, 239),   # _bshd_fwd_kernel
-    "flash_attn_bwd_dq": ("flash_attn_bwd", 629, 312),  # _bshd_bwd_dq
-    "flash_attn_bwd_dkv": ("flash_attn_bwd", 668, 348),  # _bshd_bwd_dkv
-}
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 32, 512, 8
 LOSS_RTOL = 1e-4      # first fp32 step, kernel path vs plain path
 GRAD_TOL = 1e-3       # of each gradient's largest |value|
@@ -1680,6 +1715,8 @@ def kernel_phase(torch):
               for dt in (torch.float32, torch.bfloat16)]
     specs += [(8, 512, D, "BSHD", torch.float32, 0.0, True, True)
               for D in (32, 128)]
+    specs += [(8, 512, 64, "BHSD", dt, 0.0, True, True)
+              for dt in (torch.float32, torch.bfloat16)]
     specs += [(TRAIN_BATCH, TRAIN_SEQ, 64, "BSHD", dt, 0.0, False, True)
               for dt in (torch.float32, torch.bfloat16)]
     specs += bert_specs(torch)
@@ -1840,15 +1877,429 @@ def ptxas_summary(_build, name):
     return "%s: ptxas %d kernels: %s" % (name, len(parts), ", ".join(parts))
 
 
-def kernel_entries(serving, v2, training, bert, surface, fwd_cases,
+# ---- the core runtime: /predict, the Gluon loop over NDArrays, the
+# registry op ----------------------------------------------------------------
+
+PREDICT_SEQ, PREDICT_CLIENTS, PREDICT_PER_CLIENT = 128, 8, 8
+PREDICT_TOL = {"float32": 1e-5, "bfloat16": 2e-2}   # of the output's max
+# bf16 against the plain path, as the BERT phase holds bf16: each path's
+# distance from the fp32 plain path on the same (bf16) weights, the kernel
+# path's at most this many times the plain path's
+PREDICT_BF16_FACTOR = 2.0
+AUTOGRAD_STEPS = 3
+REGISTRY_SHAPE = (8, 512, 12, 64)                   # B, S, H, D (BHSD)
+
+
+def _served(net):
+    """The served function: sentence-pair scoring over NDArrays, the
+    pooled [CLS] row and its NSP logits (no (T, vocab) MLM output)."""
+    from mxnet_tpu_torch import nd
+
+    def serve(tokens, segments, valid_len):
+        seq = net.encoder(tokens, segments, valid_len)
+        pooled = nd.tanh(net.pooler(seq[:, 0]))
+        return pooled, net.nsp(pooled)
+    return serve
+
+
+def _served_eager(torch, net, tokens, segments, valid_len):
+    """The same function on tensors, outside any CachedOp."""
+    with torch.no_grad():
+        seq = net.encoder(tokens, segments, valid_len)
+        pooled = torch.tanh(net.pooler(seq[:, 0]))
+        return pooled, net.nsp(pooled)
+
+
+def _bucket_inputs(torch, rng, n, dev):
+    tokens = torch.from_numpy(rng.integers(1, BERT_VOCAB, (n, PREDICT_SEQ))
+                              .astype("float32")).to(dev)
+    segments = torch.zeros((n, PREDICT_SEQ), device=dev)
+    segments[:, PREDICT_SEQ // 2:] = 1.0
+    lens = torch.from_numpy(rng.integers(16, PREDICT_SEQ + 1, n)
+                            .astype("float32")).to(dev)
+    return tokens, segments, lens
+
+
+def _vs_plain(torch, net, t, s, v, eager, what, truth_net=None):
+    """The served function's kernel-path outputs ``eager`` against the
+    plain path on the same inputs: fp32 within ``PREDICT_TOL`` of each
+    output's max; bf16 (given ``truth_net``, an fp32 copy of the bf16
+    weights) by each path's distance from ``truth_net``'s plain path."""
+    def plain(n):
+        return on_plain_path(lambda: _served_eager(torch, n, t, s, v), what)
+
+    def worst(got, ref):
+        return max(rel_to_max(g, r) for g, r in zip(got, ref))
+
+    if not all(torch.isfinite(e).all() for e in eager):
+        fail("%s: the served outputs are not finite" % what)
+    ref = plain(net)
+    out = {"vs_plain_rel_to_max": worst(eager, ref)}
+    if truth_net is None:
+        if not out["vs_plain_rel_to_max"] <= PREDICT_TOL["float32"]:
+            fail("%s: kernel path != plain path (%g of the output's max, "
+                 "tol %g)" % (what, out["vs_plain_rel_to_max"],
+                              PREDICT_TOL["float32"]))
+        return out
+    truth = plain(truth_net)
+    out["kernel_vs_fp32"] = worst(eager, truth)
+    out["plain_vs_fp32"] = worst(ref, truth)
+    if not out["kernel_vs_fp32"] <= PREDICT_BF16_FACTOR * out["plain_vs_fp32"]:
+        fail("%s: the kernel path is %g of the output's max from the fp32 "
+             "path, the plain path %g (tol: %g times it)" % (
+                 what, out["kernel_vs_fp32"], out["plain_vs_fp32"],
+                 PREDICT_BF16_FACTOR))
+    return out
+
+
+def _predict_dtype(args, torch, net, dname, rng, truth_net=None):
+    """One dtype of the predict phase: warmup, per-bucket checks (replay
+    against eager, eager against the plain path) and times, batcher rows
+    against rows alone, and HTTP traffic."""
+    from concurrent.futures import ThreadPoolExecutor
+    from mxnet_tpu_torch import autograd, gpu, nd
+    from mxnet_tpu_torch.serving import (DEFAULT_BUCKETS, InferenceEngine,
+                                         ModelServer)
+    dev = torch.device("cuda")
+    out = {"buckets": list(DEFAULT_BUCKETS)}
+    eng = InferenceEngine(_served(net), buckets=DEFAULT_BUCKETS,
+                          name="bert_predict_" + dname, ctx=gpu(0))
+    op = eng.cached_op
+    example = (np.zeros((1, PREDICT_SEQ), "float32"),
+               np.zeros((1, PREDICT_SEQ), "float32"),
+               np.full((1,), PREDICT_SEQ, "float32"))
+    with autograd.predict_mode():
+        n0 = kernel_launches()
+        t0 = time.perf_counter()
+        eng.warmup(example)
+        torch.cuda.synchronize()
+        out["warmup_s"] = time.perf_counter() - t0
+        out["warmup_launches"] = {k: v - n0[k] for k, v in
+                                  kernel_launches().items()}
+        st = op.cache_stats()
+        if st["misses"] != len(DEFAULT_BUCKETS) or st["graphs"] != \
+                len(DEFAULT_BUCKETS):
+            fail("predict %s: %d misses, %d graphs after warmup, not %d"
+                 % (dname, st["misses"], st["graphs"],
+                    len(DEFAULT_BUCKETS)))
+        # warmup runs each bucket twice (the side-stream run and the
+        # capture): one flash forward a layer each time
+        layers = len(net.encoder.layers)
+        if out["warmup_launches"]["flash_attn_fwd"] != \
+                2 * layers * len(DEFAULT_BUCKETS):
+            fail("predict %s: warmup launched the flash forward %d times"
+                 % (dname, out["warmup_launches"]["flash_attn_fwd"]))
+        out["capture_ms"] = dict(op.capture_ms)
+        out["pool_bytes"] = op.pool_bytes
+        out["per_bucket"] = {}
+        for b in DEFAULT_BUCKETS:
+            t, s, v = _bucket_inputs(torch, rng, b, dev)
+            n0 = kernel_launches()["flash_attn_fwd"]
+            eager = _served_eager(torch, net, t, s, v)
+            per_call = kernel_launches()["flash_attn_fwd"] - n0
+            if per_call != layers:
+                fail("predict %s bucket %d: %d flash launches a call, not "
+                     "%d" % (dname, b, per_call, layers))
+            nds = [nd.NDArray(x) for x in (t, s, v)]
+            replay = op(*nds)
+            for e, r in zip(eager, replay):
+                if not torch.equal(e, r._data):
+                    fail("predict %s bucket %d: graph replay != eager "
+                         "forward (max diff %g)" % (
+                             dname, b, (e.float() - r._data.float()).abs()
+                             .max().item()))
+            out["per_bucket"][b] = _vs_plain(
+                torch, net, t, s, v, eager,
+                "predict %s bucket %d" % (dname, b), truth_net)
+            out["per_bucket"][b].update({
+                "eager_ms": time_ms(torch, lambda: _served_eager(
+                    torch, net, t, s, v)),
+                "replay_ms": time_ms(torch, lambda: op(*nds)),
+                "flash_launches_per_call": per_call})
+        if args.profile:
+            t, s, v = _bucket_inputs(torch, rng, DEFAULT_BUCKETS[-1], dev)
+            out["profile_eager_b32"] = profile(
+                torch, lambda: _served_eager(torch, net, t, s, v))
+        misses = op.cache_stats()["misses"]
+
+        # HTTP: 8 clients x 8 requests, rows held against the row alone
+        payloads = []
+        for _ in range(PREDICT_CLIENTS * PREDICT_PER_CLIENT):
+            t, s, v = (x.cpu().numpy() for x in _bucket_inputs(
+                torch, rng, 1, dev))
+            payloads.append((t[0], s[0], v[0]))
+        srv = ModelServer(eng, port=0, max_batch_size=DEFAULT_BUCKETS[-1],
+                          max_latency_ms=5.0).start()
+        try:
+            def client(c):
+                got = []
+                for i in range(PREDICT_PER_CLIENT):
+                    t, s, v = payloads[c * PREDICT_PER_CLIENT + i]
+                    body = json.dumps({"inputs": [t.tolist(), s.tolist(),
+                                                  float(v)]}).encode()
+                    req = urllib.request.Request(
+                        srv.url + "/predict", data=body, method="POST",
+                        headers={"Content-Type": "application/json"})
+                    t0 = time.perf_counter()
+                    with urllib.request.urlopen(req, timeout=120) as r:
+                        reply = json.loads(r.read())
+                    got.append((time.perf_counter() - t0, reply))
+                return got
+
+            t0 = time.perf_counter()
+            with ThreadPoolExecutor(max_workers=PREDICT_CLIENTS) as pool:
+                results = [f.result(timeout=600) for f in
+                           [pool.submit(client, c)
+                            for c in range(PREDICT_CLIENTS)]]
+            wall = time.perf_counter() - t0
+            with urllib.request.urlopen(srv.url + "/metrics",
+                                        timeout=60) as r:
+                metrics = json.loads(r.read())
+            if op.cache_stats()["misses"] != misses:
+                fail("predict %s: traffic missed the cache" % dname)
+            # each reply against its row alone (bucket 1), before stop()
+            # releases the engine's graphs
+            replies = [r[1] for c in results for r in c]
+            alone = [eng.predict(t[None], s[None], v[None])
+                     for t, s, v in payloads]
+            cache = op.cache_stats()
+        finally:
+            srv.stop(timeout=60)
+        if metrics["errors"] or metrics["requests"] != len(payloads):
+            fail("predict %s: %d requests, %d errors" % (
+                dname, metrics["requests"], metrics["errors"]))
+        if not metrics["avg_batch_size"] > 1.0:
+            fail("predict %s: mean batch %.2f, traffic did not coalesce"
+                 % (dname, metrics["avg_batch_size"]))
+        lat = sorted(r[0] for c in results for r in c)
+        # each output over every reply: the largest difference from the
+        # rows run alone, against that output's largest |value|
+        rows = {}
+        for j, name in enumerate(("pooled", "nsp")):
+            got = np.stack([np.asarray(r["outputs"][j], "float32")
+                            for r in replies])
+            ref = np.stack([a[j].asnumpy().astype("float32")[0]
+                            for a in alone])
+            if got.shape != ref.shape:
+                fail("predict %s: %s replies %s, rows alone %s"
+                     % (dname, name, got.shape, ref.shape))
+            rows[name] = {"max_abs_err": float(np.abs(got - ref).max()),
+                          "max_abs": float(np.abs(ref).max())}
+            rows[name]["rel_to_max"] = rows[name]["max_abs_err"] / max(
+                rows[name]["max_abs"], 1e-30)
+        worst = max(r["rel_to_max"] for r in rows.values())
+        if not worst <= PREDICT_TOL[dname]:
+            fail("predict %s: batched rows differ from the rows alone by "
+                 "%s (tol %g of each output's max)" % (dname, rows,
+                                                       PREDICT_TOL[dname]))
+        out.update({
+            "requests": metrics["requests"], "errors": metrics["errors"],
+            "avg_batch_size": metrics["avg_batch_size"],
+            "batches": metrics["batches"],
+            "client_ms": {"p50": nearest_rank(lat, 50) * 1e3,
+                          "p99": nearest_rank(lat, 99) * 1e3},
+            "rows_s": len(payloads) / wall, "wall_s": wall,
+            "row_vs_alone_rel_to_max": worst, "row_vs_alone": rows,
+            "cache": cache})
+    return out
+
+
+def predict_phase(args, torch):
+    """``/predict`` serving of BERT-base: ``ModelServer`` ->
+    ``DynamicBatcher`` -> ``InferenceEngine`` -> ``CachedOp`` (one CUDA
+    graph per bucket) -> a hybridized ``BERTModel``, fp32 then bf16."""
+    from mxnet_tpu_torch import autograd, convert, gpu, nd
+    from mxnet_tpu_torch.models import bert_base
+    from mxnet_tpu_torch.ndarray import save_ndarrays
+    from mxnet_tpu_torch.ops import flash_attention as fa
+    from mxnet_tpu_torch.serving import InferenceEngine
+    dev = torch.device("cuda")
+    net = bert_base(vocab_size=BERT_VOCAB, max_length=BERT_SEQ, device=dev)
+    params = random_params(net, args.seed)
+    build = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(build, exist_ok=True)
+    path = os.path.join(build, "bert_base_seed%d.params" % args.seed)
+    save_ndarrays(path, list(params.values()), list(params))
+    try:
+        convert.load_mxnet_params(net, path)
+    finally:
+        os.remove(path)
+    del params
+    net.eval()
+    net.hybridize()
+    rng = np.random.default_rng(args.seed + 11)
+    t0 = time.perf_counter()
+    fa.reset_launches()
+    out = {"model": "bert_base", "seq": PREDICT_SEQ,
+           "clients": PREDICT_CLIENTS, "per_client": PREDICT_PER_CLIENT}
+    out["float32"] = _predict_dtype(args, torch, net, "float32", rng)
+
+    # the whole BERTModel output (MLM logits too) in-process at bucket 8
+    whole = InferenceEngine(net, buckets=(8,), name="bert_whole", ctx=gpu(0))
+    t, s, v = _bucket_inputs(torch, rng, 8, dev)
+    with autograd.predict_mode():
+        got = whole.predict(nd.NDArray(t), nd.NDArray(s), nd.NDArray(v))
+        with torch.no_grad():
+            ref = net(t, s, v)
+    for g, r in zip(got, ref):
+        if not torch.equal(g._data, r) or not torch.isfinite(r).all():
+            fail("predict: the whole BERTModel at bucket 8 != eager")
+    out["whole_model_shapes"] = [list(g.shape) for g in got]
+    whole.close()
+    del got, ref, whole
+
+    net.cast("bfloat16")
+    # the bf16 weights in fp32, built before the engine captures (a
+    # parameter given new storage drops every CachedOp's graphs)
+    net32 = bert_base(vocab_size=BERT_VOCAB, max_length=BERT_SEQ, device=dev)
+    net32.load_state_dict(net.state_dict())
+    net32.eval()
+    out["bfloat16"] = _predict_dtype(args, torch, net, "bfloat16", rng,
+                                     truth_net=net32)
+    out["launches"] = kernel_launches()
+    out["wall_s"] = time.perf_counter() - t0
+    del net, net32
+    torch.cuda.empty_cache()
+    return out
+
+
+def autograd_phase(args, torch):
+    """The classic Gluon loop over NDArrays at ``transformer_lm_base``
+    width, from surface (b)'s weights: ``autograd.record()``, the loss's
+    ``backward()``, ``gluon.Trainer.step``."""
+    from mxnet_tpu_torch import autograd, gpu, initializer, nd
+    from mxnet_tpu_torch import random as trandom
+    from mxnet_tpu_torch.gluon import Trainer
+    from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+    from mxnet_tpu_torch.models import transformer_lm_base
+    from mxnet_tpu_torch.ops import flash_attention as fa
+    dev = torch.device("cuda")
+    trandom.seed(args.seed)
+    net = transformer_lm_base(vocab_size=32000, max_len=TRAIN_SEQ,
+                              device=dev)
+    params = net.collect_params()
+    params.initialize(initializer.Xavier())
+    xs, ys = lm_batch(args.seed + 2)
+    loss_fn = SoftmaxCrossEntropyLoss()
+
+    # surface (b)'s first step on tensors, then the same step on NDArrays
+    x, y = (torch.from_numpy(a).to(dev) for a in (xs, ys))
+    losses = loss_fn(net(x), y)
+    losses.backward(torch.ones_like(losses))
+    ref_losses = losses.detach().clone()
+    ref_grads = {n: p.grad_tensor().clone() for n, p in params.items()}
+    params.zero_grad()
+    xn, yn = nd.array(xs, ctx=gpu(0)), nd.array(ys, ctx=gpu(0))
+    with autograd.record():
+        loss = loss_fn(net(xn), yn)
+    loss.backward()
+    nd_loss = float(loss.mean().asscalar())
+    differ = [n for n, p in params.items()
+              if not torch.equal(p.grad_tensor(), ref_grads[n])]
+    if not torch.equal(loss._data.detach(), ref_losses) or differ:
+        fail("autograd: the NDArray step differs from surface (b)'s first "
+             "step: losses equal %s, gradients differ %s" % (
+                 torch.equal(loss._data.detach(), ref_losses), differ[:4]))
+    del ref_grads
+    out = {"model": "transformer_lm_base", "batch": TRAIN_BATCH,
+           "seq": TRAIN_SEQ, "first_loss": nd_loss,
+           "first_step_equal_surface_b": True}
+    fa.reset_launches()
+    for dname in ("float32", "bfloat16"):
+        if dname == "bfloat16":
+            net.cast("bfloat16")
+        tr = Trainer(params, "adam", {"learning_rate": 1e-4,
+                                      "multi_precision": dname != "float32"})
+
+        def step(_):
+            with autograd.record():
+                loss = loss_fn(net(xn), yn)
+            loss.backward()
+            tr.step(TRAIN_BATCH)
+            return loss.mean()._data.float()
+
+        ls, ms = timed_steps(torch, step, AUTOGRAD_STEPS)
+        if not all(np.isfinite(ls)):
+            fail("autograd %s losses not finite: %r" % (dname, ls))
+        out[dname] = {"losses": ls, "step_ms": ms,
+                      "step_ms_mean": float(np.mean(ms[1:]))}
+        del tr
+    out["launches"] = kernel_launches()
+    check_launches(out["launches"], 2 * AUTOGRAD_STEPS, net.num_layers,
+                   "autograd loop")
+    del net, params
+    torch.cuda.empty_cache()
+    return out
+
+
+def registry_phase(torch):
+    """``nd._contrib_dot_product_attention`` with its default BHSD layout,
+    forward and backward under ``autograd.record()``, against the plain
+    path (``MXNET_FLASH_ATTENTION=0``)."""
+    from mxnet_tpu_torch import autograd, nd
+    from mxnet_tpu_torch.ops import flash_attention as fa
+    B, S, H, D = REGISTRY_SHAPE
+    g = torch.Generator(device="cuda").manual_seed(777)
+    fa.reset_launches()
+    cases = []
+
+    def run(q, k, v, do, causal):
+        leaves = [nd.NDArray(a.clone()) for a in (q, k, v)]
+        for a in leaves:
+            a.attach_grad()
+        with autograd.record():
+            o = nd._contrib_dot_product_attention(*leaves, causal=causal)
+        o.backward(nd.NDArray(do))
+        return [o._data] + [a.grad._data for a in leaves]
+
+    for dt in (torch.float32, torch.bfloat16):
+        for causal in (False, True):
+            (q, k, v, do), _ = attention_inputs(torch, g, B, S, H, D,
+                                                "BHSD", dt, 4, False)
+            got = run(q, k, v, do, causal)
+            torch.cuda.synchronize()
+            ref = on_plain_path(lambda: run(q, k, v, do, causal),
+                                "registry op")
+            tol = 2e-4 if dt == torch.float32 else 2e-2
+            errs = {}
+            for name, a, r in zip(("o", "dq", "dk", "dv"), got, ref):
+                err = (a.float() - r.float()).abs().max().item() / max(
+                    r.float().abs().max().item(), 1e-30)
+                if not err <= tol:
+                    fail("registry op %s %s causal=%s: %s differs from the "
+                         "plain path by %g of its max" % (dt, "BHSD",
+                                                         causal, name, err))
+                errs[name] = err
+            cases.append({"dtype": str(dt).replace("torch.", ""),
+                          "causal": causal, "err_rel_to_max": errs,
+                          "tol": tol})
+    launches = kernel_launches()
+    for name in ("flash_attn_fwd_bhsd", "flash_attn_bwd_dq",
+                 "flash_attn_bwd_dkv"):
+        if launches[name] != len(cases):
+            fail("registry op: %s launched %d times in %d calls"
+                 % (name, launches[name], len(cases)))
+    if launches["flash_attn_fwd"]:
+        fail("registry op: the default layout launched the BSHD forward")
+    return {"shape": "B=%d S=%d H=%d D=%d BHSD" % REGISTRY_SHAPE,
+            "cases": cases, "launches": launches}
+
+
+def kernel_entries(serving, v2, training, bert, surface, core, fwd_cases,
                    bwd_cases):
-    """The ``{"kernels": [...]}`` entries: numbers of the main path's
-    training shape (B 32, S 512, H 12, D 64, BSHD, causal) in fp32, and
-    under ``*_bf16`` keys in bf16; under ``bert``, the numbers of the BERT
-    shape (B 64, S 128, non-causal) without and with a key mask."""
-    def main(cases, dtype="float32"):
-        return next(c for c in cases if c["B"] == TRAIN_BATCH
-                    and c["layout"] == "BSHD" and c["dtype"] == dtype)
+    """The ``{"kernels": [...]}`` entries, one per TPU kernel. The three
+    ``(B, S, H, D)`` ones: numbers of the main path's training shape (B 32,
+    S 512, H 12, D 64, causal) in fp32, and under ``*_bf16`` keys in bf16;
+    under ``bert``, those of the BERT shape (B 64, S 128, non-causal)
+    without and with a key mask. The three ``(B, H, S, D)`` ones: numbers
+    at the registry op's shape (B 8, S 512, H 12, D 64, causal, key mask).
+    ``core`` holds the predict, autograd and registry-op phases' launch
+    counts; the backward kernels serve both layouts, so their launches are
+    split by the phase's layout."""
+    def pick(cases, dtype="float32", B=TRAIN_BATCH, layout="BSHD"):
+        return next(c for c in cases if c["B"] == B and c["S"] == 512
+                    and c["D"] == 64 and c["layout"] == layout
+                    and c["dtype"] == dtype and not c["dropout"])
 
     def bert_rows(cases, part=None):
         rows = {}
@@ -1869,63 +2320,83 @@ def kernel_entries(serving, v2, training, bert, surface, fwd_cases,
             BERT_BATCH, BERT_SEQ)
         return rows
 
-    fm, fb = main(fwd_cases), main(fwd_cases, "bfloat16")
-    timed = "B=%d S=%d H=12 D=64 BSHD causal, float32 (*_bf16: bfloat16)" \
-        % (TRAIN_BATCH, TRAIN_SEQ)
-    entries = [{
-        "name": "flash_attn_fwd", "ms": fm["ms"], "graph_ms": fm["graph_ms"],
-        "plain_ms": fm["plain_ms"], "bound_ms": fm["bound_ms"],
-        "bound_by": fm["bound_by"], "library_ms": fm["library_ms"],
-        "library_graph_ms": fm["library_graph_ms"],
-        "ms_bf16": fb["ms"], "graph_ms_bf16": fb["graph_ms"],
-        "plain_ms_bf16": fb["plain_ms"], "bound_ms_bf16": fb["bound_ms"],
-        "bound_by_bf16": fb["bound_by"], "library_ms_bf16": fb["library_ms"],
-        "library_graph_ms_bf16": fb["library_graph_ms"],
-        "max_abs_err": max(c["max_abs_err"] for c in fwd_cases),
-        "launches": serving["flash_launches"] + v2["flash_launches"]
-        + training["launches"]["flash_attn_fwd"]
-        + bert["launches"]["flash_attn_fwd"]
-        + surface["launches"]["flash_attn_fwd"],
-        "launches_by_path": {
-            "serving": serving["flash_launches"],
-            "serving_v2": v2["flash_launches"],
-            "training": training["launches"]["flash_attn_fwd"],
-            "bert": bert["launches"]["flash_attn_fwd"],
-            "surface": surface["launches"]["flash_attn_fwd"]},
-        "bert": bert_rows(fwd_cases),
-        "cases": fwd_cases}]
-    bm, bb = main(bwd_cases), main(bwd_cases, "bfloat16")
-    for name, part in (("flash_attn_bwd_dq", "dq"),
-                       ("flash_attn_bwd_dkv", "dkv")):
-        errs = [c["max_abs_err"][n] for c in bwd_cases
-                for n in ((part,) if part == "dq" else ("dk", "dv"))]
-        entries.append({
-            "name": name, "ms": bm[part]["ms"],
-            "graph_ms": bm[part]["graph_ms"], "plain_ms": bm["plain_bwd_ms"],
-            "bound_ms": bm[part]["bound_ms"],
-            "bound_by": bm[part]["bound_by"],
-            "library_ms": bm["library_bwd_ms"],
-            "library_graph_ms": bm["library_bwd_graph_ms"],
-            "ms_bf16": bb[part]["ms"], "graph_ms_bf16": bb[part]["graph_ms"],
-            "plain_ms_bf16": bb["plain_bwd_ms"],
-            "bound_ms_bf16": bb[part]["bound_ms"],
-            "bound_by_bf16": bb[part]["bound_by"],
-            "library_ms_bf16": bb["library_bwd_ms"],
-            "library_graph_ms_bf16": bb["library_bwd_graph_ms"],
-            "max_abs_err": max(errs),
-            "launches": training["launches"][name]
-            + bert["launches"][name] + surface["launches"][name],
-            "launches_by_path": {"serving": 0, "serving_v2": 0,
-                                 "training": training["launches"][name],
-                                 "bert": bert["launches"][name],
-                                 "surface": surface["launches"][name]},
-            "bert": bert_rows(bwd_cases, part)})
+    def timed(c, cb, part=None):
+        t, tb = (c, cb) if part is None else (c[part], cb[part])
+        plain = "plain_ms" if part is None else "plain_bwd_ms"
+        lib = "library_ms" if part is None else "library_bwd_ms"
+        libg = "library_graph_ms" if part is None \
+            else "library_bwd_graph_ms"
+        return {"ms": t["ms"], "graph_ms": t["graph_ms"],
+                "plain_ms": c[plain], "bound_ms": t["bound_ms"],
+                "bound_by": t["bound_by"], "library_ms": c[lib],
+                "library_graph_ms": c[libg],
+                "ms_bf16": tb["ms"], "graph_ms_bf16": tb["graph_ms"],
+                "plain_ms_bf16": cb[plain], "bound_ms_bf16": tb["bound_ms"],
+                "bound_by_bf16": tb["bound_by"], "library_ms_bf16": cb[lib],
+                "library_graph_ms_bf16": cb[libg]}
+
+    paths = {"serving": serving["flash_launches"],
+             "serving_v2": v2["flash_launches"],
+             "training": training["launches"]["flash_attn_fwd"],
+             "bert": bert["launches"]["flash_attn_fwd"],
+             "surface": surface["launches"]["flash_attn_fwd"],
+             "predict": core["predict"]["flash_attn_fwd"],
+             "autograd": core["autograd"]["flash_attn_fwd"]}
+    train_timed = "B=%d S=%d H=12 D=64 BSHD causal, float32 (*_bf16: " \
+        "bfloat16)" % (TRAIN_BATCH, TRAIN_SEQ)
+    reg_timed = "B=8 S=512 H=12 D=64 BHSD causal with a key mask, float32 " \
+        "(*_bf16: bfloat16)"
+    entries = [dict(name="flash_attn_fwd", source="flash_attn_fwd",
+                    line=589, timed_case=train_timed,
+                    max_abs_err=max(c["max_abs_err"] for c in fwd_cases
+                                    if c["layout"] == "BSHD"),
+                    launches=sum(paths.values()), launches_by_path=paths,
+                    bert=bert_rows(fwd_cases),
+                    **timed(pick(fwd_cases), pick(fwd_cases, "bfloat16")))]
+    reg = core["registry"]
+    entries.append(dict(
+        name="flash_attn_fwd_bhsd", source="flash_attn_fwd", line=239,
+        timed_case=reg_timed,
+        max_abs_err=max(c["max_abs_err"] for c in fwd_cases
+                        if c["layout"] == "BHSD"),
+        launches=reg["flash_attn_fwd_bhsd"],
+        launches_by_path={"registry_op": reg["flash_attn_fwd_bhsd"]},
+        **timed(pick(fwd_cases, B=8, layout="BHSD"),
+                pick(fwd_cases, "bfloat16", B=8, layout="BHSD"))))
+    for name, part, line, line_bhsd in (
+            ("flash_attn_bwd_dq", "dq", 629, 312),
+            ("flash_attn_bwd_dkv", "dkv", 668, 348)):
+        by = {"serving": 0, "serving_v2": 0,
+              "training": training["launches"][name],
+              "bert": bert["launches"][name],
+              "surface": surface["launches"][name],
+              "predict": core["predict"][name],
+              "autograd": core["autograd"][name]}
+        for layout, ln in (("BSHD", line), ("BHSD", line_bhsd)):
+            errs = [c["max_abs_err"][n] for c in bwd_cases
+                    if c["layout"] == layout
+                    for n in ((part,) if part == "dq" else ("dk", "dv"))]
+            if layout == "BSHD":
+                e = dict(name=name, line=ln, timed_case=train_timed,
+                         launches=sum(by.values()), launches_by_path=by,
+                         bert=bert_rows(bwd_cases, part),
+                         **timed(pick(bwd_cases), pick(bwd_cases,
+                                                       "bfloat16"), part))
+            else:
+                e = dict(name=name + "_bhsd", line=ln, timed_case=reg_timed,
+                         launches=reg[name],
+                         launches_by_path={"registry_op": reg[name]},
+                         **timed(pick(bwd_cases, B=8, layout="BHSD"),
+                                 pick(bwd_cases, "bfloat16", B=8,
+                                      layout="BHSD"), part))
+            e.update(source="flash_attn_bwd", max_abs_err=max(errs))
+            entries.append(e)
     for e in entries:
-        src, main_line, also = KERNELS[e["name"]]
-        e.update(route="cuda", source="mxnet_tpu_torch/csrc/%s.cu" % src,
-                 replaces=PALLAS % main_line, also_replaces=PALLAS % also,
-                 timed_case=timed)
-    entries[1]["cases"] = bwd_cases
+        e.update(route="cuda",
+                 source="mxnet_tpu_torch/csrc/%s.cu" % e["source"],
+                 replaces=PALLAS % e.pop("line"))
+    entries[0]["cases"] = fwd_cases
+    entries[2]["cases"] = bwd_cases
     return entries
 
 
@@ -2077,6 +2548,62 @@ def main():
               ", ".join("%.4g" % v for v in
                         surface["eager_lm"]["clip_norms"])))
 
+    predict = predict_phase(args, torch)
+    for dname in ("float32", "bfloat16"):
+        r = predict[dname]
+        print("predict %s: bert_base S%d buckets %s, warmup %.2f s (%d "
+              "misses), capture ms %s, graph pool %d bytes; per bucket "
+              "eager/replay ms %s; HTTP %d clients x %d: %d requests, %d "
+              "errors, mean batch %.2f, client p50 %.2f ms p99 %.2f ms, %.1f "
+              "rows/s; batched rows vs alone %.3g of max" % (
+                  dname, PREDICT_SEQ, r["buckets"], r["warmup_s"],
+                  r["cache"]["misses"], ", ".join(
+                      "%.1f" % v for v in r["capture_ms"].values()),
+                  r["pool_bytes"], ", ".join(
+                      "%d: %.3f/%.3f" % (b, t["eager_ms"], t["replay_ms"])
+                      for b, t in r["per_bucket"].items()),
+                  PREDICT_CLIENTS, PREDICT_PER_CLIENT, r["requests"],
+                  r["errors"], r["avg_batch_size"], r["client_ms"]["p50"],
+                  r["client_ms"]["p99"], r["rows_s"],
+                  r["row_vs_alone_rel_to_max"]), flush=True)
+        print("predict %s vs the plain path per bucket (of the output's "
+              "max): %s" % (dname, "; ".join(
+                  "%d: %s" % (b, ", ".join(
+                      "%s %.3g" % (k, t[k]) for k in (
+                          "vs_plain_rel_to_max", "kernel_vs_fp32",
+                          "plain_vs_fp32") if k in t))
+                  for b, t in r["per_bucket"].items())), flush=True)
+        if "profile_eager_b32" in r:
+            pr = r["profile_eager_b32"]
+            print("profile predict %s eager bucket 32: %d kernels, device "
+                  "busy %.2f ms of %.2f ms" % (dname, pr["kernels_launched"],
+                                               pr["device_busy_ms"],
+                                               pr["wall_ms"]))
+    print("predict: replay == eager bitwise and eager == plain path at "
+          "every bucket, 12 flash launches a call; whole BERTModel at bucket 8 %s; launches %s; "
+          "%.1f s" % (predict["whole_model_shapes"], predict["launches"],
+                      predict["wall_s"]), flush=True)
+    core_ag = autograd_phase(args, torch)
+    print("autograd: transformer_lm_base b%d s%d, first NDArray step == "
+          "surface (b) bitwise (losses and every gradient); fp32 step %.2f "
+          "ms, bf16 step %.2f ms (means after the first); losses %s / %s; "
+          "launches %s" % (
+              TRAIN_BATCH, TRAIN_SEQ, core_ag["float32"]["step_ms_mean"],
+              core_ag["bfloat16"]["step_ms_mean"],
+              ", ".join("%.4f" % v for v in core_ag["float32"]["losses"]),
+              ", ".join("%.4f" % v for v in core_ag["bfloat16"]["losses"]),
+              core_ag["launches"]), flush=True)
+    registry = registry_phase(torch)
+    print("registry op: nd._contrib_dot_product_attention %s, fp32/bf16 x "
+          "causal/full, forward and backward vs plain: %s; launches %s" % (
+              registry["shape"], "; ".join(
+                  "%s causal=%s %s" % (c["dtype"], c["causal"], ", ".join(
+                      "%s %.2g" % kv for kv in c["err_rel_to_max"].items()))
+                  for c in registry["cases"]), registry["launches"]),
+          flush=True)
+    core = {"predict": predict["launches"], "autograd": core_ag["launches"],
+            "registry": registry["launches"]}
+
     for tag, prof in (("serving burst", serving["profile"]),
                       ("2 fp32 training steps",
                        training.get("profile_float32")),
@@ -2125,14 +2652,16 @@ def main():
                  c["dkv"]["bound_by"], c["plain_bwd_ms"], lib,
                  ",".join("%.2g" % v for v in
                           c["max_err_rel_to_max"].values())))
-    entries = kernel_entries(serving, v2, training, bert, surface, fwd_cases,
-                             bwd_cases)
+    entries = kernel_entries(serving, v2, training, bert, surface, core,
+                             fwd_cases, bwd_cases)
     card = card_line()
     if args.out:
         with open(args.out, "w") as f:
             json.dump({"serving": serving, "serving_v2": v2,
                        "training": training,
                        "bert": bert, "surface": surface,
+                       "predict": predict, "autograd": core_ag,
+                       "registry_op": registry,
                        "kernels": entries, "card": card,
                        "build_s": build_s}, f, indent=1)
     print(json.dumps({"kernels": [{k: v for k, v in e.items()

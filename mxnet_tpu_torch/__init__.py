@@ -3,29 +3,45 @@
 A second package beside the JAX one, held against it module by module (the
 JAX package is the reference; the port imports none of it). Its module
 layout and names follow ``mxnet_tpu``, so each module's counterpart is
-found by name. Entry points run on the GPU: with no ``device`` they take
-CUDA and raise when there is none; ``device="cpu"`` asks for the CPU
-explicitly, where every CUDA kernel's wrapper computes its plain PyTorch
-version.
+found by name. Entry points run on the GPU: with no ``device`` (or
+``ctx``) they take CUDA and raise when there is none; ``device="cpu"`` or
+``ctx=mx.cpu()`` asks for the CPU explicitly, where every CUDA kernel's
+wrapper computes its plain PyTorch version.
 
-The port carries two paths of TransformerLM so far:
+What the port carries so far:
 
-- generation serving: ``GenerationScheduler(DecodeEngine(lm))`` behind
-  ``ModelServer(None, generator=sched)``, with a hand-written CUDA
-  flash-attention forward (``csrc/flash_attn_fwd.cu``) under every prefill;
-- training: ``parallel.ShardedTrainer(lm, gluon.loss.SoftmaxCrossEntropyLoss(),
-  "adam", ...)`` on one device, whose backward runs the hand-written CUDA
-  flash-attention backward kernels (``csrc/flash_attn_bwd.cu``);
-- the Gluon training surface: ``initializer``, ``lr_scheduler``, every
-  ``optimizer``, ``gluon.collect_params`` and the eager ``gluon.Trainer``,
-  ``gluon.utils.clip_global_norm`` and every ``gluon.loss``.
+- the core runtime: ``Context`` (``cpu()``, ``gpu(i)``), ``NDArray`` and
+  the ``nd`` namespace generated from the op registry, ``autograd``
+  (``record``, ``backward``, ``grad``, ``Function``) over torch's
+  autograd, ``CachedOp`` (one CUDA graph per input signature), ``engine``
+  and ``runtime``;
+- Gluon: ``Block``/``HybridBlock`` (``torch.nn.Module``s, ``hybridize``),
+  ``Parameter`` with deferred initialization, ``initializer``,
+  ``lr_scheduler``, every ``optimizer``, the eager ``gluon.Trainer``,
+  ``gluon.utils.clip_global_norm`` and every ``gluon.loss``;
+- TransformerLM and BERT (``models``), trained with
+  ``parallel.ShardedTrainer`` or the Gluon loop, whose attention runs the
+  hand-written CUDA flash-attention kernels (``csrc/flash_attn_fwd.cu``,
+  ``csrc/flash_attn_bwd.cu``);
+- serving: ``/predict`` (``ModelServer(engine)`` over a
+  ``DynamicBatcher`` over an ``InferenceEngine``) and ``/generate``
+  (``GenerationScheduler(DecodeEngine(lm))``).
 """
-from . import (config, context, convert, gluon, initializer, lr_scheduler,
-               models, ops, optimizer, parallel, random, serving)
-from .context import default_device
+from . import (autograd, base, config, context, convert, engine, gluon,
+               initializer, lr_scheduler, models, ndarray, ops, optimizer,
+               parallel, random, runtime, serving)
+from .base import MXNetError
+from .cached_op import CachedOp
+from .context import (Context, cpu, current_context, default_device, gpu,
+                      num_gpus)
 
-__version__ = "0.2.0"
+nd = ndarray
+init = initializer
 
-__all__ = ["config", "context", "convert", "gluon", "initializer",
-           "lr_scheduler", "models", "ops", "optimizer", "parallel", "random",
-           "serving", "default_device"]
+__version__ = "0.3.0"
+
+__all__ = ["autograd", "base", "config", "context", "convert", "engine",
+           "gluon", "initializer", "init", "lr_scheduler", "models", "nd",
+           "ndarray", "ops", "optimizer", "parallel", "random", "runtime",
+           "serving", "CachedOp", "Context", "MXNetError", "cpu", "gpu",
+           "current_context", "default_device", "num_gpus"]

@@ -1,8 +1,9 @@
 """Environment-variable knobs the port reads.
 
 Counterpart of ``mxnet_tpu/config.py``: the same ``MXNET_*`` names and
-defaults, for only the knobs that generation serving, its resilience stack
-and the tracer read.
+defaults, for only the knobs that the port's modules read: the core
+runtime (engine, CachedOp), serving (``/predict`` and generation), the
+resilience stack and the tracer.
 :func:`get` is a typed read of the environment, so a knob set after import
 takes effect at its next read.
 """
@@ -28,6 +29,20 @@ def _k(name, default, typ, doc):
 
 
 KNOBS = dict([
+    _k("MXNET_ENGINE_TYPE", "ThreadedEnginePerDevice", str,
+       "NaiveEngine = synchronize after every op for debugging (engine.py)"),
+    _k("MXNET_EXEC_BULK_EXEC_MAX_NODE_TRAIN", 15, int,
+       "bulk-dispatch span size hint (engine.py bulk context)"),
+    _k("MXNET_CACHED_OP_CAPACITY", 64, int,
+       "max signatures retained per CachedOp (LRU; <=0 means unbounded): "
+       "bounds the CUDA graphs and their memory under shape churn"),
+    _k("MXNET_WARMUP_THREADS", 4, int,
+       "InferenceEngine warmup concurrency: bucket rungs run on a thread "
+       "pool this wide (<=1 = serial; CUDA-graph captures serialize on the "
+       "CachedOp's lock)"),
+    _k("MXNET_HTTP_MAX_BODY", 8 * 1024 * 1024, int,
+       "ModelServer POST body cap in bytes: a larger client-declared "
+       "Content-Length is refused with 413; <= 0 disables the cap"),
     _k("MXNET_GEN_SLOTS", 8, int,
        "generation serving: KV-cache arena slots == max sequences decoded "
        "per step (serving/generation/kvcache.py)"),

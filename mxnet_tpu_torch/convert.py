@@ -59,7 +59,12 @@ from .models.transformer import TransformerLM
 from .ndarray.serialization import load_ndarrays
 
 __all__ = ["state_dict_from_mxnet", "load_mxnet_params",
-           "mxnet_params_from_state_dict", "reference_names"]
+           "mxnet_params_from_state_dict", "reference_names",
+           "reference_structural_names"]
+
+# the reference's BERTEncoder registers five children (three embeddings,
+# the LayerNorm, the Dropout) before its layers, which it keys by index
+_BERT_LAYER0 = 5
 
 _NORM = re.compile(
     r"^(?P<scope>(?:encoder_)?)layernorm\d+_(?P<leaf>gamma|beta)$")
@@ -316,6 +321,22 @@ def reference_names(model, prefix=None):
     name = _reference_namer(arch, outer, _default_prefix(arch, outer)
                             if prefix is None else prefix)
     return {n: name(n) for n, _ in model.named_parameters()}
+
+
+def reference_structural_names(model):
+    """``{port parameter name: the reference's save_parameters name}`` of
+    a ``TransformerLM``, ``BERTModel`` or ``PretrainStep``: the port's
+    names, except that BERT's encoder layers are keyed by child index
+    (``encoder.layers.0.`` is ``encoder.5.``)."""
+    arch, outer = _arch_of(model)
+    layer = re.compile(r"^(%sencoder\.)layers\.(\d+)\.(.+)$"
+                       % re.escape(outer))
+    out = {}
+    for n, _ in model.named_parameters():
+        m = layer.match(n) if arch is _BERT else None
+        out[n] = "%s%d.%s" % (m.group(1), _BERT_LAYER0 + int(m.group(2)),
+                              m.group(3)) if m else n
+    return out
 
 
 def mxnet_params_from_state_dict(state_dict, prefix=None):

@@ -1,9 +1,12 @@
-"""Gluon (counterpart of ``mxnet_tpu.gluon``): layers and losses as
-``nn.Module``s, parameters under the reference's names, the eager
-``Trainer`` and the utilities."""
-from . import loss, nn, parameter, trainer, utils
-from .parameter import Parameter, ParameterDict, collect_params
+"""Gluon (counterpart of ``mxnet_tpu.gluon``): ``Block`` and
+``HybridBlock`` (``torch.nn.Module``s), the layers and losses, parameters
+under the reference's names, the eager ``Trainer`` and the utilities."""
+from . import block, loss, nn, parameter, trainer, utils
+from .block import Block, HybridBlock
+from .parameter import (Constant, DeferredInitializationError, Parameter,
+                        ParameterDict, collect_params)
 from .trainer import Trainer
 
-__all__ = ["loss", "nn", "parameter", "trainer", "utils", "Parameter",
-           "ParameterDict", "collect_params", "Trainer"]
+__all__ = ["block", "loss", "nn", "parameter", "trainer", "utils", "Block",
+           "HybridBlock", "Parameter", "ParameterDict", "Constant",
+           "DeferredInitializationError", "collect_params", "Trainer"]

@@ -1,0 +1,520 @@
+"""Gluon ``Block`` and ``HybridBlock``: counterpart of
+``mxnet_tpu/gluon/block.py``.
+
+Both are subclasses of ``torch.nn.Module``, so a block is a module: its
+parameters are ``nn.Parameter``s, ``named_parameters``, ``state_dict``
+and ``.to()`` work, and a call with torch tensors is a plain module call.
+A call with NDArrays is the Gluon one (:meth:`Block.__call__`): inputs are
+unwrapped, torch's grad mode follows ``autograd.record()`` and the
+module's training flag follows ``autograd``'s, and the outputs come back
+as NDArrays. Blocks come in two kinds:
+
+- the port's own layers and models (``Dense``, ``Embedding``,
+  ``LayerNorm``, ``Dropout``, ``MultiHeadAttention``,
+  ``TransformerEncoderLayer``, ``TransformerLM``, ``BERTEncoder``,
+  ``BERTModel``, ``BERTPretrainingLoss``, the losses): ``HybridBlock``s
+  with a ``forward`` written on tensors and no ``hybrid_forward``, so the
+  hot path wraps nothing per op;
+- a user's ``HybridBlock`` written as in the reference, with
+  ``self.params.get(...)`` and ``hybrid_forward(self, F, x, weight=...)``:
+  ``F`` is the port's ``nd`` namespace and the parameters arrive as
+  NDArrays; a user's ``Block`` writes ``forward`` over NDArrays.
+
+Name scopes and prefixes (``_BlockScope``) name the parameters as the
+reference does; ``collect_params(select)`` gives them under those names
+(the port's models under ``convert.reference_names``), ``initialize``
+draws the reference's values, and ``save_parameters``/``load_parameters``
+read and write the reference's structural names in its ``.params``
+bytes. ``hybridize()`` sends NDArray calls through a :class:`~mxnet_tpu_
+torch.cached_op.CachedOp` (one CUDA graph per input signature on the
+card); a block whose parameters are rebound or cast clears it.
+``SymbolBlock``, ``export`` and ``imports`` wait for the symbol frontend
+(ROADMAP Queue A item 9).
+"""
+from __future__ import annotations
+
+import re
+import threading
+from collections import OrderedDict
+
+import torch
+from torch import nn
+
+from .. import _tape
+from ..ndarray.ndarray import NDArray
+from .parameter import (DeferredInitializationError, Parameter,
+                        ParameterDict, load_param_from_array, wrap_tensor)
+
+__all__ = ["Block", "HybridBlock"]
+
+_naming = threading.local()
+_global_counter = {}
+_counter_lock = threading.Lock()
+
+
+def _namegen(hint):
+    with _counter_lock:
+        count = _global_counter.get(hint, 0)
+        _global_counter[hint] = count + 1
+    return "%s%d" % (hint, count)
+
+
+class _BlockScope:
+    """Name manager for automatic prefixes (the reference's)."""
+
+    def __init__(self, block):
+        self._block = block
+        self._counter = {}
+        self._old_scope = None
+
+    @staticmethod
+    def current():
+        return getattr(_naming, "scope", None)
+
+    @staticmethod
+    def create(prefix, params, hint):
+        current = _BlockScope.current()
+        if current is None:
+            if prefix is None:
+                prefix = _namegen(hint) + "_"
+            if params is None:
+                params = ParameterDict(prefix)
+            else:
+                params = ParameterDict(params.prefix, params)
+            return prefix, params
+        if prefix is None:
+            count = current._counter.get(hint, 0)
+            prefix = "%s%d_" % (hint, count)
+            current._counter[hint] = count + 1
+        if params is None:
+            parent = current._block.params
+            params = ParameterDict(parent.prefix + prefix, parent._shared)
+        else:
+            params = ParameterDict(params.prefix, params)
+        return current._block.prefix + prefix, params
+
+    def __enter__(self):
+        if self._block._empty_prefix:
+            return self
+        self._old_scope = _BlockScope.current()
+        _naming.scope = self
+        return self
+
+    def __exit__(self, *a):
+        if self._block._empty_prefix:
+            return
+        _naming.scope = self._old_scope
+
+
+class _HookHandle:
+    _id = 0
+
+    def __init__(self, hooks, hook):
+        _HookHandle._id += 1
+        self._hooks = hooks
+        self._key = _HookHandle._id
+        hooks[self._key] = hook
+
+    def detach(self):
+        self._hooks.pop(self._key, None)
+
+    remove = detach
+
+
+def _has_nd(args, kwargs):
+    return any(isinstance(a, NDArray) for a in args) or \
+        any(isinstance(v, NDArray) for v in kwargs.values())
+
+
+def _unwrap(x):
+    return x._data if isinstance(x, NDArray) else x
+
+
+def _wrap(x):
+    if isinstance(x, torch.Tensor):
+        return NDArray(x)
+    if isinstance(x, (list, tuple)):
+        return type(x)(_wrap(v) for v in x)
+    return x
+
+
+def _unwrap_out(x):
+    if isinstance(x, NDArray):
+        return x._data
+    if isinstance(x, (list, tuple)):
+        return type(x)(_unwrap_out(v) for v in x)
+    return x
+
+
+def _param_of(tensor, name, init=None):
+    """The tensor's :class:`Parameter`, under its name so far (``name``
+    for a tensor not wrapped yet)."""
+    param = getattr(tensor, "_mx_parameter", None)
+    return param if param is not None else wrap_tensor(tensor, name, init)
+
+
+class Block(nn.Module):
+    """Base building block: a ``torch.nn.Module`` with Gluon's names,
+    parameters and NDArray calls."""
+
+    def __init__(self, prefix=None, params=None):
+        super().__init__()
+        self._empty_prefix = prefix == ""
+        self._prefix, self._params = _BlockScope.create(
+            prefix, params, self._alias())
+        self._name = self._prefix[:-1] if self._prefix.endswith("_") \
+            else self._prefix
+        self._scope = _BlockScope(self)
+        self._reg_params = OrderedDict()
+        self._mx_forward_hooks = OrderedDict()
+        self._mx_forward_pre_hooks = OrderedDict()
+
+    def _alias(self):
+        return self.__class__.__name__.lower()
+
+    def __setattr__(self, name, value):
+        """Register child blocks (as modules) and parameters."""
+        if isinstance(value, Parameter):
+            existing = self._reg_params.get(name)
+            if existing is not None and existing is not value:
+                raise AssertionError(
+                    "Overriding Parameter attribute %s is not allowed" % name)
+            object.__setattr__(self, name, value)
+            self._reg_params[name] = value
+            value._attach(self, name)
+            return
+        super().__setattr__(name, value)
+
+    @property
+    def prefix(self):
+        return self._prefix
+
+    @property
+    def name(self):
+        return self._name
+
+    def name_scope(self):
+        return self._scope
+
+    @property
+    def params(self):
+        return self._params
+
+    def register_child(self, block, name=None):
+        self.add_module(str(len(self._modules)) if name is None else name,
+                        block)
+
+    def register_forward_pre_hook(self, hook):
+        """``hook(block, args)`` before each call; returns a handle with
+        ``detach()``."""
+        return _HookHandle(self._mx_forward_pre_hooks, hook)
+
+    def register_forward_hook(self, hook):
+        """``hook(block, args, output)`` after each call; returns a handle
+        with ``detach()``."""
+        return _HookHandle(self._mx_forward_hooks, hook)
+
+    # ---- parameters -------------------------------------------------------
+    def collect_params(self, select=None):
+        """This block's and its children's parameters under the
+        reference's full names and order; ``select`` keeps the names a
+        regex matches."""
+        from . import parameter
+        from .. import convert
+        try:
+            convert.reference_names(self)
+        except TypeError:
+            return self._collect_params_scoped(select)
+        return parameter.collect_params(self, select, prefix=self.prefix)
+
+    def _own_params(self):
+        """``{full name: Parameter}`` of this block alone: its
+        ``params.get`` parameters, then its module tensors under
+        ``prefix + leaf``."""
+        own = OrderedDict(self._params.items())
+        table = getattr(self, "_param_init", {})
+        for leaf, t in self._parameters.items():
+            if t is None:
+                continue
+            p = getattr(t, "_mx_parameter", None)
+            if p is not None and own.get(p.name) is p:
+                continue
+            p = wrap_tensor(t, self.prefix + leaf, table.get(leaf))
+            own[p.name] = p
+        return own
+
+    def _collect_params_scoped(self, select=None):
+        ret = ParameterDict(self._params.prefix)
+        pattern = re.compile(select) if select else None
+        ret.update({n: p for n, p in self._own_params().items()
+                    if pattern is None or pattern.match(n)})
+
+        def visit(module):
+            for child in module.children():
+                if isinstance(child, Block):
+                    ret.update(child.collect_params(select))
+                else:
+                    visit(child)
+        visit(self)
+        return ret
+
+    def _collect_params_with_prefix(self, prefix=""):
+        """``{structural name: Parameter}`` as the reference's
+        ``save_parameters`` names them (attribute paths; the port's models
+        through ``convert.reference_structural_names``)."""
+        from .. import convert
+        try:
+            names = convert.reference_structural_names(self)
+        except TypeError:
+            names = None
+        if names is not None:
+            full = {n: p for n, p in zip(
+                names, self.collect_params().values())}
+            return {prefix + ("." if prefix else "") + names[n]: p
+                    for n, p in full.items()}
+        if prefix:
+            prefix += "."
+        ret = OrderedDict()
+        for leaf, p in self._reg_params.items():
+            ret[prefix + leaf] = p
+        table = getattr(self, "_param_init", {})
+        for leaf, t in self._parameters.items():
+            if t is not None and leaf not in self._reg_params:
+                ret[prefix + leaf] = _param_of(t, self.prefix + leaf,
+                                               table.get(leaf))
+        for name, child in self._modules.items():
+            if isinstance(child, Block):
+                ret.update(child._collect_params_with_prefix(prefix + name))
+            elif child is not None:
+                for sub, t in child.named_parameters():
+                    ret[prefix + name + "." + sub] = _param_of(t, sub)
+        return ret
+
+    def initialize(self, init=None, ctx=None, verbose=False,
+                   force_reinit=False):
+        """Initialize every parameter (``Uniform()`` when ``init`` is
+        None), as the reference: numpy draws in ``collect_params`` order."""
+        from .. import initializer as init_mod
+        if init is None:
+            init = init_mod.Uniform()
+        self.collect_params().initialize(init, ctx, verbose, force_reinit)
+
+    def hybridize(self, active=True, **kwargs):
+        for child in self.children():
+            if isinstance(child, Block):
+                child.hybridize(active, **kwargs)
+            else:
+                for sub in child.modules():
+                    if isinstance(sub, Block):
+                        sub.hybridize(active, **kwargs)
+
+    def _clear_all_cached_ops(self):
+        for m in self.modules():
+            if isinstance(m, HybridBlock):
+                m._clear_cached_op()
+
+    def cast(self, dtype):
+        """Cast every parameter (and its gradient) to ``dtype``."""
+        for p in self.collect_params().values():
+            p.cast(dtype)
+        self._clear_all_cached_ops()
+
+    def save_parameters(self, filename, deduplicate=False):
+        """Write the parameters under the reference's structural names in
+        the reference's ``.params`` bytes."""
+        from ..ndarray.serialization import save_ndarrays
+        params = self._collect_params_with_prefix()
+        save_ndarrays(filename, [p._reduce() for p in params.values()],
+                      list(params))
+
+    def load_parameters(self, filename, ctx=None, allow_missing=False,
+                        ignore_extra=False, cast_dtype=False,
+                        dtype_source="current"):
+        """Read a file written by :meth:`save_parameters` or by the
+        reference's (structural names; a full-name file of
+        ``ParameterDict.save`` too). Values are copied into the tensors in
+        place; the block's CachedOps are cleared."""
+        from ..ndarray.serialization import load_ndarrays
+        arrays, names = load_ndarrays(filename)
+        loaded = dict(zip(names, arrays))
+        params = self._collect_params_with_prefix()
+        if not loaded and not params:
+            return
+        if loaded and not any("." in k for k in loaded) and \
+                not set(loaded) & set(params):
+            self.collect_params().load(filename, ctx, allow_missing,
+                                       ignore_extra, self.prefix)
+            self._clear_all_cached_ops()
+            return
+        if not allow_missing:
+            for name in params:
+                if name not in loaded:
+                    raise AssertionError("Parameter %s is missing in file %s"
+                                         % (name, filename))
+        for name, arr in loaded.items():
+            if name not in params:
+                if not ignore_extra:
+                    raise AssertionError(
+                        "Parameter %s loaded from file %s is not present in "
+                        "this block" % (name, filename))
+                continue
+            load_param_from_array(params[name], arr, ctx)
+        self._clear_all_cached_ops()
+
+    save_params = save_parameters
+    load_params = load_parameters
+
+    # ---- calls ------------------------------------------------------------
+    def __call__(self, *args, **kwargs):
+        for hook in self._mx_forward_pre_hooks.values():
+            hook(self, args)
+        if _has_nd(args, kwargs):
+            out = self._nd_call(*args, **kwargs)
+        else:
+            out = super().__call__(*args, **kwargs)
+        for hook in self._mx_forward_hooks.values():
+            hook(self, args, out)
+        return out
+
+    def _nd_call(self, *args, **kwargs):
+        return self._nd_forward(*args, **kwargs)
+
+    def _nd_forward(self, *args, **kwargs):
+        """One Gluon call with NDArrays: grad mode and the training flag
+        from ``autograd``."""
+        with torch.set_grad_enabled(_tape.is_recording()):
+            if not self._takes_tensors():
+                return self._nd_body(*args, **kwargs)
+            train = _tape.is_training()
+            if self.training != train:
+                self.train(train)
+            out = nn.Module.__call__(
+                self, *[_unwrap(a) for a in args],
+                **{k: _unwrap(v) for k, v in kwargs.items()})
+        return _wrap(out)
+
+    def _takes_tensors(self):
+        """Whether ``forward`` is written on tensors (the port's blocks)
+        rather than on NDArrays (a user's)."""
+        return False
+
+    def _nd_body(self, *args, **kwargs):
+        """A user block's ``forward`` over NDArrays."""
+        return self.forward(*args, **kwargs)
+
+    def forward(self, *args):
+        raise NotImplementedError
+
+
+class HybridBlock(Block):
+    """A block that ``hybridize()`` routes through a CachedOp. A user
+    subclass implements ``hybrid_forward(F, x, *args, **params)``, with
+    the parameters assigned as attributes passed by name."""
+
+    def __init__(self, prefix=None, params=None):
+        super().__init__(prefix=prefix, params=params)
+        self._active = False
+        self._flags = {}
+        self._cached_ops = {}
+
+    def __setattr__(self, name, value):
+        super().__setattr__(name, value)
+        if isinstance(value, HybridBlock):
+            self._clear_cached_op()
+
+    def register_child(self, block, name=None):
+        super().register_child(block, name)
+        self._clear_cached_op()
+
+    def hybridize(self, active=True, static_alloc=False, static_shape=False,
+                  **kwargs):
+        self._active = active
+        self._flags = dict(static_alloc=static_alloc,
+                           static_shape=static_shape, **kwargs)
+        self._clear_cached_op()
+        super().hybridize(active, static_alloc=static_alloc,
+                          static_shape=static_shape, **kwargs)
+
+    def _clear_cached_op(self):
+        self.__dict__["_cached_ops"] = {}
+        self.__dict__["_params_ready"] = False
+
+    def _apply(self, fn, *args, **kwargs):
+        # .to() / .cuda() / .half() give the parameters new storage, which
+        # a captured graph does not follow (an ancestor's or a served
+        # function's CachedOp included)
+        from .. import cached_op
+        self._clear_cached_op()
+        before = [t.data_ptr() for t in self.parameters()]
+        out = super()._apply(fn, *args, **kwargs)
+        if [t.data_ptr() for t in self.parameters()] != before:
+            cached_op.storage_rebound()
+        return out
+
+    def infer_shape(self, *args):
+        """Fill deferred parameter shapes from the inputs' shapes (a user
+        block with unknown dims overrides this)."""
+        raise DeferredInitializationError(
+            "%s has parameters with unresolved shapes and does not implement "
+            "infer_shape" % type(self).__name__)
+
+    def infer_type(self, *args):
+        pass
+
+    def _nd_call(self, *args, **kwargs):
+        if self._active and not kwargs:
+            return self._call_cached_op(*args)
+        return self._nd_forward(*args, **kwargs)
+
+    def _takes_tensors(self):
+        return type(self).hybrid_forward is HybridBlock.hybrid_forward
+
+    def _nd_body(self, *args, **kwargs):
+        return self._hybrid_call(*args, **kwargs)
+
+    def _hybrid_call(self, *args, **kwargs):
+        from .. import ndarray as F
+        ctx = next((a.ctx for a in args if isinstance(a, NDArray)), None)
+        try:
+            params = {n: p.data(ctx) for n, p in self._reg_params.items()}
+        except DeferredInitializationError:
+            self.infer_shape(*args)
+            for p in self._reg_params.values():
+                p._finish_deferred_init()
+            params = {n: p.data(ctx) for n, p in self._reg_params.items()}
+        return self.hybrid_forward(F, *args, **kwargs, **params)
+
+    def forward(self, *args):
+        """A torch-tensor call of a ``hybrid_forward`` block."""
+        if self._takes_tensors():
+            raise NotImplementedError
+        return _unwrap_out(self._hybrid_call(*[_wrap(a) for a in args]))
+
+    def _call_cached_op(self, *args):
+        from ..cached_op import CachedOp
+        if not self.__dict__.get("_params_ready"):
+            if any(p._deferred_init for p in self.collect_params().values()):
+                return self._nd_forward(*args)  # finishes the shapes
+            self.__dict__["_params_ready"] = True
+        slots = tuple(i for i, a in enumerate(args)
+                      if isinstance(a, NDArray))
+        consts = tuple((i, a) for i, a in enumerate(args)
+                       if not isinstance(a, NDArray))
+        key = (len(args), consts)
+        op = self._cached_ops.get(key)
+        if op is None:
+            def fn(*nds, _n=len(args), _consts=dict(consts), _slots=slots):
+                full = [_consts.get(i) for i in range(_n)]
+                for i, v in zip(_slots, nds):
+                    full[i] = v
+                return self._nd_forward(*full)
+            op = CachedOp(fn, name=self.name or "CachedOp",
+                          **{k: v for k, v in self._flags.items()
+                             if k in ("static_alloc", "static_shape",
+                                      "inline_limit", "forward_bulk_size",
+                                      "backward_bulk_size")})
+            self._cached_ops[key] = op
+        return op(*[args[i] for i in slots])
+
+    def hybrid_forward(self, F, x, *args, **kwargs):
+        raise NotImplementedError

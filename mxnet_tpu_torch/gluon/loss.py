@@ -1,4 +1,6 @@
-"""Losses: counterpart of ``mxnet_tpu/gluon/loss.py``, as ``nn.Module``s.
+"""Losses: counterpart of ``mxnet_tpu/gluon/loss.py``, as ``HybridBlock``s
+(``nn.Module``s whose forward takes tensors; a call with NDArrays returns
+an NDArray, see ``gluon.block``).
 
 ``L2Loss``, ``L1Loss``, ``SigmoidBinaryCrossEntropyLoss`` (``from_sigmoid``
 and ``pos_weight``), ``SoftmaxCrossEntropyLoss`` (sparse or dense labels),
@@ -18,10 +20,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 import torch.nn.functional as F
-from torch import nn
 
 from ..ops import ctc as _ctc
 from ..ops import nn as _ops
+from .block import HybridBlock
 
 __all__ = ["Loss", "L2Loss", "L1Loss", "SigmoidBinaryCrossEntropyLoss",
            "SigmoidBCELoss", "SoftmaxCrossEntropyLoss", "SoftmaxCELoss",
@@ -51,7 +53,7 @@ def _softrelu(x):
     return torch.logaddexp(x, torch.zeros_like(x))
 
 
-class Loss(nn.Module):
+class Loss(HybridBlock):
     """Base loss: a scalar ``weight`` and the ``batch_axis`` kept by the
     mean."""
 

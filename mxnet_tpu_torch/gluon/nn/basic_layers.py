@@ -1,6 +1,8 @@
 """Basic layers: ``Dense``, ``Dropout``, ``Embedding``, ``LayerNorm``.
 
-Counterparts of ``mxnet_tpu/gluon/nn/basic_layers.py``, as ``nn.Module``s.
+Counterparts of ``mxnet_tpu/gluon/nn/basic_layers.py``, as
+``HybridBlock``s (so ``nn.Module``s) whose ``forward`` takes tensors; a
+call with NDArrays goes through ``gluon.Block.__call__``.
 Parameters keep Gluon's leaf names and shapes (``weight`` ``(out, in)``,
 ``bias``, ``gamma``, ``beta``), so a state dict maps one to one onto the
 reference's ``collect_params()`` (see ``mxnet_tpu_torch/convert.py``).
@@ -15,6 +17,7 @@ from torch import nn
 
 from ...context import default_device
 from ...ops import nn as _ops
+from ..block import HybridBlock
 
 __all__ = ["Dense", "Dropout", "Embedding", "LayerNorm"]
 
@@ -31,7 +34,7 @@ def _xavier_(w):
         w.uniform_(-bound, bound)
 
 
-class Dense(nn.Module):
+class Dense(HybridBlock):
     """Fully-connected layer: ``weight (units, in_units)``, optional
     ``bias (units,)``. With ``flatten`` the input is flattened to
     ``(batch, -1)``; without, the last axis is contracted."""
@@ -60,7 +63,7 @@ class Dense(nn.Module):
                                    flatten=self._flatten)
 
 
-class Dropout(nn.Module):
+class Dropout(HybridBlock):
     """Dropout of ``rate`` (mask size 1 on ``axes``): in training mode the
     lowbias32 ``Dropout`` op with a fresh key from
     :func:`~mxnet_tpu_torch.random.next_key`; the identity otherwise."""
@@ -113,7 +116,7 @@ class _Lookup(torch.autograd.Function):
         return None, acc.to(grad.dtype)
 
 
-class Embedding(nn.Module):
+class Embedding(HybridBlock):
     """Embedding lookup: ``weight (input_dim, output_dim)``; integer ids
     of any integer dtype. The weight gradient is the same, bit for bit,
     in every run (:class:`_Lookup`)."""
@@ -134,7 +137,7 @@ class Embedding(nn.Module):
         return _Lookup.apply(x.long(), self.weight)
 
 
-class LayerNorm(nn.Module):
+class LayerNorm(HybridBlock):
     """Layer norm over ``axis`` with ``gamma``/``beta`` of
     ``(in_channels,)``, eps 1e-5."""
 

@@ -1,27 +1,36 @@
-"""Parameters: the part of ``mxnet_tpu/gluon/parameter.py`` that the
-trainer, the optimizers and ``initialize`` read.
+"""Parameters: counterpart of ``mxnet_tpu/gluon/parameter.py``.
 
-The port's layers are ``nn.Module``s that hold ``nn.Parameter``s. A
-:class:`Parameter` wraps one of them and shares its storage: ``data()`` is
-the module's own tensor, so an update through the wrapper is an update of
-the module. :func:`collect_params` gives a model's parameters as a
-:class:`ParameterDict` under the reference's full names and in the
-reference's registration order, each with the reference layer's ``init``
-default (``Dense``: weight None, bias ``"zeros"``; ``LayerNorm``: gamma
-``"ones"``, beta ``"zeros"``; ``Embedding``: weight None). So, after the
-same seed, ``collect_params(net).initialize(Xavier())`` draws the
-reference's ``net.initialize(mx.init.Xavier())`` values bit for bit.
+A :class:`Parameter` holds torch tensors, one per context; the first is a
+``torch.nn.Parameter`` registered on the block that owns the parameter, so
+``named_parameters``, ``state_dict`` and ``.to()`` see it. There are two
+ways to get one:
+
+- the reference's: ``block.params.get("weight", shape=..., init=...)``
+  (a user ``HybridBlock``), with deferred initialization (a 0 in the shape
+  until :meth:`HybridBlock.infer_shape` fills it at the first call) and
+  per-context copies (``initialize(ctx=[...])``, ``list_data``,
+  ``list_grad``, ``reset_ctx``);
+- wrapping a module's own ``nn.Parameter``: :func:`collect_params` gives a
+  model's parameters as a :class:`ParameterDict` under the reference's
+  full names and in the reference's registration order, each with the
+  reference layer's ``init`` default (``Dense``: weight None, bias
+  ``"zeros"``; ``LayerNorm``: gamma ``"ones"``, beta ``"zeros"``;
+  ``Embedding``: weight None). So, after the same seed,
+  ``collect_params(net).initialize(Xavier())`` draws the reference's
+  ``net.initialize(mx.init.Xavier())`` values bit for bit.
+
+``data()`` and ``grad()`` return NDArrays bound to the tensor and its
+gradient: writing through them writes the module's own tensor. The
+trainer and the optimizers read the tensors themselves
+(:meth:`Parameter.tensor`, :meth:`Parameter.grad_tensor`).
 
 ``grad_req`` keeps the reference's meaning on top of torch's accumulating
-``.grad``: ``"write"`` leaves each backward pass's own gradient (a tensor
-hook keeps the pass's gradient aside, and a post-accumulate hook puts it
-in place of the sum), ``"add"`` sums the passes, ``"null"`` turns
-``requires_grad`` off. An initialized
-parameter with a gradient holds a zero one until the first backward, as
-the reference's ``attach_grad`` does.
-
-Deferred shapes, per-context copies, ``Constant``, ``cast`` and
-``Block`` are not ported (ROADMAP Queue A item 5).
+``.grad`` (``_tape.hook_grad_req``): ``"write"`` leaves each backward
+pass's own gradient, ``"add"`` sums the passes, ``"null"`` turns
+``requires_grad`` off. An initialized parameter with a gradient holds a
+zero one until the first backward, as the reference's ``attach_grad``
+does. ``cast`` changes the tensors' dtype in place of their storage (the
+``nn.Parameter`` objects stay), as ``Module.to`` does.
 """
 from __future__ import annotations
 
@@ -32,33 +41,74 @@ from collections import OrderedDict
 import numpy as np
 import torch
 
+from .. import _tape
+from .. import cached_op
 from .. import initializer as init_mod
+from ..base import MXNetError, dtype_name, torch_dtype
+from ..context import Context, current_context
+from ..ndarray.ndarray import NDArray
 from ..ndarray.serialization import load_ndarrays, save_ndarrays
 
-__all__ = ["Parameter", "ParameterDict", "collect_params"]
+__all__ = ["DeferredInitializationError", "Parameter", "Constant",
+           "ParameterDict", "collect_params", "tensor_types"]
+
+tensor_types = (NDArray,)
+
+
+class DeferredInitializationError(MXNetError):
+    """Parameter accessed before its shape is known."""
+
+
+def _shape_complete(shape):
+    return shape is not None and all(s > 0 for s in shape)
+
+
+def _contexts(ctx):
+    if ctx is None:
+        return [current_context()]
+    if isinstance(ctx, (list, tuple)):
+        return [c if isinstance(c, Context) else Context.from_device(c)
+                for c in ctx]
+    return [ctx if isinstance(ctx, Context) else Context.from_device(ctx)]
 
 
 class Parameter:
-    """One trainable tensor of a port module under a reference name.
+    """A trainable parameter: construct (shape dims may be 0 with
+    ``allow_deferred_init``), ``initialize()``, then ``data()`` and
+    ``grad()``."""
 
-    ``data`` is the ``nn.Parameter`` (or any leaf tensor) it wraps;
-    ``shape`` and ``dtype`` are the tensor's. Use :func:`collect_params`
-    rather than this constructor: it keeps one wrapper per tensor, so that
-    ``grad_req``, ``lr_mult``, ``wd_mult`` and the initialized state set
-    through one ``ParameterDict`` hold in the next."""
-
-    def __init__(self, name, data, grad_req="write", lr_mult=1.0,
-                 wd_mult=1.0, init=None):
+    def __init__(self, name, grad_req="write", shape=None, dtype="float32",
+                 lr_mult=1.0, wd_mult=1.0, init=None,
+                 allow_deferred_init=False, differentiable=True,
+                 stype="default", grad_stype="default"):
         self.name = name
-        self._data = data
+        self._tensors = None
+        self._ctx_list = None
+        self._deferred_init = ()
+        self._shape = (shape,) if isinstance(shape, int) else (
+            None if shape is None else tuple(shape))
+        self._dtype = dtype_name(dtype)
         self.lr_mult = lr_mult
         self.wd_mult = wd_mult
         self.init = init
+        self.allow_deferred_init = allow_deferred_init
+        self._differentiable = differentiable
         self._initialized = False
+        self._owners = []
+        self._pass_grad = {}
         self._grad_req = None
-        self._hooked = False
-        self._pass_grad = None
-        self.grad_req = grad_req
+        self.grad_req = grad_req if differentiable else "null"
+
+    @classmethod
+    def _wrap(cls, name, tensor, init=None):
+        """A parameter over a module's own tensor (not yet
+        ``initialize``\\ d: its values are the module's)."""
+        p = cls(name, shape=tuple(tensor.shape), dtype=tensor.dtype,
+                init=init, grad_req="null")
+        p._tensors = [tensor]
+        p._ctx_list = [Context.from_device(tensor.device)]
+        p.grad_req = "write"
+        return p
 
     def __repr__(self):
         return "Parameter %s (shape=%s, dtype=%s)" % (self.name, self.shape,
@@ -66,18 +116,29 @@ class Parameter:
 
     @property
     def shape(self):
-        return tuple(self._data.shape)
+        if self._tensors is not None:
+            return tuple(self._tensors[0].shape)
+        return self._shape
 
     @shape.setter
     def shape(self, new_shape):
-        if tuple(new_shape) != self.shape:
+        new_shape = tuple(new_shape)
+        cur = self.shape
+        if cur is None:
+            self._shape = new_shape
+            return
+        if len(cur) != len(new_shape) or not all(
+                a in (0, b) for a, b in zip(cur, new_shape)):
             raise AssertionError(
                 "expected shape %s is incompatible with given shape %s for "
-                "parameter %s" % (self.shape, tuple(new_shape), self.name))
+                "parameter %s" % (cur, new_shape, self.name))
+        self._shape = new_shape
 
     @property
     def dtype(self):
-        return self._data.dtype
+        if self._tensors is not None:
+            return self._tensors[0].dtype
+        return torch_dtype(self._dtype)
 
     # ---- grad_req ---------------------------------------------------------
     @property
@@ -88,122 +149,272 @@ class Parameter:
     def grad_req(self, req):
         if req not in ("write", "add", "null"):
             raise ValueError("invalid grad_req %r" % req)
-        if req == self._grad_req:
-            return
+        if not self._differentiable:
+            req = "null"
         self._grad_req = req
-        if req == "null":
-            self._data.requires_grad_(False)
-            self._data.grad = None
+        for t in self._tensors or ():
+            self._apply_grad_req(t)
+
+    def _apply_grad_req(self, t):
+        if self._grad_req == "null":
+            t.requires_grad_(False)
+            t.grad = None
             return
-        self._data.requires_grad_(True)
-        if not self._hooked:
-            # torch adds each pass into .grad; under "write" the pass's own
-            # gradient is kept aside before and put back after the add.
-            # Weak references: the tensor holds the hooks and the wrapper.
-            ref = weakref.ref(self)
-            self._data.register_hook(lambda g: _keep_pass_grad(ref, g))
-            self._data.register_post_accumulate_grad_hook(
-                lambda t: _write_pass_grad(ref, t))
-            self._hooked = True
-        if self._initialized and self._data.grad is None:
-            self._data.grad = torch.zeros_like(self._data)
+        t.requires_grad_(True)
+        _tape.hook_grad_req(t, self)
+        if self._initialized and t.grad is None:
+            t.grad = torch.zeros_like(t)
 
     # ---- init -------------------------------------------------------------
     def initialize(self, init=None, ctx=None, default_init=None,
                    force_reinit=False):
-        """Fill the tensor with ``init`` (else this parameter's own
-        ``init``, else ``default_init``, else ``Uniform()``), drawn on the
-        host with numpy under the parameter's name, as the reference does.
-        A second call does nothing unless ``force_reinit``. ``ctx`` may name
-        the tensor's own device only (per-context copies are not
-        ported)."""
+        """Fill the parameter with ``init`` (else its own ``init``, else
+        ``default_init``, else ``Uniform()``), drawn on the host with numpy
+        under the parameter's name, as the reference does. A second call
+        does nothing unless ``force_reinit``. A wrapped module tensor stays
+        on its own device (``ctx`` may only name it); otherwise ``ctx`` (a
+        context or a list, the current context when None) places the
+        copies. With unknown dims and ``allow_deferred_init`` the draw
+        waits for the shape."""
         if default_init is None:
             default_init = init_mod.Uniform()
         if self._initialized and not force_reinit:
             return
-        self._check_ctx(ctx)
         if init is None:
             init = default_init if self.init is None else self.init
         if isinstance(init, str):
             init = init_mod.create(init)
-        init(init_mod.InitDesc(self.name), self._data)
-        self._initialized = True
-        if self._grad_req != "null":
-            self._data.grad = torch.zeros_like(self._data)
+        if self._tensors is not None and not self._deferred_init:
+            self._check_ctx(ctx)
+            for t in self._tensors:
+                init(init_mod.InitDesc(self.name), t)
+            self._initialized = True
+            self.grad_req = self._grad_req
+            return
+        ctx = _contexts(ctx)
+        self._deferred_init = (init, ctx, None)
+        if not _shape_complete(self._shape):
+            if self.allow_deferred_init:
+                return
+            self._deferred_init = ()
+            raise ValueError(
+                "Cannot initialize Parameter %s because it has invalid "
+                "shape %s; set allow_deferred_init or complete the shape"
+                % (self.name, self._shape))
+        self._finish_deferred_init()
 
-    def _check_ctx(self, ctx):
-        own = self._data.device
-        for c in ([] if ctx is None else
-                  ctx if isinstance(ctx, (list, tuple)) else [ctx]):
-            c = torch.device(c)
-            if c.type != own.type or c.index not in (None, own.index):
-                raise RuntimeError(
-                    "Parameter %s lives on %s, not %s: per-context copies "
-                    "are not ported" % (self.name, own, c))
+    def _finish_deferred_init(self):
+        if not self._deferred_init:
+            return
+        init, ctx, data = self._deferred_init
+        if not _shape_complete(self._shape):
+            raise DeferredInitializationError(
+                "deferred init of %s failed: shape %s still unknown"
+                % (self.name, self._shape))
+        self._deferred_init = ()
+        if data is None:
+            data = torch.zeros(self._shape, dtype=torch_dtype(self._dtype))
+            init(init_mod.InitDesc(self.name), data)
+        self._init_impl(data, ctx)
+
+    def _init_impl(self, data, ctx_list):
+        """Own copies of ``data`` on each context; the first is registered
+        on the owning blocks."""
+        if self._tensors is not None:
+            cached_op.storage_rebound()
+        self._ctx_list = list(ctx_list)
+        data = data._data if isinstance(data, NDArray) else \
+            torch.as_tensor(np.asarray(data)) \
+            if not isinstance(data, torch.Tensor) else data
+        self._tensors = [
+            torch.nn.Parameter(data.detach().to(
+                device=c.torch_device, dtype=torch_dtype(self._dtype),
+                copy=True), requires_grad=False)
+            for c in self._ctx_list]
+        for t in self._tensors:
+            t._mx_parameter = self
+        self._initialized = True
+        for ref, leaf in self._owners:
+            block = ref()
+            if block is not None:
+                block._parameters[leaf] = self._tensors[0]
+        self.grad_req = self._grad_req
+
+    def _attach(self, block, leaf):
+        """Register this parameter's tensor on ``block`` under ``leaf``
+        (now, or when it is initialized)."""
+        self._owners.append((weakref.ref(block), leaf))
+        # an uninitialized parameter keeps its place in the module's order
+        block._parameters[leaf] = None if self._tensors is None \
+            else self._tensors[0]
 
     # ---- accessors --------------------------------------------------------
-    def data(self, ctx=None):
-        """The wrapped tensor (the module's own)."""
-        self._check_ctx(ctx)
-        return self._data
+    def _check_init(self):
+        if self._tensors is None:
+            if self._deferred_init:
+                raise DeferredInitializationError(
+                    "Parameter %s deferred initialization not complete"
+                    % self.name)
+            raise RuntimeError(
+                "Parameter %s has not been initialized. Call .initialize() "
+                "first" % self.name)
 
-    def list_data(self):
-        return [self._data]
+    def _check_ctx(self, ctx):
+        if ctx is None or self._tensors is None:
+            return
+        for c in _contexts(ctx):
+            if c not in self._ctx_list:
+                raise RuntimeError(
+                    "Parameter %s is on %s, not %s: per-context copies of a "
+                    "module's tensor are not made" % (self.name,
+                                                      self._ctx_list, c))
 
-    def grad(self, ctx=None):
+    def _index(self, ctx):
+        self._check_init()
+        if ctx is None:
+            return 0
+        ctx = _contexts(ctx)[0]
+        for i, c in enumerate(self._ctx_list):
+            if c == ctx:
+                return i
+        raise RuntimeError("Parameter %s not initialized on context %s "
+                           "(has %s)" % (self.name, ctx, self._ctx_list))
+
+    def tensor(self, ctx=None):
+        """The parameter's tensor on ``ctx`` (the first copy when None)."""
+        return self._tensors[self._index(ctx)]
+
+    def grad_tensor(self, ctx=None):
         """The tensor's gradient (zeros before the first backward)."""
-        self._check_ctx(ctx)
         if self._grad_req == "null":
             raise RuntimeError("Parameter %s grad_req='null'" % self.name)
-        if self._data.grad is None:
-            self._data.grad = torch.zeros_like(self._data)
-        return self._data.grad
+        t = self.tensor(ctx)
+        if t.grad is None:
+            t.grad = torch.zeros_like(t)
+        return t.grad
+
+    def data(self, ctx=None):
+        """An NDArray bound to the parameter's tensor on ``ctx``."""
+        return NDArray._bind(self.tensor(ctx))
+
+    def list_data(self):
+        self._check_init()
+        return [NDArray._bind(t) for t in self._tensors]
+
+    def grad(self, ctx=None):
+        """An NDArray bound to the gradient on ``ctx``."""
+        return NDArray._bind(self.grad_tensor(ctx))
 
     def list_grad(self):
-        return [self.grad()]
+        self._check_init()
+        return [self.grad(c) for c in self._ctx_list]
 
     def list_ctx(self):
-        return [self._data.device]
+        if self._tensors is None and self._deferred_init:
+            return list(self._deferred_init[1])
+        self._check_init()
+        return list(self._ctx_list)
 
     def zero_grad(self):
-        if self._grad_req != "null" and self._data.grad is not None:
-            self._data.grad.zero_()
+        if self._grad_req == "null" or self._tensors is None:
+            return
+        for t in self._tensors:
+            if t.grad is not None:
+                t.grad.zero_()
 
     def set_data(self, data):
-        """Copy ``data`` (a tensor or an array of this shape) into the
-        tensor, in its dtype and on its device."""
+        """Copy ``data`` (an NDArray, tensor or array of this shape) into
+        every copy, in its dtype and on its device."""
         self.shape = tuple(data.shape)
-        if not isinstance(data, torch.Tensor):
+        if isinstance(data, NDArray):
+            data = data._data
+        elif not isinstance(data, torch.Tensor):
             data = torch.from_numpy(np.ascontiguousarray(data))
+        if self._tensors is None:
+            if not self._deferred_init:
+                raise RuntimeError("set_data on uninitialized Parameter %s"
+                                   % self.name)
+            init, ctx, _ = self._deferred_init
+            self._deferred_init = (init, ctx, data)
+            return
         with torch.no_grad():
-            self._data.copy_(data)
+            for t in self._tensors:
+                t.copy_(data)
+        self._initialized = True
+
+    def reset_ctx(self, ctx):
+        """Move the copies onto ``ctx`` (a context or a list)."""
+        ctx = _contexts(ctx)
+        if self._tensors is None:
+            if self._deferred_init:
+                init, _, data = self._deferred_init
+                self._deferred_init = (init, ctx, data)
+            return
+        if len(ctx) == 1 and len(self._tensors) == 1:
+            t = self._tensors[0]
+            ptr = t.data_ptr()
+            with torch.no_grad():
+                t.data = t.data.to(ctx[0].torch_device)
+                if t.grad is not None:
+                    t.grad = t.grad.to(ctx[0].torch_device)
+            self._ctx_list = ctx
+            if t.data_ptr() != ptr:
+                cached_op.storage_rebound()
+            return
+        self._init_impl(self._reduce(), ctx)
+
+    def _reduce(self):
+        """The copies' mean, on the CPU."""
+        self._check_init()
+        acc = sum(t.detach().float().cpu() for t in self._tensors) \
+            / len(self._tensors) if len(self._tensors) > 1 else \
+            self._tensors[0].detach().cpu()
+        return acc.to(self.dtype)
+
+    def cast(self, dtype):
+        """Cast every copy (and its gradient) to ``dtype``."""
+        self._dtype = dtype_name(dtype)
+        for t in self._tensors or ():
+            ptr = t.data_ptr()
+            with torch.no_grad():
+                t.data = t.data.to(torch_dtype(dtype))
+                if t.grad is not None:
+                    t.grad = t.grad.to(torch_dtype(dtype))
+            if t.data_ptr() != ptr:
+                cached_op.storage_rebound()
 
 
-def _keep_pass_grad(ref, grad):
-    param = ref()
-    if param is not None and param._grad_req == "write":
-        param._pass_grad = grad
+class Constant(Parameter):
+    """A parameter that holds a constant and takes no gradient."""
 
+    def __init__(self, name, value):
+        if isinstance(value, NDArray):
+            value = value.asnumpy()
+        value = np.asarray(value)
+        if value.dtype == np.float64:     # as nd.array takes it
+            value = value.astype(np.float32)
+        self.value = value
 
-def _write_pass_grad(ref, tensor):
-    """After torch's accumulation: under ``grad_req="write"`` the
-    gradient is this pass's alone, as in the reference."""
-    param = ref()
-    if param is not None and param._pass_grad is not None:
-        if param._grad_req == "write":
-            tensor.grad = param._pass_grad
-        param._pass_grad = None
+        class _CInit(init_mod.Initializer):
+            def _init_weight(self_i, _, arr):
+                arr[:] = value
+
+        super().__init__(name, grad_req="null", shape=value.shape,
+                         dtype=value.dtype, init=_CInit(),
+                         differentiable=False)
 
 
 class ParameterDict:
-    """Ordered dictionary of :class:`Parameter` by full name, with the
-    reference's ``initialize``, ``zero_grad``, ``setattr`` and
-    ``save``/``load`` (``.params`` files through
+    """Ordered dictionary of :class:`Parameter` by full name with a
+    prefix, as the reference's: ``get``/``get_constant`` create under
+    ``prefix + name``; ``initialize``, ``zero_grad``, ``setattr``,
+    ``reset_ctx`` and ``save``/``load`` (``.params`` files through
     :mod:`mxnet_tpu_torch.ndarray.serialization`)."""
 
-    def __init__(self, prefix=""):
+    def __init__(self, prefix="", shared=None):
         self._prefix = prefix
         self._params = OrderedDict()
+        self._shared = shared
 
     def __repr__(self):
         s = "\n".join(repr(v) for v in self.values())
@@ -234,6 +445,41 @@ class ParameterDict:
     def prefix(self):
         return self._prefix
 
+    def _get_impl(self, name):
+        if name in self._params:
+            return self._params[name]
+        if self._shared is not None and name in self._shared._params:
+            self._params[name] = self._shared._params[name]
+            return self._params[name]
+        return None
+
+    def get(self, name, **kwargs):
+        """The parameter ``prefix + name``, created with ``kwargs`` when
+        it does not exist (a partially known shape merges)."""
+        name = self._prefix + name
+        param = self._get_impl(name)
+        if param is None:
+            param = Parameter(name, **kwargs)
+            self._params[name] = param
+            return param
+        shape = kwargs.pop("shape", None)
+        if shape is not None:
+            param.shape = (shape,) if isinstance(shape, int) else shape
+        for k, v in kwargs.items():
+            if getattr(param, k, None) is None:
+                setattr(param, k, v)
+        return param
+
+    def get_constant(self, name, value=None):
+        name = self._prefix + name
+        param = self._get_impl(name)
+        if param is None:
+            if value is None:
+                raise KeyError("no constant named %s" % name)
+            param = Constant(name, value)
+            self._params[name] = param
+        return param
+
     def update(self, other):
         for k, v in other.items():
             if k in self._params and self._params[k] is not v:
@@ -252,6 +498,10 @@ class ParameterDict:
     def zero_grad(self):
         for v in self.values():
             v.zero_grad()
+
+    def reset_ctx(self, ctx):
+        for v in self.values():
+            v.reset_ctx(ctx)
 
     def list_ctx(self):
         out = []
@@ -273,7 +523,7 @@ class ParameterDict:
                                  "%s does not start with it"
                                  % (strip_prefix, param.name))
             names.append(param.name[len(strip_prefix):])
-            arrays.append(param.data())
+            arrays.append(param._reduce())
         save_ndarrays(filename, arrays, names)
 
     def load(self, filename, ctx=None, allow_missing=False,
@@ -294,10 +544,20 @@ class ParameterDict:
                         "Parameter %s in file %s is not in ParameterDict"
                         % (name, filename))
                 continue
-            param = self._params[name]
-            param._check_ctx(ctx)
-            param.set_data(v)
-            param._initialized = True
+            load_param_from_array(self._params[name], v, ctx)
+
+
+def load_param_from_array(param, arr, ctx=None):
+    """Adopt a loaded array into a parameter: take its shape, initialize
+    it where needed, and copy the values in."""
+    param.shape = arr.shape
+    if param._tensors is None and not param._deferred_init:
+        param.initialize(ctx=ctx)
+    if param._tensors is not None:
+        param._check_ctx(ctx)
+    param.set_data(arr)
+    if param._deferred_init:
+        param._finish_deferred_init()
 
 
 def collect_params(model, select=None, prefix=None):
@@ -306,17 +566,22 @@ def collect_params(model, select=None, prefix=None):
     A ``TransformerLM``, ``BERTModel`` or ``PretrainStep`` takes the
     reference's full names (``convert.reference_names``; ``prefix``
     defaults to ``transformerlm0_``, ``bertmodel0_`` or
-    ``pretrainstep0_bertmodel0_``); any other module its parameter names
-    with ``.`` as ``_`` after ``prefix`` (default ``""``). The order is
-    ``named_parameters()``'s, which is the reference's registration order
-    for those models. ``select`` keeps the names a regex matches from
-    their start, as the reference's ``collect_params(select)``. Each
-    tensor keeps one :class:`Parameter` across calls."""
+    ``pretrainstep0_bertmodel0_``). Any other ``gluon.Block`` gives the
+    reference's names through its name scopes
+    (:meth:`gluon.Block.collect_params`), and any other module its
+    parameter names with ``.`` as ``_`` after ``prefix`` (default
+    ``""``). The order is the reference's registration order. ``select``
+    keeps the names a regex matches from their start, as the reference's
+    ``collect_params(select)``. Each tensor keeps one :class:`Parameter`
+    across calls."""
     from .. import convert
+    from .block import Block
 
     try:
         names = convert.reference_names(model, prefix)
     except TypeError:                   # no reference name map
+        if isinstance(model, Block) and prefix is None:
+            return model._collect_params_scoped(select)
         names = {n: (prefix or "") + n.replace(".", "_")
                  for n, _ in model.named_parameters()}
     defaults = {}
@@ -331,10 +596,17 @@ def collect_params(model, select=None, prefix=None):
         name = names[port_name]
         if pattern is not None and not pattern.match(name):
             continue
-        param = getattr(tensor, "_mx_parameter", None)
-        if param is None:
-            param = Parameter(name, tensor, init=defaults.get(port_name))
-            tensor._mx_parameter = param
-        param.name = name
+        param = wrap_tensor(tensor, name, defaults.get(port_name))
         out._params[name] = param
     return out
+
+
+def wrap_tensor(tensor, name, init=None):
+    """The :class:`Parameter` of a module's tensor (one per tensor, kept on
+    it), named ``name``."""
+    param = getattr(tensor, "_mx_parameter", None)
+    if param is None:
+        param = Parameter._wrap(name, tensor, init=init)
+        tensor._mx_parameter = param
+    param.name = name
+    return param

@@ -125,9 +125,8 @@ class Trainer:
         for i, param in enumerate(self._params):
             if param.grad_req == "null":
                 continue
-            for upd, arr, grad in zip(self._updaters, param.list_data(),
-                                      param.list_grad()):
-                upd(i, grad, arr)
+            for upd, ctx in zip(self._updaters, param.list_ctx()):
+                upd(i, param.grad_tensor(ctx), param.tensor(ctx))
 
     def save_states(self, fname):
         """Write the optimizer's states and the optimizer (pickled)."""

@@ -48,8 +48,9 @@ def split_and_load(data, ctx_list, batch_axis=0, even_split=True):
 
 
 def clip_global_norm(arrays, max_norm, check_isfinite=True):
-    """Scale ``arrays`` in place so that their global 2-norm is at most
-    ``max_norm``; returns the norm before scaling (a Python float).
+    """Scale ``arrays`` (tensors, or NDArrays such as ``Parameter.grad()``
+    whose tensors are scaled) in place so that their global 2-norm is at
+    most ``max_norm``; returns the norm before scaling (a Python float).
 
     As the reference: each array's sum of squares in its dtype, summed on
     the host as Python floats, a host ``sqrt``, a warning when the norm is
@@ -57,6 +58,7 @@ def clip_global_norm(arrays, max_norm, check_isfinite=True):
     1. The per-array sums come to the host in one transfer."""
     if not arrays:
         raise ValueError("clip_global_norm: no arrays")
+    arrays = [getattr(a, "_data", a) for a in arrays]
     sums = torch.stack([(a.reshape(-1) * a.reshape(-1)).sum().double()
                         for a in arrays]).tolist()
     total_norm = sum(sums)

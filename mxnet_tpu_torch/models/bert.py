@@ -20,6 +20,7 @@ import torch
 from torch import nn
 
 from ..context import default_device
+from ..gluon.block import HybridBlock
 from ..gluon.nn import Dense, Dropout, Embedding, LayerNorm
 from ..ops import nn as _ops
 from .transformer import MultiHeadAttention
@@ -54,7 +55,7 @@ class _MaskedAttention(MultiHeadAttention):
         return self.forward_kv(x, mask)[0]
 
 
-class _BERTLayer(nn.Module):
+class _BERTLayer(HybridBlock):
     """Post-norm encoder block (BERT convention: residual -> LayerNorm)."""
 
     def __init__(self, units, num_heads, hidden_size, dropout=0.0,
@@ -74,7 +75,7 @@ class _BERTLayer(nn.Module):
         return self.ln2(x + self.dropout(self.ffn_down(h)))
 
 
-class BERTEncoder(nn.Module):
+class BERTEncoder(HybridBlock):
     """Token + segment + learned-position embeddings -> N encoder blocks.
 
     A ``valid_len (B,)`` becomes the ``(B, 1, 1, T)`` keep mask: every
@@ -109,7 +110,7 @@ class BERTEncoder(nn.Module):
         return x
 
 
-class BERTModel(nn.Module):
+class BERTModel(HybridBlock):
     """Encoder + pooler + MLM decoder + NSP classifier (pretraining heads).
 
     Forward returns ``(sequence_output, pooled, mlm_logits, nsp_logits)``.
@@ -151,7 +152,7 @@ class BERTModel(nn.Module):
         return seq, pooled, mlm_logits, self.nsp(pooled)
 
 
-class BERTPretrainingLoss(nn.Module):
+class BERTPretrainingLoss(HybridBlock):
     """Masked-LM + next-sentence loss, op for op as the reference in the
     logits' dtype. ``mlm_positions (B, M)`` selects the masked slots;
     ``mlm_weights`` zeroes padding in M.

@@ -2,7 +2,8 @@
 
 Counterpart of ``mxnet_tpu/models/transformer.py``: ``MultiHeadAttention``,
 ``TransformerEncoderLayer`` and ``TransformerLM`` as ``nn.Module``s with
-the same parameter structure (``qkv``/``proj``/``ffn_up``/``ffn_down``,
+the same parameter structure (``HybridBlock``s with forwards on
+tensors; see ``gluon.block``) (``qkv``/``proj``/``ffn_up``/``ffn_down``,
 pre-norm blocks) and the same incremental-decode contract: ``forward``,
 ``forward_kv``, ``prefill``, ``init_cache``, ``step`` and the multi-token
 ``prefill_chunk`` (``step_chunk`` in the layers) behind chunked prefill,
@@ -26,6 +27,7 @@ from torch import nn
 
 from .. import random as _random
 from ..context import default_device
+from ..gluon.block import HybridBlock
 from ..gluon.nn import Dense, Dropout, Embedding, LayerNorm
 from ..ops import generation_ops as _gen
 from ..ops import nn as _ops
@@ -35,7 +37,8 @@ __all__ = ["MultiHeadAttention", "TransformerEncoderLayer", "TransformerLM",
            "transformer_lm_base"]
 
 
-class MultiHeadAttention(nn.Module):
+class MultiHeadAttention(HybridBlock):
+
     def __init__(self, units, num_heads, dropout=0.0, causal=True,
                  device=None, dtype=torch.float32):
         super().__init__()
@@ -120,7 +123,7 @@ class MultiHeadAttention(nn.Module):
         return self.proj(out.reshape(B, C, self._units)), k_cache, v_cache
 
 
-class TransformerEncoderLayer(nn.Module):
+class TransformerEncoderLayer(HybridBlock):
     """Pre-norm block (attention + MLP)."""
 
     def __init__(self, units, num_heads, hidden_size, dropout=0.0,
@@ -158,7 +161,7 @@ class TransformerEncoderLayer(nn.Module):
         return self._ffn(x + self.dropout(a)), k_cache, v_cache
 
 
-class TransformerLM(nn.Module):
+class TransformerLM(HybridBlock):
     """Decoder-only LM: embed -> N blocks -> norm -> logits.
 
     Built on ``device`` (CUDA when None; raises without one) in

@@ -1,5 +1,24 @@
-"""NDArray files (counterpart of ``mxnet_tpu.ndarray``): the ``.params`` /
-``.nd`` binary container only."""
+"""The ``nd`` namespace (counterpart of ``mxnet_tpu.ndarray``):
+:class:`NDArray`, its constructors, ``save``/``load`` over the
+``.params`` container (:mod:`.serialization`), and every registered op,
+generated from the registry as the reference generates its namespace."""
+from .. import ops as _ops
+from ..ops.registry import get_op as _get_op
+from . import contrib  # noqa: F401
+from .ndarray import (NDArray, arange, array, concat, empty, eye, from_dlpack,
+                      from_numpy, full, load, ones, save, stack,
+                      to_dlpack_for_read, to_dlpack_for_write, waitall, zeros)
 from .serialization import is_mxnet_binary, load_ndarrays, save_ndarrays
 
-__all__ = ["save_ndarrays", "load_ndarrays", "is_mxnet_binary"]
+_ops.populate_namespace(globals())
+# the constructors above take a ctx, as the reference's do; the registry's
+# op of the same name stays reachable through ops.get_op
+from .ndarray import arange  # noqa: E402,F811
+
+
+def __getattr__(name):
+    op = _get_op(name)
+    if op is None:
+        raise AttributeError("module 'mxnet_tpu_torch.ndarray' has no "
+                             "attribute %r" % name)
+    return op

@@ -15,6 +15,15 @@ CUDA flash kernels in the ``(B, S, H, D)`` layout. As in the reference,
 every call to the plain path. ``MXTPU_DROPOUT_THREEFRY=1``, the reference's
 switch to ``jax.random.bernoulli`` dropout masks, is refused: threefry is
 not ported.
+
+Each of these, and ``Activation``, ``LeakyReLU``, ``softmax`` and the
+activations, is also registered in the op registry
+(:mod:`~mxnet_tpu_torch.ops.registry`) under the reference op's name and
+arguments, with the reference's state binders (the RNG key words and the
+training flag): ``nd.FullyConnected``, ``nd.Dropout``,
+``nd._contrib_dot_product_attention`` and the rest call the functions
+here, so the registry op of attention reaches the CUDA kernels on the
+card in both layouts.
 """
 from __future__ import annotations
 
@@ -27,12 +36,13 @@ import torch.nn.functional as F
 
 from .. import config as _config
 from .. import random as _random
+from .registry import bind_key, bind_train, register
 from .flash_attention import (_M32, SUPPORTED_DTYPES, SUPPORTED_HEAD_DIMS,
                               _mul32, _threshold, flash_attention,
                               flash_attention_bshd, lowbias32)
 
 __all__ = ["FullyConnected", "gelu", "LayerNorm", "log_softmax", "Dropout",
-           "dot_product_attention"]
+           "dot_product_attention", "Activation", "LeakyReLU", "softmax"]
 
 
 def FullyConnected(data, weight, bias=None, flatten=True):
@@ -233,3 +243,126 @@ def _plain_attention(query, key, value, mask, drop, scaled, causal,
                           dtype=torch.float32).to(w.device) < (1.0 - drop)
         w = torch.where(keep, w / (1.0 - drop), torch.zeros_like(w))
     return torch.matmul(w, value)
+
+
+# ---- registry ops (the reference's names and arguments) -------------------
+
+def _fully_connected(data, weight, bias=None, num_hidden=None, no_bias=False,
+                     flatten=True):
+    return FullyConnected(data, weight, None if no_bias else bias, flatten)
+
+
+def _layer_norm(data, gamma, beta, axis=-1, eps=1e-5, output_mean_var=False):
+    out = LayerNorm(data, gamma, beta, axis, eps)
+    if output_mean_var:
+        return (out, data.mean(dim=axis),
+                data.var(dim=axis, unbiased=False))
+    return out
+
+
+def _dropout(data, p=0.5, mode="training", axes=(), cudnn_off=False,
+             key=None, train=False):
+    return Dropout(data, p, mode, axes, key, train)
+
+
+def Activation(data, act_type="relu"):
+    """``relu``, ``sigmoid``, ``tanh``, ``softrelu`` or ``softsign``."""
+    fns = {"relu": torch.relu, "sigmoid": torch.sigmoid,
+           "tanh": torch.tanh, "softrelu": F.softplus,
+           "softsign": F.softsign}
+    if act_type not in fns:
+        raise ValueError("unknown act_type %s" % act_type)
+    return fns[act_type](data)
+
+
+def LeakyReLU(data, gamma=None, act_type="leaky", slope=0.25,
+              lower_bound=0.125, upper_bound=0.334, key=None, train=False):
+    """The reference's ``leaky``, ``prelu``, ``elu``, ``selu`` and ``gelu``
+    variants, and ``rrelu`` outside training (its training-time draw waits
+    for the rest of the op corpus, ROADMAP Queue A item 8)."""
+    zero = torch.zeros((), dtype=data.dtype, device=data.device)
+    if act_type == "leaky":
+        return torch.where(data > zero, data, slope * data)
+    if act_type == "prelu":
+        g = gamma
+        if g.dim() == 1 and data.dim() > 1:
+            g = g.reshape((1, -1) + (1,) * (data.dim() - 2))
+        return torch.where(data > zero, data, g * data)
+    if act_type == "elu":
+        return torch.where(data > zero, data, slope * torch.expm1(data))
+    if act_type == "selu":
+        alpha, scale = 1.6732632423543772, 1.0507009873554805
+        return scale * torch.where(data > zero, data,
+                                   alpha * torch.expm1(data))
+    if act_type == "gelu":
+        return gelu(data)
+    if act_type == "rrelu":
+        if train:
+            raise NotImplementedError(
+                "LeakyReLU rrelu in training is not ported (ROADMAP Queue A "
+                "item 8)")
+        return torch.where(data > zero, data,
+                           (lower_bound + upper_bound) / 2.0 * data)
+    raise ValueError("unknown act_type %s" % act_type)
+
+
+def softmax(data, axis=-1, length=None, temperature=None, dtype=None,
+            use_length=False):
+    """The reference's ``softmax``: with ``use_length`` the positions at
+    or past ``length`` along ``axis`` give 0."""
+    from ..base import torch_dtype
+    x = data
+    if temperature is not None and temperature != 1.0:
+        x = x / temperature
+    if use_length and length is not None:
+        shp = [1] * x.dim()
+        shp[axis] = x.shape[axis]
+        steps = torch.arange(x.shape[axis], device=x.device).reshape(shp)
+        keep = steps < length.unsqueeze(axis)
+        out = torch.softmax(x.masked_fill(~keep, float("-inf")), dim=axis)
+        return out.masked_fill(~keep, 0.0)
+    out = torch.softmax(x, dim=axis)
+    return out.to(torch_dtype(dtype)) if dtype else out
+
+
+def _log_softmax(data, axis=-1, temperature=None, dtype=None,
+                 use_length=False, length=None):
+    from ..base import torch_dtype
+    x = data if temperature in (None, 1.0) else data / temperature
+    out = log_softmax(x, axis)
+    return out.to(torch_dtype(dtype)) if dtype else out
+
+
+def _key_generator(rng_key):
+    """A CPU ``torch.Generator`` seeded from the op's two key words: the
+    plain path's dropout draws and the kernel's int32 seed come from it."""
+    s0, s1 = int(rng_key[0]) & _M32, int(rng_key[-1]) & _M32
+    return torch.Generator().manual_seed((s0 << 32) | s1)
+
+
+def _attention_op(query, key, value, mask=None, dropout=0.0, scaled=True,
+                  causal=False, layout="BHSD", rng_key=None, train=False):
+    generator = None
+    if train and dropout > 0.0 and rng_key is not None:
+        generator = _key_generator(rng_key)
+    return dot_product_attention(query, key, value, mask=mask,
+                                 dropout=dropout, scaled=scaled,
+                                 causal=causal, layout=layout,
+                                 generator=generator, train=train)
+
+
+register("FullyConnected", aliases=("fully_connected",))(_fully_connected)
+register("LayerNorm", aliases=("layer_norm",))(_layer_norm)
+register("Dropout", aliases=("dropout",),
+         state_binders={"key": bind_key, "train": bind_train})(_dropout)
+register("Activation", aliases=("activation",))(Activation)
+register("LeakyReLU", state_binders={"key": bind_key,
+                                     "train": bind_train})(LeakyReLU)
+register("gelu", aliases=("LeakyReLU_gelu", "_contrib_gelu"))(gelu)
+register("softmax")(softmax)
+register("log_softmax")(_log_softmax)
+register("softrelu")(F.softplus)
+register("softsign")(F.softsign)
+register("_contrib_dot_product_attention",
+         state_binders={"rng_key": bind_key,
+                        "train": bind_train})(_attention_op)

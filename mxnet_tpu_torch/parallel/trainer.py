@@ -142,10 +142,13 @@ class ShardedTrainer:
 
     def sync_back(self):
         """Write the trainer's values into the block's parameters (in the
-        trainer's dtype, on each parameter's own device), as owned copies."""
+        trainer's dtype, on each parameter's own device), as owned copies
+        (new storage: CachedOps drop their graphs)."""
+        from .. import cached_op
         with torch.no_grad():
             for name, p in self._block.named_parameters():
                 p.data = self._values[name].detach().to(p.device, copy=True)
+        cached_op.storage_rebound()
 
     @property
     def learning_rate(self):

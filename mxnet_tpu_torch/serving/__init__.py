@@ -1,7 +1,12 @@
-"""Serving (counterpart of ``mxnet_tpu.serving``): generation only."""
-from .batcher import DeadlineExceeded, ServerBusy, ServerClosed, ServingError
-from .metrics import GenerationMetrics
+"""Serving (counterpart of ``mxnet_tpu.serving``): ``/predict``
+(``InferenceEngine``, ``DynamicBatcher``, ``ServingMetrics``) and
+generation, behind ``ModelServer``."""
+from .batcher import (DeadlineExceeded, DynamicBatcher, ServerBusy,
+                      ServerClosed, ServingError)
+from .engine import DEFAULT_BUCKETS, InferenceEngine
+from .metrics import GenerationMetrics, ServingMetrics
 from .server import ModelServer
 
-__all__ = ["ModelServer", "GenerationMetrics", "ServingError", "ServerBusy",
-           "ServerClosed", "DeadlineExceeded"]
+__all__ = ["ModelServer", "InferenceEngine", "DEFAULT_BUCKETS",
+           "DynamicBatcher", "ServingMetrics", "GenerationMetrics",
+           "ServingError", "ServerBusy", "ServerClosed", "DeadlineExceeded"]

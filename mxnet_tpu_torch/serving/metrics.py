@@ -1,20 +1,28 @@
-"""Generation-serving metrics.
+"""Serving metrics: counterpart of ``mxnet_tpu/serving/metrics.py``.
 
-Counterpart of the ``GenerationMetrics`` subset of
-``mxnet_tpu/serving/metrics.py``: time to first token (submit -> first
-streamed token: queue wait + prefill), prefill time, decode step time and
-emitted tokens, chunked-prefill calls, speculative rounds with their
-drafted and accepted tokens, and the admit/step/retire ledger. :meth:`snapshot` is the
-``/metrics`` ``"generation"`` section of ``ModelServer``. Percentiles are
-nearest-rank over a sliding window of recent requests.
+:class:`ServingMetrics` counts the ``/predict`` lane: requests, errors,
+rejections, expiries, batches and their occupancy, latency percentiles
+and QPS over a sliding window, the batcher's queue depth, and the
+``executor_cache`` gauge (the engine's ``stats()``: the ``CachedOp``'s
+hits, misses, evictions and captured graphs). :meth:`snapshot` is
+``ModelServer``'s ``/metrics``.
+
+:class:`GenerationMetrics` counts a generation lane: time to first
+token (submit -> first streamed token: queue wait + prefill), prefill
+time, decode step time and emitted tokens, chunked-prefill calls,
+speculative rounds with their drafted and accepted tokens, and the
+admit/step/retire ledger; its :meth:`snapshot` is the ``/metrics``
+``"generation"`` section of ``ModelServer``. Percentiles are nearest-rank
+over a sliding window of recent requests.
 """
 from __future__ import annotations
 
 import math
 import threading
+import time
 from collections import deque
 
-__all__ = ["GenerationMetrics"]
+__all__ = ["ServingMetrics", "GenerationMetrics"]
 
 
 def _percentiles(values, qs=(50, 95, 99), scale=1e3):
@@ -28,6 +36,108 @@ def _percentiles(values, qs=(50, 95, 99), scale=1e3):
         idx = min(len(vals) - 1, max(0, math.ceil(q / 100.0 * len(vals)) - 1))
         out["p%d" % q] = vals[idx] * scale
     return out
+
+
+class ServingMetrics:
+    """Thread-safe ``/predict`` counters shared by the engine, the batcher
+    and the server. ``window`` bounds the ring of recent requests behind
+    the latency percentiles and QPS. Gauges owned by other components
+    (queue depth, executor cache, breaker, retry) are pulled through
+    callbacks at snapshot time."""
+
+    def __init__(self, window=2048, name="serving"):
+        self.name = name
+        self._lock = threading.Lock()
+        self._window = deque(maxlen=window)     # (done_t, latency_s)
+        self._c = {"requests": 0, "ok": 0, "errors": 0, "rejected": 0,
+                   "expired": 0, "batches": 0, "batched_rows": 0,
+                   "worker_errors": 0}
+        self._latency_total = 0.0
+        self._occupancy_total = 0.0
+        self._t0 = time.time()
+        self._queue_depth_fn = None
+        self._cache_stats_fn = None
+        self._gauge_fns = {}
+
+    # ---- recording (hot path) ---------------------------------------------
+    def record_request(self, latency_s, ok=True):
+        with self._lock:
+            self._c["requests"] += 1
+            self._c["ok" if ok else "errors"] += 1
+            self._latency_total += latency_s
+            self._window.append((time.time(), latency_s))
+
+    def record_rejected(self):
+        with self._lock:
+            self._c["rejected"] += 1
+
+    def record_expired(self):
+        with self._lock:
+            self._c["expired"] += 1
+
+    def record_worker_error(self):
+        with self._lock:
+            self._c["worker_errors"] += 1
+
+    def record_batch(self, rows, capacity):
+        """One coalesced execution of ``rows`` requests out of
+        ``capacity`` (``max_batch_size``)."""
+        with self._lock:
+            self._c["batches"] += 1
+            self._c["batched_rows"] += rows
+            self._occupancy_total += rows / float(max(capacity, 1))
+
+    # ---- gauge hookups ----------------------------------------------------
+    def set_queue_depth_fn(self, fn):
+        self._queue_depth_fn = fn
+
+    def set_cache_stats_fn(self, fn):
+        """``fn()`` -> the executor-cache dict (``InferenceEngine.stats``)."""
+        self._cache_stats_fn = fn
+
+    def set_gauge_fn(self, name, fn):
+        """A named gauge (``fn()`` -> a JSON-able value) read at snapshot
+        time."""
+        self._gauge_fns[name] = fn
+
+    # ---- reading ----------------------------------------------------------
+    def percentiles(self, qs=(50, 95, 99)):
+        """Latency percentiles (ms) over the window; nearest-rank."""
+        with self._lock:
+            lats = [lat for _, lat in self._window]
+        return _percentiles(lats, qs)
+
+    def snapshot(self):
+        """Every counter and derived gauge as one JSON-able dict."""
+        with self._lock:
+            c = dict(self._c)
+            latency_total = self._latency_total
+            occupancy_total = self._occupancy_total
+            window = list(self._window)
+        now = time.time()
+        if len(window) >= 2:
+            qps = (len(window) - 1) / max(window[-1][0] - window[0][0], 1e-9)
+        elif c["requests"]:
+            qps = c["requests"] / max(now - self._t0, 1e-9)
+        else:
+            qps = 0.0
+        lat = self.percentiles()
+        lat["mean"] = (latency_total / c["requests"] * 1e3
+                       if c["requests"] else 0.0)
+        out = {"name": self.name, "uptime_s": now - self._t0, "qps": qps,
+               "latency_ms": lat,
+               "batch_occupancy": (occupancy_total / c["batches"]
+                                   if c["batches"] else 0.0),
+               "avg_batch_size": (c["batched_rows"] / c["batches"]
+                                  if c["batches"] else 0.0)}
+        out.update(c)
+        for key, fn in (("queue_depth", self._queue_depth_fn),
+                        ("executor_cache", self._cache_stats_fn)):
+            if fn is not None:
+                out[key] = fn()
+        for gname, fn in self._gauge_fns.items():
+            out[gname] = fn()
+        return out
 
 
 class GenerationMetrics:

@@ -1,7 +1,18 @@
-"""ModelServer: stdlib HTTP front end for generation serving.
+"""ModelServer: stdlib HTTP front end for the serving stack.
 
-Counterpart of ``mxnet_tpu/serving/server.py`` in its generation-only mode
-(``ModelServer(None, generator=sched)``). Endpoints (JSON):
+Counterpart of ``mxnet_tpu/serving/server.py``: ``/predict`` over a
+``DynamicBatcher`` over an ``InferenceEngine`` (``ModelServer(model)``,
+where ``model`` is an engine or anything an engine takes), and
+``/generate`` over a ``GenerationScheduler`` (``generator=``); a server
+may carry both. Endpoints (JSON):
+
+- ``POST /predict``: body ``{"data": [...]}`` (one sample, no batch axis)
+  or ``{"inputs": [[...], ...]}`` for a model of several inputs; optional
+  ``"dtype"`` (default float32) and ``"timeout_ms"``. The reply is
+  ``{"output": [...]}``, or ``{"outputs": [...]}`` for a model of several
+  outputs. Failures: malformed body 400, ``ServerBusy``/``ServerClosed``/
+  draining 503 (with ``Retry-After``), queue ``DeadlineExceeded`` 504, a
+  model fault 500, a body over ``MXNET_HTTP_MAX_BODY`` 413.
 
 - ``POST /generate``: body ``{"prompt": [token ids], "max_new_tokens": n,
   "temperature": t, "eos_id": id, "timeout_ms": ms, "stream": true}``.
@@ -16,17 +27,20 @@ Counterpart of ``mxnet_tpu/serving/server.py`` in its generation-only mode
 - ``GET /healthz``: ``{"status": "ok"}``; ``"degraded"`` with the
   breaker's snapshot while the circuit breaker is open or half-open;
   ``"draining"`` during shutdown.
-- ``GET /metrics``: the scheduler's stats, its
-  ``GenerationMetrics.snapshot()`` under ``"generation"``, and the
+- ``GET /metrics``: with ``/predict``, ``ServingMetrics.snapshot()``
+  (QPS, latency percentiles, occupancy, queue depth, and the
+  ``executor_cache`` gauge: the engine's CachedOp counters); with
+  ``/generate``, the scheduler's stats and its
+  ``GenerationMetrics.snapshot()`` under ``"generation"``; and the
   ``"breaker"`` and ``"retry"`` gauges.
 
 Model faults feed a :class:`~mxnet_tpu_torch.resilience.CircuitBreaker`;
-while it is open, ``/generate`` fast-fails with 503 + ``Retry-After``
-instead of queueing doomed work. Backpressure, drain and queue expiry are
-not faults and leave it alone.
+while it is open, ``/predict`` and ``/generate`` fast-fail with 503 +
+``Retry-After`` instead of queueing doomed work. Backpressure, drain and
+queue expiry are not faults and leave it alone.
 
-``/predict``, the fleet registry, telemetry and the gateway are not ported
-yet.
+The fleet routes (``/predict/<model>``, ROADMAP Queue A item 12),
+telemetry and the gateway are not ported.
 """
 from __future__ import annotations
 
@@ -35,15 +49,25 @@ import threading
 import uuid
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
+import numpy as _np
+
 from .. import config as _config
 from ..resilience import retry as _retry
 from ..resilience.breaker import CircuitBreaker
-from .batcher import DeadlineExceeded, ServerBusy, ServerClosed, ServingError
+from .batcher import (DeadlineExceeded, DynamicBatcher, ServerBusy,
+                      ServerClosed, ServingError)
+from .engine import DEFAULT_BUCKETS, InferenceEngine
+from .metrics import ServingMetrics
 
 __all__ = ["ModelServer"]
 
-# the reference's MXNET_HTTP_MAX_BODY default: larger bodies are refused
-_MAX_BODY = 8 * 1024 * 1024
+
+def _tolist(row):
+    """A reply row as JSON numbers (bfloat16 through float32)."""
+    row = _np.asarray(row)
+    if row.dtype.name == "bfloat16":
+        row = row.astype(_np.float32)
+    return row.tolist()
 
 
 class _Handler(BaseHTTPRequestHandler):
@@ -88,16 +112,78 @@ class _Handler(BaseHTTPRequestHandler):
             self.close_connection = True
             self._reply(400, {"error": "bad Content-Length"})
             return
-        if length > _MAX_BODY:
+        max_body = _config.get("MXNET_HTTP_MAX_BODY")
+        if 0 < max_body < length:
             self.close_connection = True
-            self._reply(413, {"error": "request body %d bytes exceeds %d"
-                                       % (length, _MAX_BODY)})
+            self._reply(413, {"error": "request body %d bytes exceeds "
+                                       "MXNET_HTTP_MAX_BODY=%d"
+                                       % (length, max_body)})
             return
         body = self.rfile.read(length)
-        if self.path.partition("?")[0] != "/generate":
+        path = self.path.partition("?")[0]
+        srv = self.server.model_server
+        if path == "/generate" and srv.generator is not None:
+            self._handle_generate(rid, srv, body)
+        elif path == "/predict" and srv.batcher is not None:
+            self._handle_predict(rid, srv, body)
+        else:
             self._reply(404, {"error": "unknown path %s" % self.path})
+
+    def _handle_predict(self, rid, srv, body):
+        if srv.draining:
+            self._reply(503, {"error": "server draining"},
+                        headers={"Retry-After": "1"})
             return
-        self._handle_generate(rid, self.server.model_server, body)
+        # parse before breaker admission: a malformed body (400) must never
+        # hold a half-open probe slot
+        try:
+            payload = json.loads(body or b"{}")
+            if "inputs" in payload:
+                raw = payload["inputs"]
+            elif "data" in payload:
+                raw = [payload["data"]]
+            else:
+                raise ValueError('body needs "data" or "inputs"')
+            dtype = payload.get("dtype", "float32")
+            inputs = [_np.asarray(x, dtype=dtype) for x in raw]
+            timeout_ms = payload.get("timeout_ms")
+        except (ValueError, TypeError, KeyError, AttributeError) as e:
+            self._reply(400, {"error": str(e)})
+            return
+        breaker = srv.breaker
+        admission = breaker.allow() if breaker is not None else True
+        if not admission:
+            snap = breaker.snapshot()
+            self._reply(503, {"error": "circuit open: %s" % snap["state"],
+                              "breaker": snap},
+                        headers={"Retry-After": str(max(1, int(round(
+                            breaker.retry_after_s()))))})
+            return
+        try:
+            row = srv.batcher.predict(*inputs, timeout_ms=timeout_ms,
+                                      request_id=rid)
+        except (ServerBusy, ServerClosed) as e:
+            # backpressure and shutdown are not model faults
+            if breaker is not None:
+                breaker.release(admission)
+            self._reply(503, {"error": str(e)}, headers={"Retry-After": "1"})
+            return
+        except DeadlineExceeded as e:
+            if breaker is not None:
+                breaker.release(admission)
+            self._reply(504, {"error": str(e)})
+            return
+        except Exception as e:  # noqa: BLE001 - model fault
+            if breaker is not None:
+                breaker.record_failure(admission)
+            self._reply(500, {"error": "%s: %s" % (type(e).__name__, e)})
+            return
+        if breaker is not None:
+            breaker.record_success(admission)
+        if isinstance(row, tuple):
+            self._reply(200, {"outputs": [_tolist(r) for r in row]})
+        else:
+            self._reply(200, {"output": _tolist(row)})
 
     def _write_chunk(self, payload):
         """One HTTP/1.1 chunk carrying one NDJSON line."""
@@ -245,25 +331,45 @@ class _QuietThreadingHTTPServer(ThreadingHTTPServer):
 
 
 class ModelServer:
-    """HTTP listener over a ``GenerationScheduler``.
+    """HTTP listener over ``/predict`` and/or ``/generate``.
 
-    ``model`` must be None: ``/predict`` needs the core runtime (ROADMAP.md
-    Queue A item 5), which is not ported yet. ``generator`` backs ``POST
-    /generate`` and is closed with the server. ``port=0`` picks an
-    ephemeral port. ``breaker=None`` builds a :class:`CircuitBreaker` from
-    the ``MXNET_BREAKER_*`` knobs (``MXNET_BREAKER_FAILURE_THRESHOLD <= 0``
+    ``model`` backs ``POST /predict``: an ``InferenceEngine``, or a model
+    that one is built around (``buckets``, ``jit``; its retry is then left
+    to the batcher). A ``DynamicBatcher`` (``max_batch_size``,
+    ``max_latency_ms``, ``max_queue_size``, ``default_timeout_ms``,
+    ``retry_policy``) coalesces the requests; ``metrics`` (a
+    ``ServingMetrics``, made when None) is ``/metrics``. ``generator`` (a
+    ``GenerationScheduler``) backs ``POST /generate``. Each is closed with
+    the server; at least one is needed. ``port=0`` picks an ephemeral
+    port. ``breaker=None`` builds a :class:`CircuitBreaker` from the
+    ``MXNET_BREAKER_*`` knobs (``MXNET_BREAKER_FAILURE_THRESHOLD <= 0``
     disables it); pass a configured breaker, or False for none."""
 
     def __init__(self, model=None, host="127.0.0.1", port=8080,
-                 generator=None, breaker=None):
-        if model is not None:
-            raise NotImplementedError(
-                "/predict serving is not ported yet (it needs the core "
-                "runtime, ROADMAP.md Queue A item 5): pass model=None and "
-                "generator=")
-        if generator is None:
-            raise ValueError("need a generator")
+                 buckets=None, jit=True, max_batch_size=32,
+                 max_latency_ms=5.0, max_queue_size=128,
+                 default_timeout_ms=None, metrics=None, breaker=None,
+                 retry_policy=None, generator=None):
+        if model is None and generator is None:
+            raise ValueError("need a model or a generator")
         self.generator = generator
+        self.metrics = metrics or ServingMetrics()
+        if model is None:
+            self.engine = None
+        elif isinstance(model, InferenceEngine):
+            self.engine = model
+            self.metrics.set_cache_stats_fn(model.stats)
+        else:
+            # retry lives at the batcher (it re-runs the whole coalesced
+            # batch); a second policy underneath would multiply attempts
+            self.engine = InferenceEngine(
+                model, buckets=buckets or DEFAULT_BUCKETS, jit=jit,
+                metrics=self.metrics, retry_policy=False)
+        self.batcher = None if self.engine is None else DynamicBatcher(
+            self.engine, max_batch_size=max_batch_size,
+            max_latency_ms=max_latency_ms, max_queue_size=max_queue_size,
+            default_timeout_ms=default_timeout_ms, metrics=self.metrics,
+            retry_policy=retry_policy)
         if breaker is None:
             threshold = _config.get("MXNET_BREAKER_FAILURE_THRESHOLD")
             breaker = CircuitBreaker(
@@ -295,10 +401,12 @@ class ModelServer:
         return {"status": "ok"}
 
     def metrics_snapshot(self):
-        out = {"scheduler": self.generator.stats(),
-               "retry": _retry.all_stats()}
-        if self.generator.metrics is not None:
-            out["generation"] = self.generator.metrics.snapshot()
+        out = self.metrics.snapshot() if self.engine is not None else {}
+        out["retry"] = _retry.all_stats()
+        if self.generator is not None:
+            out["scheduler"] = self.generator.stats()
+            if self.generator.metrics is not None:
+                out["generation"] = self.generator.metrics.snapshot()
         if self.breaker is not None:
             out["breaker"] = self.breaker.snapshot()
         return out
@@ -323,13 +431,24 @@ class ModelServer:
         return self
 
     def stop(self, drain=True, timeout=10.0):
-        """Shut down: flip to draining (new POSTs get 503), let the
-        scheduler finish (``drain``) or fail its work, then close the
-        listener."""
+        """Shut down: flip to draining (new POSTs get 503), let the batcher
+        and the scheduler finish (``drain``) or fail their work, then
+        close the listener and release the engine's graphs."""
         self._draining = True
-        self.generator.close(drain=drain, timeout=timeout)
+        if self.generator is not None:
+            self.generator.close(drain=drain, timeout=timeout)
+        if self.batcher is not None:
+            self.batcher.close(drain=drain, timeout=timeout)
         self._httpd.shutdown()
         self._httpd.server_close()
         if self._thread is not None:
             self._thread.join(5.0)
             self._thread = None
+        if self.engine is not None:
+            self.engine.close()
+
+    def __enter__(self):
+        return self.start()
+
+    def __exit__(self, *exc):
+        self.stop()

@@ -267,11 +267,20 @@ def test_slot_cache_lifecycle():
 
 
 def test_deferred_features_raise(pair, engine):
-    """``/predict`` is the one serving path left unported; a lane policy
+    """The fleet routes (``/predict/<model>``, ROADMAP Queue A item 12) are
+    not ported: a server over a model answers them 404; a lane policy
     outside mixed/prefill/decode is refused."""
-    _, tnet = pair
-    with pytest.raises(NotImplementedError, match="Queue A item 5"):
-        ModelServer(tnet, port=0, generator=None)
+    with context.cpu():
+        srv = ModelServer(lambda x: x, port=0, jit=False).start()
+    try:
+        req = urllib.request.Request(
+            srv.url + "/predict/lm", data=json.dumps({"data": [1.0]}).encode(),
+            method="POST", headers={"Content-Type": "application/json"})
+        with pytest.raises(urllib.error.HTTPError) as err:
+            urllib.request.urlopen(req, timeout=10)
+        assert err.value.code == 404
+    finally:
+        srv.stop(timeout=10)
     with pytest.raises(ServingError, match="lane_policy"):
         GenerationScheduler(engine, lane_policy="bogus")
 

@@ -114,7 +114,7 @@ def test_trainer_follows_reference(name, shared_ref_net):
     assert ttr.optimizer.num_update == jtr.optimizer.num_update == 5
     assert ttr.learning_rate == jtr.learning_rate
     for k, p in jnet.collect_params().items():
-        np.testing.assert_allclose(params[k].data().detach().numpy(),
+        np.testing.assert_allclose(params[k].tensor().detach().numpy(),
                                    p.data().asnumpy(), atol=1e-4, rtol=1e-4,
                                    err_msg=k)
 
@@ -157,7 +157,7 @@ def test_save_and_load_states_continue_bitwise(tmp_path):
                 assert ttr.optimizer.param_dict[0] is \
                     params[sorted(params.keys())[0]]
             _own_step(tnet, params, ttr, loss_fn, x, y)
-        runs.append([p.data().detach().clone() for p in params.values()])
+        runs.append([p.tensor().detach().clone() for p in params.values()])
     assert all(torch.equal(a, b) for a, b in zip(*runs))
 
 
@@ -194,7 +194,7 @@ def _two_passes_match(req, jnet, tnet, params):
         second = dict(zip(params.keys(), (p.grad for p in
                                           probe.parameters())))
     for k, p in jparams.items():
-        own = params[k].grad()
+        own = params[k].grad_tensor()
         np.testing.assert_allclose(own.numpy(), p.grad().asnumpy(),
                                    atol=1e-5, rtol=1e-5, err_msg=k)
         if req == "write":
@@ -205,12 +205,12 @@ def test_null_grad_req_is_not_updated_and_refusals():
     _, tnet, params = _pair()
     frozen = next(k for k in params.keys() if k.endswith("_embed_weight"))
     params[frozen].grad_req = "null"
-    assert not params[frozen].data().requires_grad
-    before = params[frozen].data().clone()
+    assert not params[frozen].tensor().requires_grad
+    before = params[frozen].tensor().clone()
     ttr = Trainer(params, "sgd", {"learning_rate": 0.1})
     (x, y), = _batches(1)
     _own_step(tnet, params, ttr, SoftmaxCrossEntropyLoss(), x, y)
-    assert torch.equal(params[frozen].data(), before)
+    assert torch.equal(params[frozen].tensor(), before)
     with pytest.raises(RuntimeError, match="grad_req='null'"):
         params[frozen].grad()
     with pytest.raises(NotImplementedError, match="Queue A item 10"):
@@ -262,11 +262,11 @@ def test_trainer_update_and_learning_rate():
                                      torch.from_numpy(y))
     loss.backward(torch.ones_like(loss))
     key = sorted(params.keys())[0]
-    w0 = params[key].data().detach().clone()
-    g = params[key].grad().clone()
+    w0 = params[key].tensor().detach().clone()
+    g = params[key].grad_tensor().clone()
     ttr.update(BATCH)
     assert ttr.optimizer.rescale_grad == 2.0 / BATCH
-    torch.testing.assert_close(params[key].data().detach(),
+    torch.testing.assert_close(params[key].tensor().detach(),
                                w0 - 0.05 * (g * (2.0 / BATCH)))
     params.zero_grad()
-    assert not params[key].grad().any()
+    assert not params[key].grad_tensor().any()

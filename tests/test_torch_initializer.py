@@ -174,14 +174,14 @@ def test_collect_params_initialize_bitwise(which):
     trandom.seed(7)
     tparams.initialize(tinit.Xavier())
     for k, p in jparams.items():
-        np.testing.assert_array_equal(tparams[k].data().detach().numpy(),
+        np.testing.assert_array_equal(tparams[k].tensor().detach().numpy(),
                                       p.data().asnumpy(), err_msg=k)
     # a second initialize is a no-op; force_reinit draws again
-    before = {k: p.data().clone() for k, p in tparams.items()}
+    before = {k: p.tensor().clone() for k, p in tparams.items()}
     tparams.initialize(tinit.Xavier())
-    assert all(torch.equal(p.data(), before[k]) for k, p in tparams.items())
+    assert all(torch.equal(p.tensor(), before[k]) for k, p in tparams.items())
     tparams.initialize(tinit.Xavier(), force_reinit=True)
-    assert not all(torch.equal(p.data(), before[k])
+    assert not all(torch.equal(p.tensor(), before[k])
                    for k, p in tparams.items())
 
 
@@ -212,20 +212,20 @@ def test_parameter_dict_save_load_across_packages(tmp_path):
     jnet.collect_params().save(ref_file)
     tparams.load(ref_file)
     for k, p in jnet.collect_params().items():
-        np.testing.assert_array_equal(tparams[k].data().detach().numpy(),
+        np.testing.assert_array_equal(tparams[k].tensor().detach().numpy(),
                                       p.data().asnumpy(), err_msg=k)
     with torch.no_grad():
         for p in tparams.values():
-            p.data().mul_(2)
+            p.tensor().mul_(2)
     tparams.save(own_file, strip_prefix=jnet.prefix)
     jnet.collect_params().load(own_file, restore_prefix=jnet.prefix)
     for k, p in jnet.collect_params().items():
-        np.testing.assert_array_equal(tparams[k].data().detach().numpy(),
+        np.testing.assert_array_equal(tparams[k].tensor().detach().numpy(),
                                       p.data().asnumpy(), err_msg=k)
     # an initialized parameter is not drawn again
-    before = {k: p.data().clone() for k, p in tparams.items()}
+    before = {k: p.tensor().clone() for k, p in tparams.items()}
     tparams.initialize(tinit.Xavier())
-    assert all(torch.equal(p.data(), before[k]) for k, p in tparams.items())
+    assert all(torch.equal(p.tensor(), before[k]) for k, p in tparams.items())
     with pytest.raises(AssertionError, match="missing"):
         collect_params(bert_tiny(vocab_size=100, max_length=16,
                                  device="cpu")).load(ref_file)
