@@ -193,19 +193,44 @@ Builds the package's CUDA kernels from the sources in this checkout
     (fp32) or 2e-2 (bf16) of their largest |value|; the (B, H, S, D)
     forward, dQ and dK/dV kernels launch once a call each.
 
+11. **Vision phase: ResNet-50 v1 inference and training.** (a) The
+    reference's ``__graft_entry__.entry()`` step for step:
+    ``resnet50_v1()`` after ``random.seed(--seed)`` (numpy too),
+    ``initialize(Xavier())`` on the card, one forward at (1, 3, 224, 224)
+    to settle the deferred shapes, ``cast("bfloat16")`` (every one of the
+    212 BatchNorm parameters must stay fp32, every other one bf16), then
+    the b32 bf16 forward of uniform [0, 1) images through
+    ``functionalize(net, train=False)`` and through the hybridized net (a
+    CUDA-graph replay): equal bit for bit; against an fp32 copy of the
+    same (bf16) weights on the same inputs within ``VISION_BF16_TOL``
+    (2e-2) of the logits' largest |value|. Prints eager and replay ms
+    (CUDA events) and img/s, the capture ms and the graph pool's bytes.
+    (b) ``bench.py``'s ``resnet50_train``: b32 at 224x224,
+    ``SoftmaxCrossEntropyLoss``, SGD lr 0.1 momentum 0.9 through
+    ``ShardedTrainer``, in fp32 (TF32 off) and in bf16 (the net cast
+    first, as ``bench.py`` does): 3 ``step``s, then one ``bench_span`` of
+    8 steps on batches made on the card; ms a step (CUDA events), img/s,
+    peak memory; finite losses. Before them, one step with weight decay
+    0.1 through its own trainer: the stem BatchNorm's moving mean and
+    variance must equal 0.9 x old + 0.1 x the batch's (taken on the card
+    in float64 from the layer's input) within 1e-5 of their largest
+    |value|, in the trainer and in the block (a decay would move them
+    1%). No flash kernel may launch in the phase.
+
 With ``--profile`` the burst is served a second time, serving v2's part
 (f) is profiled, and two fp32 and two bf16 training steps, two bf16 BERT
-steps and two bf16 BERT steps each with LAMB and Adam (surface phase) are
-run, under ``torch.profiler`` (after the checked runs) to print the
-device's busy share, its kernel count and its
-top kernels.
+steps and two bf16 BERT steps each with LAMB and Adam (surface phase),
+one bf16 ResNet-50 step and one b32 bf16 ResNet-50 eager forward (vision
+phase) are run, under ``torch.profiler`` (after the checked runs) to
+print the device's busy share, its kernel count and its top kernels.
 
 Prints the serving, serving v2, training, BERT, surface, predict,
-autograd and registry-op numbers, one ``{"kernels": [...]}`` line with an
+autograd, registry-op and vision numbers, one ``{"kernels": [...]}`` line with an
 entry per TPU kernel (the three (B, S, H, D) ones with the numbers of the
 training shape in fp32, under ``*_bf16`` keys in bf16, and under ``bert``
 those of the BERT shape; the three (B, H, S, D) ones with the numbers of
-the registry op's shape), the card's name and power limit, and last
+the registry op's shape; every kernel's launches also under ``vision``,
+where none runs), the card's name and power limit, and last
 ``{"ok": true, "device": {...}}``.
 Any failure exits non-zero before that line. Without CUDA it exits 2.
 """
@@ -2285,8 +2310,235 @@ def registry_phase(torch):
             "cases": cases, "launches": launches}
 
 
-def kernel_entries(serving, v2, training, bert, surface, core, fwd_cases,
-                   bwd_cases):
+VISION_BATCH, VISION_IMAGE, VISION_CLASSES = 32, 224, 1000
+VISION_STEPS, VISION_SPAN = 3, 8
+VISION_SGD = {"learning_rate": 0.1, "momentum": 0.9}   # bench.py's
+VISION_BF16_TOL = 2e-2      # bf16 logits against fp32 ones, of their max
+VISION_STATS_TOL = 1e-5     # moving statistics, of their largest |value|
+VISION_CHECK_WD = 0.1       # a decay would move the statistics by 1%
+VISION_REPLAYS = 20
+
+
+def _resnet50(torch, trandom, seed):
+    """``resnet50_v1()`` as the reference's ``entry()`` makes it:
+    ``random.seed``, ``initialize(Xavier())`` on the card, one forward at
+    (1, 3, 224, 224) to settle the deferred shapes."""
+    from mxnet_tpu_torch import initializer, nd
+    from mxnet_tpu_torch.gluon.model_zoo import vision
+    trandom.seed(seed)
+    np.random.seed(seed)
+    net = vision.resnet50_v1()
+    net.initialize(initializer.Xavier())
+    net(nd.zeros((1, 3, VISION_IMAGE, VISION_IMAGE)))
+    return net
+
+
+def _events_ms(torch, fn, n):
+    """``fn()`` ``n`` times between two CUDA events: ms a call."""
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    for _ in range(n):
+        fn()
+    e1.record()
+    torch.cuda.synchronize()
+    return e0.elapsed_time(e1) / n
+
+
+def vision_inference(args, torch):
+    """(a) ``__graft_entry__.entry()`` step for step: ResNet-50 v1 from
+    ``Xavier()``, cast to bf16 (BatchNorm stays fp32), the b32 bf16
+    forward through ``functionalize(net, train=False)`` and hybridized
+    (a CUDA-graph replay), bitwise equal, and against an fp32 copy of the
+    same weights."""
+    from mxnet_tpu_torch import autograd, nd
+    from mxnet_tpu_torch import random as trandom
+    from mxnet_tpu_torch.gluon.nn import BatchNorm
+    from mxnet_tpu_torch.ndarray.ndarray import NDArray
+    from mxnet_tpu_torch.parallel import functionalize
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    net = _resnet50(torch, trandom, args.seed)
+    init_s = time.perf_counter() - t0
+    net.cast("bfloat16")
+    bn = {id(p) for m in net.modules() if isinstance(m, BatchNorm)
+          for p in (m.gamma, m.beta, m.running_mean, m.running_var)}
+    params = net.collect_params()
+    wrong = [n for n, p in params.items()
+             if p.dtype != (torch.float32 if id(p) in bn
+                            else torch.bfloat16)]
+    if len(bn) != 4 * 53 or wrong:
+        fail("vision: after cast('bfloat16') %d BatchNorm parameters, "
+             "wrong dtypes %s" % (len(bn), wrong[:4]))
+    x = torch.rand((VISION_BATCH, 3, VISION_IMAGE, VISION_IMAGE),
+                   generator=torch.Generator().manual_seed(args.seed)) \
+        .to(dev, torch.bfloat16)
+    pure, plist = functionalize(net, train=False)
+    vals = [p.tensor() for p in plist]
+
+    def eager():
+        with torch.no_grad():
+            return pure(None, vals, x)[0][0]
+    out = eager()
+    net.hybridize()
+    xn = NDArray(x)
+    with autograd.predict_mode():
+        net(xn)                                 # the capture
+        replay = net(xn)._data
+    if not torch.equal(replay, out):
+        fail("vision: the CUDA-graph replay differs from the eager forward "
+             "(max |diff| %g)" % (replay.float() - out.float()).abs().max())
+    op = next(iter(net._cached_ops.values()))
+    with autograd.predict_mode():
+        replay_ms = _events_ms(torch, lambda: net(xn), VISION_REPLAYS)
+    eager_ms = _events_ms(torch, eager, 5)
+    # an fp32 copy of the same (bf16) weights on the same inputs
+    net32 = _resnet50(torch, trandom, args.seed)
+    for p, q in zip(net32.collect_params().values(), params.values()):
+        p.set_data(q.data().astype("float32"))
+    net32.eval()
+    with torch.no_grad():
+        out32 = net32(x.float())
+    err = float((out.float() - out32).abs().max() / out32.abs().max())
+    if not (err <= VISION_BF16_TOL and torch.isfinite(out).all()):
+        fail("vision: bf16 logits %.3g of their max from the fp32 copy's "
+             "(tolerance %g)" % (err, VISION_BF16_TOL))
+    res = {"model": "resnet50_v1", "batch": VISION_BATCH,
+           "image": VISION_IMAGE, "init_s": init_s,
+           "batchnorm_params_fp32": len(bn), "out_shape": list(out.shape),
+           "replay_equals_eager": True, "bf16_vs_fp32_rel_to_max": err,
+           "eager_ms": eager_ms, "replay_ms": replay_ms,
+           "img_s_replay": VISION_BATCH * 1e3 / replay_ms,
+           "img_s_eager": VISION_BATCH * 1e3 / eager_ms,
+           "capture_ms": list(op.capture_ms.values()),
+           "pool_bytes": op.pool_bytes}
+    if args.profile:
+        with autograd.predict_mode():
+            res["profile_eager"] = profile(torch, eager)
+    del net, net32, op, out, out32, replay, vals
+    return res
+
+
+def _stats_check(torch, net, dname, seed):
+    """One step with weight decay through a fresh ``ShardedTrainer``: the
+    stem BatchNorm's moving statistics must be ``0.9 * old + 0.1 *
+    batch`` of its own input (mean and biased variance taken here in
+    float64), in the trainer and in the block, and no decay may touch
+    them."""
+    from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+    from mxnet_tpu_torch.parallel import ShardedTrainer
+    dev = torch.device("cuda")
+    bn = net.features[1]
+    seen = []
+    hook = bn.register_forward_hook(
+        lambda blk, a, o: seen.append(a[0].detach().double()))
+    trainer = ShardedTrainer(net, SoftmaxCrossEntropyLoss(), "sgd",
+                             dict(VISION_SGD, wd=VISION_CHECK_WD))
+    names = {id(t): n for n, t in net.named_parameters()}
+    key = {leaf: names[id(getattr(bn, leaf).tensor())]
+           for leaf in ("running_mean", "running_var", "gamma")}
+    old = {k: trainer.values[n].detach().double().clone()
+           for k, n in key.items()}
+    g = torch.Generator(dev).manual_seed(seed)
+    dt = torch.bfloat16 if dname == "bfloat16" else torch.float32
+    x = torch.rand((VISION_BATCH, 3, VISION_IMAGE, VISION_IMAGE),
+                   generator=g, device=dev, dtype=dt)
+    y = torch.randint(0, VISION_CLASSES, (VISION_BATCH,), generator=g,
+                      device=dev).float()
+    trainer.step(x, y)
+    hook.detach()
+    a = seen[0]
+    want = {"running_mean": 0.9 * old["running_mean"]
+            + 0.1 * a.mean(dim=(0, 2, 3)),
+            "running_var": 0.9 * old["running_var"]
+            + 0.1 * a.var(dim=(0, 2, 3), unbiased=False)}
+    errs = {}
+    for leaf, w in want.items():
+        got = trainer.values[key[leaf]].detach().double()
+        block = getattr(bn, leaf).tensor().detach().double()
+        errs[leaf] = float((got - w).abs().max() / w.abs().max())
+        if errs[leaf] > VISION_STATS_TOL or not torch.equal(got, block):
+            fail("vision %s: %s %.3g of its max from the momentum rule "
+                 "(tolerance %g), block equal %s" % (
+                     dname, leaf, errs[leaf], VISION_STATS_TOL,
+                     torch.equal(got, block)))
+    moved = float((trainer.values[key["gamma"]].detach().double()
+                   - old["gamma"]).abs().max())
+    if moved == 0.0:
+        fail("vision %s: the optimizer left gamma unchanged" % dname)
+    del trainer
+    return {"stem_bn_err_rel_to_max": errs, "wd": VISION_CHECK_WD,
+            "gamma_moved": moved}
+
+
+def vision_training(args, torch, dname):
+    """(b) ``bench.py``'s ``resnet50_train`` configuration: b32 at 224^2,
+    ``SoftmaxCrossEntropyLoss``, SGD lr 0.1 momentum 0.9 through
+    ``ShardedTrainer`` (the net cast first in bf16, as ``bench.py``
+    does); a few ``step``s, then one ``bench_span``."""
+    from mxnet_tpu_torch import random as trandom
+    from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+    from mxnet_tpu_torch.parallel import ShardedTrainer
+    dev = torch.device("cuda")
+    net = _resnet50(torch, trandom, args.seed)
+    if dname == "bfloat16":
+        net.cast("bfloat16")
+    check = _stats_check(torch, net, dname, args.seed + 1)
+    trainer = ShardedTrainer(net, SoftmaxCrossEntropyLoss(), "sgd",
+                             dict(VISION_SGD))
+    g = torch.Generator(dev).manual_seed(args.seed + 2)
+    dt = torch.bfloat16 if dname == "bfloat16" else torch.float32
+    x = torch.rand((VISION_BATCH, 3, VISION_IMAGE, VISION_IMAGE),
+                   generator=g, device=dev, dtype=dt)
+    y = torch.randint(0, VISION_CLASSES, (VISION_BATCH,), generator=g,
+                      device=dev).float()
+    losses, ms = train_steps(torch, trainer, x, y, VISION_STEPS)
+    torch.cuda.reset_peak_memory_stats()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    span = trainer.bench_span(VISION_SPAN, (VISION_BATCH, 3, VISION_IMAGE,
+                                            VISION_IMAGE), VISION_CLASSES,
+                              dtype=dname)
+    e1.record()
+    torch.cuda.synchronize()
+    span_ms = e0.elapsed_time(e1) / VISION_SPAN
+    span = [float(v) for v in span]
+    if not all(np.isfinite(losses + span)):
+        fail("vision %s: losses not finite: %r %r" % (dname, losses, span))
+    res = {"losses": losses, "step_ms": ms, "span_losses": span,
+           "span_step_ms": span_ms,
+           "img_s": VISION_BATCH * 1e3 / span_ms,
+           "max_memory_allocated_gb":
+               torch.cuda.max_memory_allocated() / 1e9, "stats": check}
+    if args.profile and dname == "bfloat16":
+        res["profile"] = profile(torch, lambda: trainer.step(x, y))
+    del trainer, net
+    return res
+
+
+def vision_phase(args, torch):
+    """ResNet-50 v1 inference (a) and training (b, fp32 and bf16); no
+    flash kernel runs on this path."""
+    from mxnet_tpu_torch.ops import flash_attention as fa
+    t0 = time.perf_counter()
+    fa.reset_launches()
+    out = {"inference": vision_inference(args, torch)}
+    torch.cuda.empty_cache()
+    for dname in ("float32", "bfloat16"):
+        out[dname] = vision_training(args, torch, dname)
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["launches"] = kernel_launches()
+    if any(out["launches"].values()):
+        fail("vision: a flash kernel launched on the vision path: %s"
+             % out["launches"])
+    out["wall_s"] = time.perf_counter() - t0
+    return out
+
+
+def kernel_entries(serving, v2, training, bert, surface, core, vision,
+                   fwd_cases, bwd_cases):
     """The ``{"kernels": [...]}`` entries, one per TPU kernel. The three
     ``(B, S, H, D)`` ones: numbers of the main path's training shape (B 32,
     S 512, H 12, D 64, causal) in fp32, and under ``*_bf16`` keys in bf16;
@@ -2295,7 +2547,8 @@ def kernel_entries(serving, v2, training, bert, surface, core, fwd_cases,
     at the registry op's shape (B 8, S 512, H 12, D 64, causal, key mask).
     ``core`` holds the predict, autograd and registry-op phases' launch
     counts; the backward kernels serve both layouts, so their launches are
-    split by the phase's layout."""
+    split by the phase's layout. The vision phase's launches (none: no
+    attention on that path) are listed under ``vision``."""
     def pick(cases, dtype="float32", B=TRAIN_BATCH, layout="BSHD"):
         return next(c for c in cases if c["B"] == B and c["S"] == 512
                     and c["D"] == 64 and c["layout"] == layout
@@ -2341,7 +2594,8 @@ def kernel_entries(serving, v2, training, bert, surface, core, fwd_cases,
              "bert": bert["launches"]["flash_attn_fwd"],
              "surface": surface["launches"]["flash_attn_fwd"],
              "predict": core["predict"]["flash_attn_fwd"],
-             "autograd": core["autograd"]["flash_attn_fwd"]}
+             "autograd": core["autograd"]["flash_attn_fwd"],
+             "vision": vision["launches"]["flash_attn_fwd"]}
     train_timed = "B=%d S=%d H=12 D=64 BSHD causal, float32 (*_bf16: " \
         "bfloat16)" % (TRAIN_BATCH, TRAIN_SEQ)
     reg_timed = "B=8 S=512 H=12 D=64 BHSD causal with a key mask, float32 " \
@@ -2360,7 +2614,8 @@ def kernel_entries(serving, v2, training, bert, surface, core, fwd_cases,
         max_abs_err=max(c["max_abs_err"] for c in fwd_cases
                         if c["layout"] == "BHSD"),
         launches=reg["flash_attn_fwd_bhsd"],
-        launches_by_path={"registry_op": reg["flash_attn_fwd_bhsd"]},
+        launches_by_path={"registry_op": reg["flash_attn_fwd_bhsd"],
+                          "vision": vision["launches"]["flash_attn_fwd_bhsd"]},
         **timed(pick(fwd_cases, B=8, layout="BHSD"),
                 pick(fwd_cases, "bfloat16", B=8, layout="BHSD"))))
     for name, part, line, line_bhsd in (
@@ -2371,7 +2626,8 @@ def kernel_entries(serving, v2, training, bert, surface, core, fwd_cases,
               "bert": bert["launches"][name],
               "surface": surface["launches"][name],
               "predict": core["predict"][name],
-              "autograd": core["autograd"][name]}
+              "autograd": core["autograd"][name],
+              "vision": vision["launches"][name]}
         for layout, ln in (("BSHD", line), ("BHSD", line_bhsd)):
             errs = [c["max_abs_err"][n] for c in bwd_cases
                     if c["layout"] == layout
@@ -2385,7 +2641,8 @@ def kernel_entries(serving, v2, training, bert, surface, core, fwd_cases,
             else:
                 e = dict(name=name + "_bhsd", line=ln, timed_case=reg_timed,
                          launches=reg[name],
-                         launches_by_path={"registry_op": reg[name]},
+                         launches_by_path={"registry_op": reg[name],
+                                           "vision": vision["launches"][name]},
                          **timed(pick(bwd_cases, B=8, layout="BHSD"),
                                  pick(bwd_cases, "bfloat16", B=8,
                                       layout="BHSD"), part))
@@ -2470,8 +2727,9 @@ def main():
                     help="also write every result to this JSON file")
     ap.add_argument("--profile", action="store_true",
                     help="serve the burst a second time and run two fp32 "
-                         "and two bf16 training steps under torch.profiler "
-                         "and print the device's busy share")
+                         "and two bf16 training steps (and the other "
+                         "phases' profiled parts) under torch.profiler and "
+                         "print the device's busy share")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -2603,6 +2861,37 @@ def main():
           flush=True)
     core = {"predict": predict["launches"], "autograd": core_ag["launches"],
             "registry": registry["launches"]}
+    vision = vision_phase(args, torch)
+    card = card_line()
+    v = vision["inference"]
+    print("vision (a) resnet50_v1 b%d %dx%d bf16 (BatchNorm fp32, %d "
+          "parameters): replay == eager bitwise; eager %.3f ms (%.1f img/s), "
+          "replay %.3f ms (%.1f img/s); capture %s ms, graph pool %d bytes; "
+          "bf16 vs fp32 copy %.3g of max; init %.1f s [%s]" % (
+              v["batch"], v["image"], v["image"], v["batchnorm_params_fp32"],
+              v["eager_ms"], v["img_s_eager"], v["replay_ms"],
+              v["img_s_replay"], ", ".join("%.1f" % c for c in
+                                          v["capture_ms"]),
+              v["pool_bytes"], v["bf16_vs_fp32_rel_to_max"], v["init_s"],
+              card), flush=True)
+    for dname in ("float32", "bfloat16"):
+        t = vision[dname]
+        print("vision (b) %s: b%d SGD momentum, steps %s ms, bench_span %d "
+              "steps %.2f ms a step (%.1f img/s), peak memory %.2f GB; "
+              "losses %s | %s; stem BatchNorm stats vs the momentum rule "
+              "%s (wd %g) [%s]" % (
+                  dname, VISION_BATCH, ", ".join("%.2f" % m
+                                                 for m in t["step_ms"]),
+                  VISION_SPAN, t["span_step_ms"], t["img_s"],
+                  t["max_memory_allocated_gb"],
+                  ", ".join("%.4f" % l for l in t["losses"]),
+                  ", ".join("%.4f" % l for l in t["span_losses"]),
+                  ", ".join("%s %.2g" % kv for kv in
+                            t["stats"]["stem_bn_err_rel_to_max"].items()),
+                  t["stats"]["wd"], card), flush=True)
+    print("vision: flash launches %s; %.1f s" % (vision["launches"],
+                                                 vision["wall_s"]),
+          flush=True)
 
     for tag, prof in (("serving burst", serving["profile"]),
                       ("2 fp32 training steps",
@@ -2613,7 +2902,11 @@ def main():
                       ("2 bf16 BERT LAMB steps (surface)",
                        surface["bert_lamb"].get("profile_bfloat16_lamb")),
                       ("2 bf16 BERT Adam steps (surface)",
-                       surface["bert_lamb"].get("profile_bfloat16_adam"))):
+                       surface["bert_lamb"].get("profile_bfloat16_adam")),
+                      ("1 bf16 resnet50_v1 step (vision)",
+                       vision["bfloat16"].get("profile")),
+                      ("1 bf16 resnet50_v1 b32 eager forward (vision)",
+                       vision["inference"].get("profile_eager"))):
         if prof is not None:
             print("profile %s: %.1f ms wall, device busy %.1f ms (%.1f%%), "
                   "%d kernels; top: %s" % (
@@ -2653,15 +2946,14 @@ def main():
                  ",".join("%.2g" % v for v in
                           c["max_err_rel_to_max"].values())))
     entries = kernel_entries(serving, v2, training, bert, surface, core,
-                             fwd_cases, bwd_cases)
-    card = card_line()
+                             vision, fwd_cases, bwd_cases)
     if args.out:
         with open(args.out, "w") as f:
             json.dump({"serving": serving, "serving_v2": v2,
                        "training": training,
                        "bert": bert, "surface": surface,
                        "predict": predict, "autograd": core_ag,
-                       "registry_op": registry,
+                       "registry_op": registry, "vision": vision,
                        "kernels": entries, "card": card,
                        "build_s": build_s}, f, indent=1)
     print(json.dumps({"kernels": [{k: v for k, v in e.items()

@@ -24,7 +24,8 @@ import threading
 import weakref
 
 __all__ = ["is_recording", "is_training", "set_recording", "set_training",
-           "hook_grad_req", "push_aux_sink", "pop_aux_sink", "aux_write"]
+           "hook_grad_req", "push_aux_sink", "pop_aux_sink", "aux_write",
+           "assign"]
 
 _state = threading.local()
 
@@ -105,9 +106,19 @@ def pop_aux_sink():
 
 def aux_write(handle, value):
     """Write ``value`` (a tensor) into the NDArray ``handle``: at once
-    eagerly, through the innermost sink inside a ``CachedOp``."""
+    eagerly, through the innermost sink inside a ``CachedOp``,
+    ``functionalize`` or a ``ShardedTrainer`` step."""
     sinks = getattr(_state, "aux_sinks", None)
     if sinks:
         sinks[-1].append((handle, value))
+    else:
+        assign(handle, value)
+
+
+def assign(handle, value):
+    """Rebind ``handle`` to ``value``; a handle bound to a module's tensor
+    (a layer's moving statistics) takes the value in place."""
+    if getattr(handle, "_bound", False):
+        handle._set_data(value)
     else:
         handle._data = value

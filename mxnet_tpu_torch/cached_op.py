@@ -108,7 +108,7 @@ class _Graph:
         self.graph.replay()
         outs = [o.clone() for o in self.outputs]
         for h, v in zip(self.aux, outs[self.n_out:]):
-            h._data = v
+            _tape.assign(h, v)
         return outs[:self.n_out], self.multi
 
 
@@ -270,7 +270,7 @@ class CachedOp:
         if result is None:
             tensors, n_out, multi, aux = self._run(args)
             for h, v in zip(aux, tensors[n_out:]):
-                h._data = v
+                _tape.assign(h, v)
             result = tensors[:n_out], multi
         outs, multi = result
         nds = [NDArray(o) for o in outs]

@@ -45,6 +45,17 @@ except that BERT's encoder keys its layers by child index
 (``encoder.5.attn.qkv.weight``: five children register before the first
 layer), mapped by the rank of that index. A missing, unexpected or
 duplicate name, or a wrong shape, is refused with the name in the error.
+
+Every other ``gluon.Block`` (the model zoo, a user's block) names its
+parameters as the reference does, through the same name scopes: its full
+names (``resnetv10_stage1_conv0_weight``) equal the reference's up to the
+net's own prefix (``resnetv1<k>_``, whose counter depends on the process),
+and its ``save_parameters`` names (``features.5.0.body.0.weight``) equal
+the reference's. :func:`load_mxnet_params` maps the file's prefix onto
+the net's, and :func:`mxnet_params_from_state_dict` writes the names back,
+with ``export``'s ``arg:``/``aux:`` marks when asked (``aux:`` for
+BatchNorm's moving statistics, as the reference's ``export`` marks its
+auxiliary states).
 """
 from __future__ import annotations
 
@@ -252,13 +263,85 @@ def state_dict_from_mxnet(params, prefix=None):
     return out
 
 
-def load_mxnet_params(model, params, prefix=None):
+def _scoped(model):
+    """Whether ``model`` is a block named by its scopes (no name map)."""
+    from .gluon.block import Block
+    return isinstance(model, Block) and not isinstance(
+        model, (TransformerLM, BERTModel, PretrainStep))
+
+
+def _file_prefix(names, model):
+    """The reference net's prefix in ``names``: the net's own alias with
+    the reference's counter."""
+    alias = re.sub(r"\d+_$", "", model.prefix)
+    for n in names:
+        m = re.match(r"^%s\d+_" % re.escape(alias), n)
+        if m:
+            return m.group(0)
+    raise ValueError("cannot infer the net's prefix: no name starts with "
+                     "%r and a counter" % alias)
+
+
+def _load_scoped(model, params, prefix, ctx):
+    from .gluon.parameter import load_param_from_array
+    params = _read(params)
+    names = list(params)
+    if names and all("." in n for n in names):
+        own = model._collect_params_with_prefix()
+        mapped = {n: n for n in names}
+    else:
+        own = model.collect_params()
+        pre = _file_prefix(names, model) if prefix is None else prefix
+        mapped = {}
+        for n in names:
+            if not n.startswith(pre):
+                raise ValueError("unexpected parameter %r: outside prefix %r"
+                                 % (n, pre))
+            mapped[n] = model.prefix + n[len(pre):]
+    missing = sorted(set(own) - set(mapped.values()))
+    if missing:
+        raise ValueError("missing parameter(s) for %s" % ", ".join(missing))
+    extra = sorted(n for n, t in mapped.items() if t not in own)
+    if extra:
+        raise ValueError("unexpected parameter(s) %s" % ", ".join(extra))
+    for n, t in mapped.items():
+        shape, want = tuple(np.shape(params[n])), own[t].shape
+        if want is not None and (len(want) != len(shape) or any(
+                w not in (0, s) for w, s in zip(want, shape))):
+            raise ValueError("parameter %s has shape %s, the model expects %s"
+                             % (n, shape, want))
+    for n, t in mapped.items():
+        load_param_from_array(own[t], np.asarray(params[n]), ctx)
+    model._clear_all_cached_ops()
+    return model
+
+
+def _scoped_params(model, prefix, export):
+    from .gluon.nn import BatchNorm
+    aux = {id(p) for m in model.modules() if isinstance(m, BatchNorm)
+           for p in (m.running_mean, m.running_var)}
+    out = {}
+    for name, p in model.collect_params().items():
+        if prefix is not None:
+            name = prefix + name[len(model.prefix):]
+        if export:
+            name = ("aux:" if id(p) in aux else "arg:") + name
+        t = p._reduce()
+        out[name] = (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+    return out
+
+
+def load_mxnet_params(model, params, prefix=None, ctx=None):
     """Load reference parameters into a port ``TransformerLM``,
     ``BERTModel`` or ``PretrainStep`` in place (onto the model's device and
-    dtype). ``params`` is ``{name: np.ndarray}`` or the name of a
-    ``.params`` file, with names in any of the three formats of the module
-    docstring. Refuses a missing or unexpected name, or a wrong shape,
-    naming the parameter."""
+    dtype), or into any other ``gluon.Block`` (the model zoo) through its
+    ``Parameter``s (deferred ones take the file's shapes and are made on
+    ``ctx``, the current context when None). ``params`` is ``{name:
+    np.ndarray}`` or the name of a ``.params`` file, with names in any of
+    the formats of the module docstring. Refuses a missing or unexpected
+    name, or a wrong shape, naming the parameter."""
+    if _scoped(model):
+        return _load_scoped(model, params, prefix, ctx)
     outer = _arch_of(model)[1]
     sd = {outer + k: v for k, v in
           state_dict_from_mxnet(params, prefix).items()}
@@ -339,12 +422,18 @@ def reference_structural_names(model):
     return out
 
 
-def mxnet_params_from_state_dict(state_dict, prefix=None):
+def mxnet_params_from_state_dict(state_dict, prefix=None, export=False):
     """The inverse map: a port model, or its state dict, to reference-style
     full names (counters from 0) and numpy arrays. The family comes from
     the model's type (from its names for a state dict); ``prefix``
     defaults to ``transformerlm0_``, ``bertmodel0_``, or
-    ``pretrainstep0_bertmodel0_`` for a ``PretrainStep``."""
+    ``pretrainstep0_bertmodel0_`` for a ``PretrainStep``. Any other
+    ``gluon.Block`` gives its ``collect_params()`` names (its own prefix
+    replaced by ``prefix`` when given; bfloat16 values as float32), marked
+    ``arg:``/``aux:`` as the reference's ``export`` writes them when
+    ``export``."""
+    if _scoped(state_dict):
+        return _scoped_params(state_dict, prefix, export)
     if isinstance(state_dict, torch.nn.Module):
         arch, outer = _arch_of(state_dict)
         state_dict = state_dict.state_dict()

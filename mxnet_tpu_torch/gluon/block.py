@@ -12,9 +12,13 @@ as NDArrays. Blocks come in two kinds:
 - the port's own layers and models (``Dense``, ``Embedding``,
   ``LayerNorm``, ``Dropout``, ``MultiHeadAttention``,
   ``TransformerEncoderLayer``, ``TransformerLM``, ``BERTEncoder``,
-  ``BERTModel``, ``BERTPretrainingLoss``, the losses): ``HybridBlock``s
+  ``BERTModel``, ``BERTPretrainingLoss``, the losses, the convolution,
+  pooling and normalization layers and the model zoo): ``HybridBlock``s
   with a ``forward`` written on tensors and no ``hybrid_forward``, so the
-  hot path wraps nothing per op;
+  hot path wraps nothing per op. The vision layers create their
+  parameters as the reference's do (``self.params.get``, shapes deferred
+  until the first call, placed by ``initialize(ctx=...)``) and finish them
+  in ``forward`` (:meth:`Block._ready`);
 - a user's ``HybridBlock`` written as in the reference, with
   ``self.params.get(...)`` and ``hybrid_forward(self, F, x, weight=...)``:
   ``F`` is the port's ``nd`` namespace and the parameters arrive as
@@ -151,6 +155,37 @@ def _param_of(tensor, name, init=None):
     for a tensor not wrapped yet)."""
     param = getattr(tensor, "_mx_parameter", None)
     return param if param is not None else wrap_tensor(tensor, name, init)
+
+
+def _cast_tensor(t, dtype):
+    """Cast a module's tensor through its :class:`Parameter` (in place of
+    its storage) where it has one."""
+    from .. import cached_op
+    from ..base import torch_dtype
+    p = getattr(t, "_mx_parameter", None)
+    if p is not None:
+        p.cast(dtype)
+        return
+    ptr = t.data_ptr()
+    with torch.no_grad():
+        t.data = t.data.to(torch_dtype(dtype))
+        if t.grad is not None:
+            t.grad = t.grad.to(torch_dtype(dtype))
+    if t.data_ptr() != ptr:
+        cached_op.storage_rebound()
+
+
+def _cast_children(module, dtype):
+    """``cast`` every child block; a plain module's own tensors are cast
+    and its children visited."""
+    for child in module.children():
+        if isinstance(child, Block):
+            child.cast(dtype)
+            continue
+        for t in child._parameters.values():
+            if t is not None:
+                _cast_tensor(t, dtype)
+        _cast_children(child, dtype)
 
 
 class Block(nn.Module):
@@ -314,10 +349,34 @@ class Block(nn.Module):
                 m._clear_cached_op()
 
     def cast(self, dtype):
-        """Cast every parameter (and its gradient) to ``dtype``."""
-        for p in self.collect_params().values():
+        """Cast this block's parameters (and their gradients) to ``dtype``,
+        and each child block's through the child's own ``cast``, as the
+        reference recurses: a layer may override it (``BatchNorm`` keeps
+        float32)."""
+        _cast_children(self, dtype)
+        done = set()
+        for p in self._params.values():
             p.cast(dtype)
-        self._clear_all_cached_ops()
+            done.update(id(t) for t in p._tensors or ())
+        for t in self._parameters.values():
+            if t is not None and id(t) not in done:
+                _cast_tensor(t, dtype)
+        if isinstance(self, HybridBlock):
+            self._clear_cached_op()
+
+    def _ready(self, *args):
+        """Finish this layer's deferred parameters from the first call's
+        inputs (``infer_shape``), as ``_hybrid_call`` does for a
+        ``hybrid_forward`` block; a parameter never initialized raises."""
+        if self.__dict__.get("_tensors_ready"):
+            return
+        pending = [p for p in self._reg_params.values() if p._tensors is None]
+        if any(p._deferred_init for p in pending):
+            self.infer_shape(*args)
+        for p in pending:
+            p._finish_deferred_init()
+            p._check_init()
+        self.__dict__["_tensors_ready"] = True
 
     def save_parameters(self, filename, deduplicate=False):
         """Write the parameters under the reference's structural names in

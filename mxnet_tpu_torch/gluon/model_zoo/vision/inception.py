@@ -1,0 +1,160 @@
+"""Inception v3 (``mxnet_tpu/gluon/model_zoo/vision/inception.py``)."""
+from __future__ import annotations
+
+import torch
+
+from ...block import HybridBlock
+from ... import nn
+from .squeezenet import HybridConcurrent
+
+__all__ = ["Inception3", "inception_v3"]
+
+
+def _make_basic_conv(**kwargs):
+    out = nn.HybridSequential(prefix="")
+    out.add(nn.Conv2D(use_bias=False, **kwargs))
+    out.add(nn.BatchNorm(epsilon=0.001))
+    out.add(nn.Activation("relu"))
+    return out
+
+
+def _make_branch(use_pool, *conv_settings):
+    out = nn.HybridSequential(prefix="")
+    if use_pool == "avg":
+        out.add(nn.AvgPool2D(pool_size=3, strides=1, padding=1))
+    elif use_pool == "max":
+        out.add(nn.MaxPool2D(pool_size=3, strides=2))
+    setting_names = ["channels", "kernel_size", "strides", "padding"]
+    for setting in conv_settings:
+        kwargs = {}
+        for i, value in enumerate(setting):
+            if value is not None:
+                kwargs[setting_names[i]] = value
+        out.add(_make_basic_conv(**kwargs))
+    return out
+
+
+def _concurrent(prefix, *branches):
+    out = HybridConcurrent(axis=1, prefix=prefix)
+    with out.name_scope():
+        for make in branches:
+            out.add(make())
+    return out
+
+
+def _make_A(pool_features, prefix):
+    return _concurrent(
+        prefix,
+        lambda: _make_branch(None, (64, 1, None, None)),
+        lambda: _make_branch(None, (48, 1, None, None), (64, 5, None, 2)),
+        lambda: _make_branch(None, (64, 1, None, None), (96, 3, None, 1),
+                             (96, 3, None, 1)),
+        lambda: _make_branch("avg", (pool_features, 1, None, None)))
+
+
+def _make_B(prefix):
+    return _concurrent(
+        prefix,
+        lambda: _make_branch(None, (384, 3, 2, None)),
+        lambda: _make_branch(None, (64, 1, None, None), (96, 3, None, 1),
+                             (96, 3, 2, None)),
+        lambda: _make_branch("max"))
+
+
+def _make_C(channels_7x7, prefix):
+    c = channels_7x7
+    return _concurrent(
+        prefix,
+        lambda: _make_branch(None, (192, 1, None, None)),
+        lambda: _make_branch(None, (c, 1, None, None),
+                             (c, (1, 7), None, (0, 3)),
+                             (192, (7, 1), None, (3, 0))),
+        lambda: _make_branch(None, (c, 1, None, None),
+                             (c, (7, 1), None, (3, 0)),
+                             (c, (1, 7), None, (0, 3)),
+                             (c, (7, 1), None, (3, 0)),
+                             (192, (1, 7), None, (0, 3))),
+        lambda: _make_branch("avg", (192, 1, None, None)))
+
+
+def _make_D(prefix):
+    return _concurrent(
+        prefix,
+        lambda: _make_branch(None, (192, 1, None, None), (320, 3, 2, None)),
+        lambda: _make_branch(None, (192, 1, None, None),
+                             (192, (1, 7), None, (0, 3)),
+                             (192, (7, 1), None, (3, 0)),
+                             (192, 3, 2, None)),
+        lambda: _make_branch("max"))
+
+
+class _SplitConcat(HybridBlock):
+    """A branch whose tail forks into two concatenated convolutions."""
+
+    def __init__(self, stem_settings, fork_settings, prefix=None):
+        super().__init__(prefix=prefix)
+        with self.name_scope():
+            self.stem = _make_branch(None, *stem_settings) if stem_settings \
+                else None
+            self.forks = []
+            for i, setting in enumerate(fork_settings):
+                fork = _make_branch(None, setting)
+                self.register_child(fork, "fork%d" % i)
+                self.forks.append(fork)
+
+    def forward(self, x):
+        if self.stem is not None:
+            x = self.stem(x)
+        return torch.cat([f(x) for f in self.forks], dim=1)
+
+
+def _make_E(prefix):
+    forks = [(384, (1, 3), None, (0, 1)), (384, (3, 1), None, (1, 0))]
+    return _concurrent(
+        prefix,
+        lambda: _make_branch(None, (320, 1, None, None)),
+        lambda: _SplitConcat([(384, 1, None, None)], forks),
+        lambda: _SplitConcat([(448, 1, None, None), (384, 3, None, 1)],
+                             forks),
+        lambda: _make_branch("avg", (192, 1, None, None)))
+
+
+class Inception3(HybridBlock):
+    """Inception v3 (299x299 inputs)."""
+
+    def __init__(self, classes=1000, **kwargs):
+        super().__init__(**kwargs)
+        with self.name_scope():
+            self.features = nn.HybridSequential(prefix="")
+            self.features.add(_make_basic_conv(channels=32, kernel_size=3,
+                                               strides=2))
+            self.features.add(_make_basic_conv(channels=32, kernel_size=3))
+            self.features.add(_make_basic_conv(channels=64, kernel_size=3,
+                                               padding=1))
+            self.features.add(nn.MaxPool2D(pool_size=3, strides=2))
+            self.features.add(_make_basic_conv(channels=80, kernel_size=1))
+            self.features.add(_make_basic_conv(channels=192, kernel_size=3))
+            self.features.add(nn.MaxPool2D(pool_size=3, strides=2))
+            self.features.add(_make_A(32, "A1_"))
+            self.features.add(_make_A(64, "A2_"))
+            self.features.add(_make_A(64, "A3_"))
+            self.features.add(_make_B("B_"))
+            self.features.add(_make_C(128, "C1_"))
+            self.features.add(_make_C(160, "C2_"))
+            self.features.add(_make_C(160, "C3_"))
+            self.features.add(_make_C(192, "C4_"))
+            self.features.add(_make_D("D_"))
+            self.features.add(_make_E("E1_"))
+            self.features.add(_make_E("E2_"))
+            self.features.add(nn.AvgPool2D(pool_size=8))
+            self.features.add(nn.Dropout(0.5))
+            self.output = nn.Dense(classes)
+
+    def forward(self, x):
+        return self.output(self.features(x))
+
+
+def inception_v3(pretrained=False, ctx=None, root=None, **kwargs):
+    from . import _no_pretrained
+    _no_pretrained(pretrained)
+    return Inception3(**kwargs)

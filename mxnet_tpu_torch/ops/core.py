@@ -460,6 +460,22 @@ def stop_gradient(data):
     return data.detach()
 
 
+@register("pad", aliases=("Pad",))
+def pad(data, mode="constant", pad_width=(), constant_value=0.0):
+    """``pad_width`` holds a (before, after) pair per axis, from the first;
+    ``mode`` is ``constant``, ``edge`` or ``reflect`` (the last two pad
+    only the trailing axes, as the reference's callers do)."""
+    pairs = [(pad_width[2 * i], pad_width[2 * i + 1])
+             for i in range(len(pad_width) // 2)]
+    while pairs and pairs[0] == (0, 0) and mode != "constant":
+        pairs.pop(0)
+    flat = tuple(w for p in reversed(pairs) for w in p)
+    if mode == "constant":
+        return torch.nn.functional.pad(data, flat, value=constant_value)
+    torch_mode = {"edge": "replicate", "reflect": "reflect"}[mode]
+    return torch.nn.functional.pad(data, flat, mode=torch_mode)
+
+
 @register("clip")
 def clip(data, a_min=None, a_max=None):
     return torch.clamp(data, a_min, a_max)

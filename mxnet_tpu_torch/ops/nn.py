@@ -1,11 +1,25 @@
-"""Neural-network operators on the slice's path.
+"""Neural-network operators.
 
-Counterpart of the subset of ``mxnet_tpu/ops/nn.py`` that the transformer
-LM and BERT call: ``FullyConnected``, the exact ``gelu``, ``LayerNorm``,
-``log_softmax``, ``Dropout`` (with the reference's lowbias32 counter-hash
-mask) and ``dot_product_attention`` (the ``_contrib_dot_product_attention``
-op) with its key-mask reduction and kernel dispatch. Plain functions on
-tensors.
+Counterpart of ``mxnet_tpu/ops/nn.py``: ``FullyConnected``, the exact
+``gelu``, ``LayerNorm``, ``log_softmax``, ``Dropout`` (with the reference's
+lowbias32 counter-hash mask) and ``dot_product_attention`` (the
+``_contrib_dot_product_attention`` op) with its key-mask reduction and
+kernel dispatch, which the transformer LM and BERT call; and the vision
+ops: ``Convolution``, ``Deconvolution``, ``Pooling``, ``BatchNorm``,
+``InstanceNorm`` and ``GroupNorm``. Plain functions on tensors.
+
+The vision ops are XLA's in the reference (``lax.conv_general_dilated``,
+``lax.reduce_window``, fused elementwise chains), so they run on torch's
+own convolutions and pooling (cuDNN on the card). ``BatchNorm`` is taken
+op for op as the reference takes it: one-pass batch statistics
+(E[x^2] - E[x]^2 in float32, clamped at 0), cast to the moving
+statistics' dtype, ``rsqrt`` cast to the data's dtype, and the output in
+the data's dtype, because a fused batch norm rounds bfloat16 otherwise.
+Max pooling gives a window's gradient whole to its first largest element
+in row-major order, as XLA's select-and-scatter does. The reference's two
+TPU rewrites that are off by default (``MXTPU_CONV_S2D``,
+``MXTPU_MAXPOOL_EQBWD``) and its scheduling barrier
+(``MXTPU_BN_BARRIER``) are not ported: they compute the same functions.
 
 ``dot_product_attention`` takes the TransformerLM's causal calls (every
 prefill and training step) and BERT's non-causal ones, which carry a
@@ -42,7 +56,9 @@ from .flash_attention import (_M32, SUPPORTED_DTYPES, SUPPORTED_HEAD_DIMS,
                               flash_attention_bshd, lowbias32)
 
 __all__ = ["FullyConnected", "gelu", "LayerNorm", "log_softmax", "Dropout",
-           "dot_product_attention", "Activation", "LeakyReLU", "softmax"]
+           "dot_product_attention", "Activation", "LeakyReLU", "softmax",
+           "Convolution", "Deconvolution", "Pooling", "BatchNorm",
+           "InstanceNorm", "GroupNorm"]
 
 
 def FullyConnected(data, weight, bias=None, flatten=True):
@@ -245,6 +261,183 @@ def _plain_attention(query, key, value, mask, drop, scaled, causal,
     return torch.matmul(w, value)
 
 
+# ---- vision ops ------------------------------------------------------------
+
+_CONV = {1: F.conv1d, 2: F.conv2d, 3: F.conv3d}
+_DECONV = {1: F.conv_transpose1d, 2: F.conv_transpose2d,
+           3: F.conv_transpose3d}
+_MAXPOOL = {1: F.max_pool1d, 2: F.max_pool2d, 3: F.max_pool3d}
+
+
+def _pair(v, n):
+    """The reference's ``_pair``: an int or a sequence as an ``n``-tuple;
+    None or an empty sequence gives ones."""
+    if v is None:
+        return (1,) * n
+    if isinstance(v, int):
+        return (v,) * n
+    t = tuple(int(x) for x in v)
+    return t if t else (1,) * n
+
+
+def _bias_shape(bias, n):
+    return bias.reshape((1, -1) + (1,) * n)
+
+
+def Convolution(data, weight, bias=None, kernel=(), stride=(), dilate=(),
+                pad=(), num_filter=0, num_group=1, no_bias=False,
+                layout=None, cudnn_tune=None, cudnn_off=False,
+                workspace=None):
+    """1-D, 2-D or 3-D convolution of ``(N, C, *spatial)`` data with a
+    ``(O, C / num_group, *kernel)`` weight: symmetric ``pad``, ``stride``,
+    ``dilate``, grouped by ``num_group``. The bias is added after the
+    convolution, as the reference adds it."""
+    n = data.dim() - 2
+    pad = _pair(pad, n) if pad else (0,) * n
+    out = _CONV[n](data, weight, None, _pair(stride, n), pad,
+                   _pair(dilate, n), num_group)
+    if not no_bias and bias is not None:
+        out = out + _bias_shape(bias, n)
+    return out
+
+
+def Deconvolution(data, weight, bias=None, kernel=(), stride=(), dilate=(),
+                  pad=(), adj=(), num_filter=0, num_group=1, no_bias=True,
+                  layout=None, target_shape=None, cudnn_tune=None,
+                  cudnn_off=False, workspace=None):
+    """Transposed convolution with MXNet's ``(C_in, C_out / num_group,
+    *kernel)`` weight: the output size is ``(in - 1) * stride - 2 * pad +
+    dilate * (kernel - 1) + 1 + adj``. ``target_shape`` is ignored, as in
+    the reference."""
+    n = data.dim() - 2
+    pad = _pair(pad, n) if pad else (0,) * n
+    adj = _pair(adj, n) if adj else (0,) * n
+    out = _DECONV[n](data, weight, None, _pair(stride, n), pad, adj,
+                     num_group, _pair(dilate, n))
+    if not no_bias and bias is not None:
+        out = out + _bias_shape(bias, n)
+    return out
+
+
+def _window_sum(x, kernel, stride):
+    """Sums over the windows of ``x`` (already padded), exactly."""
+    if len(kernel) == 1:
+        return F.avg_pool2d(x.unsqueeze(2), (1,) + kernel, (1,) + stride,
+                            divisor_override=1).squeeze(2)
+    pool = F.avg_pool2d if len(kernel) == 2 else F.avg_pool3d
+    return pool(x, kernel, stride, divisor_override=1)
+
+
+def Pooling(data, kernel=(), pool_type="max", stride=(), pad=(),
+            global_pool=False, pooling_convention="valid", cudnn_off=False,
+            p_value=2, count_include_pad=True, layout=None):
+    """``max``, ``avg``, ``sum`` or ``lp`` pooling over the spatial axes,
+    with the reference's windows: ``pad`` on both sides, and under
+    ``pooling_convention="full"`` enough extra padding at the high edge for
+    a last partial window (ceil mode; ``avg`` with ``count_include_pad``
+    then still divides by the whole kernel, as the reference does).
+    ``avg`` without ``count_include_pad`` divides by the window's count of
+    real elements. ``global_pool`` reduces every spatial axis."""
+    n = data.dim() - 2
+    if global_pool:
+        dims = tuple(range(2, data.dim()))
+        if pool_type == "max":
+            return data.amax(dim=dims, keepdim=True)
+        if pool_type == "sum":
+            return data.sum(dim=dims, keepdim=True)
+        if pool_type == "lp":
+            return data.abs().pow(p_value).sum(dim=dims, keepdim=True) \
+                .pow(1.0 / p_value)
+        return data.mean(dim=dims, keepdim=True)
+    if pool_type not in ("max", "avg", "sum", "lp"):
+        raise ValueError("unknown pool_type %s" % pool_type)
+    kernel, stride = _pair(kernel, n), _pair(stride, n)
+    pad = _pair(pad, n) if pad else (0,) * n
+    high = list(pad)
+    if pooling_convention == "full":
+        for i in range(n):
+            rem = (data.shape[2 + i] + 2 * pad[i] - kernel[i]) % stride[i]
+            if rem:
+                high[i] += stride[i] - rem
+    widths = tuple(w for i in reversed(range(n)) for w in (pad[i], high[i]))
+    if pool_type == "max":
+        if tuple(high) == pad and all(2 * p <= k
+                                      for p, k in zip(pad, kernel)):
+            return _MAXPOOL[n](data, kernel, stride, pad)
+        fill = float("-inf") if data.is_floating_point() \
+            else torch.iinfo(data.dtype).min
+        return _MAXPOOL[n](F.pad(data, widths, value=fill), kernel, stride)
+    x = data.abs().pow(p_value) if pool_type == "lp" else data
+    s = _window_sum(F.pad(x, widths), kernel, stride)
+    if pool_type == "sum":
+        return s
+    if pool_type == "lp":
+        return s.pow(1.0 / p_value)
+    if count_include_pad:
+        return s / float(np.prod(kernel))
+    ones = F.pad(torch.ones_like(data), widths)
+    return s / _window_sum(ones, kernel, stride)
+
+
+def BatchNorm(data, gamma, beta, moving_mean, moving_var, eps=1e-3,
+              momentum=0.9, fix_gamma=True, use_global_stats=False,
+              output_mean_var=False, axis=1, cudnn_off=False,
+              min_calib_range=None, max_calib_range=None, train=False):
+    """Batch normalization, op for op the reference's: in training (and
+    without ``use_global_stats``) the batch mean and the one-pass variance
+    ``max(E[x^2] - E[x]^2, 0)`` over every axis but ``axis``, taken in
+    float32 and cast to the moving statistics' dtype; otherwise the moving
+    statistics. ``rsqrt(var + eps)`` is cast to the data's dtype, and
+    ``(x - mean) * inv * gamma + beta`` is computed in it (``gamma`` = 1
+    under ``fix_gamma``). The moving statistics are not updated here: the
+    ``BatchNorm`` layer writes them. ``output_mean_var`` also returns the
+    mean and variance."""
+    dims = tuple(i for i in range(data.dim()) if i != axis % data.dim())
+    shape = [1] * data.dim()
+    shape[axis] = data.shape[axis]
+    g = torch.ones_like(gamma) if fix_gamma else gamma
+    if use_global_stats or not train:
+        mean, var = moving_mean, moving_var
+    else:
+        xf = data.float()
+        mean = xf.mean(dim=dims)
+        var = torch.clamp_min((xf * xf).mean(dim=dims) - mean * mean, 0.0)
+        mean = mean.to(moving_mean.dtype)
+        var = var.to(moving_var.dtype)
+    dt = data.dtype
+    inv = torch.rsqrt(var + eps).to(dt)
+    out = (data - mean.reshape(shape).to(dt)) * inv.reshape(shape) \
+        * g.reshape(shape).to(dt) + beta.reshape(shape).to(dt)
+    if output_mean_var:
+        return out, mean, var
+    return out
+
+
+def InstanceNorm(data, gamma, beta, eps=1e-3):
+    """Normalization over each sample's and channel's spatial axes (biased
+    variance), then ``gamma`` and ``beta`` per channel."""
+    dims = tuple(range(2, data.dim()))
+    mean = data.mean(dim=dims, keepdim=True)
+    var = data.var(dim=dims, keepdim=True, unbiased=False)
+    shape = (1, -1) + (1,) * (data.dim() - 2)
+    return (data - mean) * torch.rsqrt(var + eps) * gamma.reshape(shape) \
+        + beta.reshape(shape)
+
+
+def GroupNorm(data, gamma, beta, num_groups=1, eps=1e-5):
+    """Normalization over each sample's groups of ``C / num_groups``
+    channels (biased variance), then ``gamma`` and ``beta`` per
+    channel."""
+    b, c = data.shape[:2]
+    x = data.reshape((b, num_groups, c // num_groups) + tuple(data.shape[2:]))
+    dims = tuple(range(2, x.dim()))
+    mean = x.mean(dim=dims, keepdim=True)
+    var = x.var(dim=dims, keepdim=True, unbiased=False)
+    x = ((x - mean) * torch.rsqrt(var + eps)).reshape(data.shape)
+    shape = (1, -1) + (1,) * (data.dim() - 2)
+    return x * gamma.reshape(shape) + beta.reshape(shape)
+
+
 # ---- registry ops (the reference's names and arguments) -------------------
 
 def _fully_connected(data, weight, bias=None, num_hidden=None, no_bias=False,
@@ -366,3 +559,10 @@ register("softsign")(F.softsign)
 register("_contrib_dot_product_attention",
          state_binders={"rng_key": bind_key,
                         "train": bind_train})(_attention_op)
+register("Convolution", aliases=("convolution",))(Convolution)
+register("Deconvolution", aliases=("deconvolution",))(Deconvolution)
+register("Pooling", aliases=("pooling",))(Pooling)
+register("BatchNorm", aliases=("batch_norm", "BatchNorm_v1"),
+         state_binders={"train": bind_train})(BatchNorm)
+register("InstanceNorm")(InstanceNorm)
+register("GroupNorm")(GroupNorm)

@@ -1,18 +1,72 @@
-"""Optimizers as ``(init_state, update)`` pairs: counterpart of
-``functional_optimizer`` in ``mxnet_tpu/parallel/functional.py``.
+"""Blocks as pure functions and optimizers as ``(init_state, update)``
+pairs: counterparts of ``functionalize`` and ``functional_optimizer`` in
+``mxnet_tpu/parallel/functional.py``.
 
-The reference also turns a Gluon block into a pure function
-(``functionalize``); the port needs no such step, since an ``nn.Module``
-already holds its parameters and ``torch.func.functional_call`` runs it on
-other values.
+``functionalize(block, train)`` gives the reference's
+``pure(rng_key, param_vals, *inputs) -> (outputs, aux_values)``: the
+block runs on the given values in place of its parameters
+(``torch.func.functional_call``), and the aux writes (BatchNorm's moving
+statistics in training) are returned instead of written.
 """
 from __future__ import annotations
 
 import torch
+from torch.func import functional_call
 
+from .. import _tape
+from .. import random as _random
 from ..optimizer import optimizer as _opt
 
-__all__ = ["functional_optimizer"]
+__all__ = ["functionalize", "functional_optimizer"]
+
+
+def functionalize(block, train=True):
+    """``(pure, params)``: ``params`` is ``block.collect_params()``'s
+    list, and ``pure(rng_key, param_vals, *inputs)`` runs ``block`` in
+    training (``train``) or inference mode on ``param_vals`` (tensors in
+    ``params``' order) and the input tensors, without recording, and
+    returns ``(outputs_tuple, aux_values_tuple)`` (differentiable under
+    torch's grad mode). ``pure.aux_handles``
+    holds, after a call, the NDArray handles of the parameters each aux
+    value belongs to (bound to the block's own tensors; ``pure.aux_index``
+    their indices in ``params``), as the reference's trainer folds them
+    back. ``rng_key`` (None, an int seed or a ``torch.Generator``) seeds
+    the call's random draws (dropout's key words); None draws from this
+    thread's generator."""
+    from ..ndarray.ndarray import NDArray
+    params = list(block.collect_params().values())
+    path = {id(t): n for n, t in block.named_parameters()}
+    names = [path[id(p.tensor())] for p in params]
+
+    def pure(rng_key, param_vals, *inputs):
+        values = dict(zip(names, param_vals))
+        where = {id(v): i for i, v in enumerate(param_vals)}
+        prev_mode = block.training
+        prev_rec = _tape.set_recording(False)
+        prev_gen = getattr(_random._state, "generator", None)
+        if rng_key is not None:
+            _random._state.generator = rng_key if isinstance(
+                rng_key, torch.Generator) else \
+                torch.Generator().manual_seed(int(rng_key))
+        block.train(train)
+        sink = _tape.push_aux_sink()
+        try:
+            out = functional_call(block, values, inputs)
+        finally:
+            _tape.pop_aux_sink()
+            block.train(prev_mode)
+            _tape.set_recording(prev_rec)
+            if rng_key is not None:
+                _random._state.generator = prev_gen
+        pure.aux_index = [where[id(h._data)] for h, _ in sink]
+        pure.aux_handles = [NDArray._bind(params[i].tensor())
+                            for i in pure.aux_index]
+        outs = out if isinstance(out, (list, tuple)) else (out,)
+        return tuple(outs), tuple(v for _, v in sink)
+
+    pure.aux_handles = []
+    pure.aux_index = []
+    return pure, params
 
 
 def functional_optimizer(name, **hyper):

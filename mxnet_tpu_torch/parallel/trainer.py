@@ -12,13 +12,20 @@ Queue A step 11) and raise ``NotImplementedError``.
 
 As in the reference, the trainer holds its own copy of every parameter (in
 ``dtype`` when given, the optimizer state likewise); the block's own
-parameters change only at :meth:`ShardedTrainer.sync_back`.
+trainable parameters change only at :meth:`ShardedTrainer.sync_back`.
+Aux state (BatchNorm's moving statistics) is carried as the reference
+carries it (``parallel/trainer.py:180-190``): each step's aux writes land
+in the trainer's own values, never pass through the optimizer (a
+weight-decayed update would decay them), and are copied into the block's
+tensors after the step, as the reference writes its handles.
 """
 from __future__ import annotations
 
 import torch
 from torch.func import functional_call
 
+from .. import _tape
+from .. import random as _random
 from ..context import default_device
 from .functional import functional_optimizer
 
@@ -72,7 +79,9 @@ class ShardedTrainer:
             self._values[name] = v.requires_grad_(p.requires_grad)
         self._states = {n: init_state(v) for n, v in self._values.items()
                         if v.requires_grad}
+        self._name_of = {id(v): n for n, v in self._values.items()}
         self._t = 0
+        self._generator = None
 
     @property
     def values(self):
@@ -113,8 +122,14 @@ class ShardedTrainer:
         try:
             for v in self._values.values():
                 v.grad = None
+            sink = _tape.push_aux_sink()
+            try:
+                with torch.enable_grad():
+                    out = functional_call(block, self._values, xs)
+            finally:
+                _tape.pop_aux_sink()
+            self._carry_aux(sink)
             with torch.enable_grad():
-                out = functional_call(block, self._values, xs)
                 if isinstance(out, (tuple, list)):
                     out = out[0]
                 loss = self._loss(out, y).mean()
@@ -122,6 +137,77 @@ class ShardedTrainer:
         finally:
             block.train(was_training)
         return loss.detach()
+
+    def _carry_aux(self, aux):
+        """Write a step's aux values into the trainer's values (the
+        carried state) and into the block's own tensors."""
+        own = dict(self._block.named_parameters())
+        with torch.no_grad():
+            for handle, value in aux:
+                handle._data.copy_(value)
+                own[self._name_of[id(handle._data)]].copy_(value)
+
+    def forward(self, data):
+        """Inference forward of the block on the trainer's values (no
+        gradient, no update); ``data`` is one input or a TUPLE."""
+        xs = tuple(self._place(x) for x in
+                   (data if isinstance(data, tuple) else (data,)))
+        if self._preprocess is not None:
+            xs = tuple(self._preprocess(x) for x in xs)
+        block = self._block
+        was_training = block.training
+        block.eval()
+        try:
+            with torch.no_grad():
+                out = functional_call(block, self._values, xs)
+        finally:
+            block.train(was_training)
+        return out
+
+    def _batch_generator(self):
+        """The trainer's own generator on its device, seeded at first use
+        from this thread's (``random.seed`` decides it)."""
+        if self._generator is None:
+            seed = int(torch.randint(0, 2 ** 62, (),
+                                     generator=_random.default_generator()))
+            self._generator = torch.Generator(self._device).manual_seed(seed)
+        return self._generator
+
+    def bench_span(self, steps, data_shape, num_classes, dtype=None):
+        """``steps`` training steps on batches generated on the device from
+        the trainer's own generator (uniform [0, 1) images of
+        ``data_shape`` in ``dtype``, float32 unless ``"bfloat16"``; uint8
+        under ``preprocess``, which then takes the raw shape; labels
+        uniform in ``[0, num_classes)`` as float32), each the same
+        :meth:`step` as a fed one. Returns the losses, shape
+        ``(steps,)``."""
+        dt = torch.bfloat16 if dtype in ("bfloat16", torch.bfloat16) \
+            else torch.float32
+
+        def make_batch(g):
+            if self._preprocess is not None:
+                x = torch.randint(0, 256, tuple(data_shape), generator=g,
+                                  device=self._device, dtype=torch.uint8)
+            else:
+                x = torch.rand(tuple(data_shape), generator=g,
+                               device=self._device, dtype=dt)
+            y = torch.randint(0, num_classes, (data_shape[0],), generator=g,
+                              device=self._device).float()
+            return (x,), y
+        return self.bench_span_fn(steps, make_batch)
+
+    def bench_span_fn(self, steps, make_batch, tag=None):
+        """Like :meth:`bench_span` with a caller's batch maker:
+        ``make_batch(generator)`` returns ``(x_args_tuple, y)`` made on the
+        device from the trainer's generator. ``tag`` is accepted for the
+        reference's signature (it keys a compile cache there)."""
+        gen = self._batch_generator()
+        losses = []
+        for _ in range(steps):
+            xs, y = make_batch(gen)
+            xs = tuple(xs)
+            losses.append(self.step(xs if len(xs) > 1 else xs[0], y))
+        return torch.stack(losses)
 
     def step_many(self, data, label, lr=None):
         """``data.shape[0]`` steps, one per entry of the leading axis of
