@@ -14,9 +14,13 @@ Builds the package's CUDA kernels from the sources in this checkout
    ``GenerationScheduler`` behind ``ModelServer`` on an ephemeral port.
    Eight concurrent ``POST /generate`` requests (prompt lengths 5, 37, 100,
    128, 200, 511, 700, 1000; 32 greedy tokens each). Checks that every
-   stream ends with ``{"done": true, "reason": "length", "n_tokens": 32}``,
-   that the flash kernel launched once per layer per prefill in that run,
-   and that the two longest streams equal greedy decoding by re-prefill: one
+   stream ends with ``{"done": true, "reason": "length", "n_tokens": 32}``;
+   that the engine's programs ran through ``CachedOp`` (one CUDA graph per
+   signature: after the burst, one decode graph and at most one prefill
+   graph a rung), so that the flash kernel launched 2 x 12 times for each
+   prefill rung captured in that run (the side-stream run and the
+   capture; a replay launches nothing the counters see); and that the two
+   longest streams equal greedy decoding by re-prefill: one
    full ``forward`` over prompt + stream on the plain attention path, whose
    argmax at each position must be the next streamed token.
 2. **Serving v2 phase: chunked prefill, the prefix cache, speculative
@@ -52,11 +56,21 @@ Builds the package's CUDA kernels from the sources in this checkout
    first=2)``: every stream equals its unarmed run, with 2 retries. (f)
    Each program alone, every slot holding a 1000-token prompt: the flash
    prefill at rung 1024, a 128-token chunk at 0 and at 896, the decode
-   step, the verify (8 slots x 5) and the 2-layer draft's step, 10 calls
-   each between CUDA events (and with ``--profile`` under
-   ``torch.profiler``: kernel busy ms and kernels a call). Flash launches
-   are counted per part against the prefills that take the monolithic
-   path. The tracer is on through the phase: each part prints its
+   step (these three CUDA-graph replays), the verify (8 slots x 5) and the
+   2-layer draft's step, 10 calls each between CUDA events (and with
+   ``--profile`` under ``torch.profiler``: kernel busy ms and kernels a
+   call). (g) The programs as graphs against the same programs run
+   eagerly (``DecodeEngine(cached=False)``), two engines on one model:
+   prefill, chunk and decode graphs captured on slots 0 and 5 and replayed
+   on slots 3 and 6 must leave both arenas and the sampled tokens equal
+   bit for bit; the decode step with every slot at a 1000-token prompt,
+   replay and eager, 10 calls between CUDA events and 10 more under
+   ``torch.profiler`` (kernels and busy ms a call); 12 greedy requests of
+   mixed lengths and budgets through the 8 slots must give the same
+   streams in both engines, after which the graph engine holds one decode
+   graph and at most one prefill graph a rung. Flash launches are counted
+   per part: 2 x 12 for each prefill rung an engine captured, 12 for each
+   eager prefill. The tracer is on through the phase: each part prints its
    generation spans' counts and mean host ms (the draft engine's as
    ``generation.draft.*``). After both serving phases every engine is
    closed or dropped: more than 512 MiB of device memory still allocated
@@ -216,6 +230,28 @@ Builds the package's CUDA kernels from the sources in this checkout
     in float64 from the layer's input) within 1e-5 of their largest
     |value|, in the trainer and in the block (a decay would move them
     1%). No flash kernel may launch in the phase.
+12. **Data phase: ResNet-50 v1 trained from a RecordIO file.** The native
+    IO library is built from ``mxnet_tpu_torch/csrc/io/`` with ``g++``
+    (JPEG only where libjpeg's headers are present). 640 raw records
+    (``pack_img(..., ".raw")``), each a 3 x 256 x 256 uint8 image from
+    ``--seed``, about 126 MB, are written to a temporary directory and
+    read by ``ImageRecordIter(data_shape=(3, 224, 224), batch_size=32,
+    rand_crop=True, rand_mirror=True)`` with the ImageNet mean and std; it
+    must take the native pump. The pump alone is timed over an epoch, and
+    a pinned-to-device copy of one batch (H2D GB/s). Per dtype (fp32 with
+    TF32 off; bf16 with the net cast and the batch cast in the step), with
+    cuDNN's deterministic algorithms: a ``DeviceFeed`` (depth 4,
+    prefilled) feeds ``ShardedTrainer.step_stream`` (SGD lr 0.1 momentum
+    0.9, chunk 8, 16 steps); no stage wait may occur; each staged batch's
+    checksum (the sum of its bit patterns, taken on the consumer's stream)
+    must equal its host batch's; the losses must equal, bit for bit,
+    ``step()`` calls of a second trainer from the same parameters over the
+    same host batches; then an 8-step ``bench_span`` on the fed trainer.
+    Prints data-fed against ``bench_span`` ms a step and img/s and
+    ``feed_stats()``. Then four batches of ``DataLoader(ImageRecordDataset
+    (...).transform_first(Compose([ToTensor(), Normalize(...)])),
+    batch_size=32, pin_memory=True, num_workers=4)`` must be CUDA
+    NDArrays equal to the unpinned loader's. No flash kernel may launch.
 
 With ``--profile`` the burst is served a second time, serving v2's part
 (f) is profiled, and two fp32 and two bf16 training steps, two bf16 BERT
@@ -225,12 +261,13 @@ phase) are run, under ``torch.profiler`` (after the checked runs) to
 print the device's busy share, its kernel count and its top kernels.
 
 Prints the serving, serving v2, training, BERT, surface, predict,
-autograd, registry-op and vision numbers, one ``{"kernels": [...]}`` line with an
+autograd, registry-op, vision and data numbers, one ``{"kernels": [...]}``
+line with an
 entry per TPU kernel (the three (B, S, H, D) ones with the numbers of the
 training shape in fp32, under ``*_bf16`` keys in bf16, and under ``bert``
 those of the BERT shape; the three (B, H, S, D) ones with the numbers of
-the registry op's shape; every kernel's launches also under ``vision``,
-where none runs), the card's name and power limit, and last
+the registry op's shape; every kernel's launches also under ``vision``
+and ``data``, where none runs), the card's name and power limit, and last
 ``{"ok": true, "device": {...}}``.
 Any failure exits non-zero before that line. Without CUDA it exits 2.
 """
@@ -286,6 +323,33 @@ SURFACE_PARAM_TOL = 1e-5
 
 def fail(msg):
     raise SystemExit("chip_smoke: FAILED: " + msg)
+
+
+def live_tensors(torch, top=8):
+    """The largest CUDA tensors still alive, with what holds them (the
+    types of their referrers, two levels up): what a failed memory check
+    prints."""
+    found = []
+    for obj in gc.get_objects():
+        try:
+            if isinstance(obj, torch.Tensor) and obj.is_cuda:
+                found.append(obj)
+        except Exception:  # noqa: BLE001 — objects that refuse inspection
+            continue
+    found.sort(key=lambda t: -t.untyped_storage().nbytes())
+    out = []
+    for t in found[:top]:
+        holders = []
+        for r in gc.get_referrers(t):
+            if r is found:
+                continue
+            up = [type(q).__name__ for q in gc.get_referrers(r)
+                  if q is not found][:4]
+            holders.append("%s<-%s" % (type(r).__name__, "/".join(up)))
+        out.append("%s %s %d B held by %s" % (
+            tuple(t.shape), t.dtype, t.untyped_storage().nbytes(),
+            ", ".join(holders[:4])))
+    return "; ".join(out)
 
 
 def card_line():
@@ -398,6 +462,7 @@ def serving_phase(args, torch):
     srv = ModelServer(None, port=0, generator=sched).start()
     try:
         prefills0 = eng.stats()["prefill_total"]
+        captures0 = prefill_captures(eng)
         fa.reset_launches()
         results, wall = run_burst(srv.url, prompts)
         torch.cuda.synchronize()
@@ -407,6 +472,8 @@ def serving_phase(args, torch):
                 fa.flash_attention_bwd_dkv.launches:
             fail("serving launched a backward kernel")
         prefills = eng.stats()["prefill_total"] - prefills0
+        captures = prefill_captures(eng) - captures0
+        compile_st = eng.compile_stats()
         snap = sched.metrics.snapshot()
         prof = profile(torch, lambda: run_burst(srv.url, prompts)) \
             if args.profile else None
@@ -428,9 +495,11 @@ def serving_phase(args, torch):
         streams.append(toks)
     if prefills != len(prompts):
         fail("%d prefills for %d requests" % (prefills, len(prompts)))
-    if launches != prefills * model.num_layers:
-        fail("flash kernel launched %d times for %d prefills x %d layers"
-             % (launches, prefills, model.num_layers))
+    check_compile(compile_st, "serving")
+    if not captures or \
+            launches != CAPTURE_RUNS * captures * model.num_layers:
+        fail("flash kernel launched %d times for %d prefill captures x %d "
+             "layers" % (launches, captures, model.num_layers))
     checked = []
     for idx in np.argsort(PROMPT_LENS)[-2:]:
         check_reprefill(torch, model, prompts[idx], streams[idx], "serving")
@@ -439,7 +508,8 @@ def serving_phase(args, torch):
     return {
         "model": "transformer_lm_base", "requests": len(prompts),
         "prompt_lens": list(PROMPT_LENS), "new_tokens": NEW_TOKENS,
-        "prefills": prefills, "flash_launches": launches,
+        "prefills": prefills, "prefill_captures": captures,
+        "flash_launches": launches, "compile": compile_st,
         "ttft_ms_p50_client": 1e3 * float(np.median(ttfts)),
         "ttft_ms_server": snap["ttft_ms"],
         "decode_tokens_s": snap["decode_tokens_s"],
@@ -473,6 +543,29 @@ NEAR_TIE = 1e-5
 def flash_launches():
     from mxnet_tpu_torch.ops import flash_attention as fa
     return fa.flash_attention_bshd.launches + fa.flash_attention.launches
+
+
+# a CachedOp runs a program twice when it captures it (on a side stream,
+# then into the graph), and a replay launches nothing that the wrappers
+# count: a prefill program's flash kernels launch 2 x layers times at
+# each capture and never again
+CAPTURE_RUNS = 2
+
+
+def prefill_captures(*engines):
+    """Prefill signatures captured by ``engines`` (each one a CUDA graph;
+    counted on closed engines too)."""
+    return sum(e.compile_stats()["prefill"]["misses"] for e in engines)
+
+
+def check_compile(stats, what):
+    """The churn contract: one decode graph, at most one prefill graph a
+    ladder rung, whatever joined and left the batch."""
+    if stats["decode"]["misses"] != 1 or \
+            stats["prefill"]["misses"] > len(LADDER):
+        fail("%s: %d decode and %d prefill captures (ladder %d)"
+             % (what, stats["decode"]["misses"], stats["prefill"]["misses"],
+                len(LADDER)))
 
 
 def reprefill_logits(torch, model, prompt, toks):
@@ -705,6 +798,7 @@ def v2_chunked(args, torch, model, dev):
         finally:
             sched.close()
             eng.close()
+        captures = prefill_captures(eng)
         gaps = [b - a for st in stamps for a, b in zip(st, st[1:])]
         runs[label] = {
             "chunk": chunk, "inter_token_p99_ms": 1e3 * nearest_rank(gaps, 99),
@@ -713,8 +807,12 @@ def v2_chunked(args, torch, model, dev):
             "long_ttft_ms": 1e3 * (long_req.first_token_t
                                    - long_req.enqueue_t),
             "long_tokens": long_toks, "chunk_calls": chunks,
+            "prefill_captures": captures,
             "flash_launches": flash_launches() - f0, "spans": spans()}
-    want = {"monolithic": 4 * model.num_layers, "chunked": 0}
+    want = {"monolithic": CAPTURE_RUNS * model.num_layers
+            * runs["monolithic"]["prefill_captures"], "chunked": 0}
+    if not runs["monolithic"]["prefill_captures"]:
+        fail("monolithic: no prefill captured")
     for label, n in want.items():
         if runs[label]["flash_launches"] != n:
             fail("%s: %d flash launches, want %d"
@@ -780,9 +878,12 @@ def v2_speculative(args, torch, model, dev, ties):
                 spec.close()
             eng.close()
         flash = flash_launches() - f0
-        if flash != SPEC_REPEATS * len(prompts) * model.num_layers:
-            fail("%s: %d flash launches for %d prefills"
-                 % (label, flash, SPEC_REPEATS * len(prompts)))
+        captures = prefill_captures(eng)
+        if flash != CAPTURE_RUNS * captures * model.num_layers:
+            fail("%s: %d flash launches for %d prefill captures"
+                 % (label, flash, captures))
+        if spec is None:
+            check_compile(eng.compile_stats(), label)
         tokens_s = sorted(len(prompts) * NEW_TOKENS / w for w in walls)
         run = {"walls_s": walls, "tokens_s": tokens_s[len(walls) // 2],
                "tokens_s_min": tokens_s[0], "tokens_s_max": tokens_s[-1],
@@ -876,8 +977,9 @@ def v2_retry(args, torch, model, dev):
     if armed != clean or retries != 2 or failures:
         fail("under chaos: streams equal %s, %d retries, %d step failures"
              % (armed == clean, retries, failures))
-    if flash != 2 * len(prompts) * model.num_layers:
-        fail("retry: %d flash launches" % flash)
+    if flash != CAPTURE_RUNS * prefill_captures(eng) * model.num_layers:
+        fail("retry: %d flash launches for %d prefill captures"
+             % (flash, prefill_captures(eng)))
     return {"requests": len(prompts), "retries": retries,
             "flash_launches": flash}
 
@@ -939,11 +1041,118 @@ def v2_programs(args, torch, model, dev):
         spec.close()
         eng.close()
     flash = flash_launches() - f0
-    # the prefill program runs once more per call under the profiler
-    calls = eng.num_slots + 1 + PROGRAM_CALLS * (2 if args.profile else 1)
-    if flash != calls * model.num_layers:
-        fail("programs: %d flash launches for %d prefills" % (flash, calls))
-    return {"calls": PROGRAM_CALLS, "programs": out, "flash_launches": flash}
+    captures = prefill_captures(eng)
+    if captures != 1 or flash != CAPTURE_RUNS * model.num_layers:
+        fail("programs: %d flash launches for %d prefill captures"
+             % (flash, captures))
+    return {"calls": PROGRAM_CALLS, "programs": out, "flash_launches": flash,
+            "compile": eng.compile_stats()}
+
+
+def _arenas_equal(torch, a, b):
+    return all(torch.equal(getattr(a.cache, k), getattr(b.cache, k))
+               for k in ("k_arena", "v_arena"))
+
+
+def v2_graphs(args, torch, model, dev):
+    """(g) The generation programs as CUDA graphs against the same
+    programs run eagerly (``DecodeEngine(cached=False)``): the slot swap,
+    the decode step's ms and kernels a call, greedy streams of a churned
+    burst, and the compile counts after it."""
+    from mxnet_tpu_torch.serving.generation import (DecodeEngine,
+                                                    GenerationScheduler)
+    rng = np.random.default_rng(args.seed + 9)
+    prompt = rng.integers(0, 32000, LONG_LEN).tolist()
+
+    def make(cached, name):
+        return DecodeEngine(model, num_slots=8, max_seq=2048, ladder=LADDER,
+                            dtype="float32", seed=args.seed, device=dev,
+                            chunk=0, prefix_cache=False, name=name,
+                            cached=cached)
+    f0 = flash_launches()
+    graphs, eager = make(True, "v2.graphs"), make(False, "v2.eager")
+    out = {}
+    try:
+        # every program captured on one slot and replayed on another
+        # (the slot, the start and the lengths are device tensors)
+        for eng in (graphs, eager):
+            for _ in range(eng.num_slots):
+                eng.cache.acquire()
+            first = [eng.prefill(0, prompt[:100]),
+                     eng.prefill(3, prompt[100:190])]
+            eng.prefill_chunks(5, prompt[:300], 0)
+            eng.prefill_chunks(6, prompt[300:590], 0)
+            cur = np.asarray(first + [7] * 6, np.int64)
+            for _ in range(4):
+                cur = eng.decode_step(cur, np.zeros(8, np.float32))
+                eng.cache.advance(list(range(8)))
+            eng.swap_tokens = cur.tolist()
+        st = graphs.compile_stats()
+        if st["prefill"]["misses"] != 1 or st["prefill"]["hits"] != 1 or \
+                st["chunk"]["misses"] != 1 or st["chunk"]["hits"] != 1 or \
+                st["decode"]["misses"] != 1:
+            fail("slot swap: captures %r" % {
+                k: (v["misses"], v["hits"]) for k, v in st.items()})
+        if not _arenas_equal(torch, graphs, eager) or \
+                graphs.swap_tokens != eager.swap_tokens:
+            fail("slot swap: a graph captured on slot 0 and replayed on "
+                 "slot 3 left another arena than the eager programs")
+        # the decode step, every slot at a 1000-token prompt
+        zeros = np.zeros(8, np.int64)
+        temps = np.zeros(8, np.float32)
+        for eng in (graphs, eager):
+            for slot in range(8):
+                eng.prefill(slot, prompt)
+        for label, eng in (("replay", graphs), ("eager", eager)):
+            eng.decode_step(zeros, temps)
+            torch.cuda.synchronize()
+            ms = _events_ms(torch, lambda: eng.decode_step(zeros, temps),
+                            PROGRAM_CALLS)
+            prof = profile(torch, lambda: [eng.decode_step(zeros, temps)
+                                           for _ in range(PROGRAM_CALLS)])
+            out["decode_" + label] = {
+                "ms": ms, "kernels": prof["kernels_launched"] / PROGRAM_CALLS,
+                "busy_ms": prof["device_busy_ms"] / PROGRAM_CALLS}
+        if not _arenas_equal(torch, graphs, eager):
+            fail("decode step: replay and eager arenas differ")
+        for eng in (graphs, eager):
+            for slot in range(8):
+                eng.cache.release(slot)
+        # a churned burst: 12 requests of mixed lengths and budgets
+        # through 8 slots, greedy, in both engines
+        lens = list(PROMPT_LENS) + [17, 64, 300, 90]
+        budgets = [8, 16, 24, 32] * 3
+        prompts = [rng.integers(0, 32000, n).tolist() for n in lens]
+        streams = {}
+        for label, eng in (("replay", graphs), ("eager", eager)):
+            sched = GenerationScheduler(eng, name="v2.graphs." + label)
+            try:
+                reqs = [sched.submit(p, max_new_tokens=n)
+                        for p, n in zip(prompts, budgets)]
+                streams[label] = [r.result(timeout=600) for r in reqs]
+            finally:
+                sched.close()
+        if streams["replay"] != streams["eager"]:
+            bad = sum(a != b for a, b in zip(streams["replay"],
+                                             streams["eager"]))
+            fail("greedy streams: %d of %d differ between replay and eager"
+                 % (bad, len(prompts)))
+        st = graphs.compile_stats()
+        check_compile(st, "churned burst")
+        out["compile"] = st
+        out["requests"] = len(prompts)
+        eager_prefills = eager.stats()["prefill_total"]
+    finally:
+        graphs.close()
+        eager.close()
+    flash = flash_launches() - f0
+    want = (CAPTURE_RUNS * prefill_captures(graphs) + eager_prefills) * \
+        model.num_layers
+    if flash != want:
+        fail("graphs: %d flash launches, want %d" % (flash, want))
+    out["flash_launches"] = flash
+    out["eager_prefills"] = eager_prefills
+    return out
 
 
 def serving_v2_phase(args, torch):
@@ -965,7 +1174,8 @@ def serving_v2_phase(args, torch):
                "speculative": v2_speculative(args, torch, model, dev, ties),
                "lanes": v2_lanes(args, torch, model, dev),
                "retry": v2_retry(args, torch, model, dev),
-               "programs": v2_programs(args, torch, model, dev)}
+               "programs": v2_programs(args, torch, model, dev),
+               "graphs": v2_graphs(args, torch, model, dev)}
     finally:
         tracer.disable()
     launches = kernel_launches()
@@ -977,7 +1187,8 @@ def serving_v2_phase(args, torch):
              + sum(out["speculative"][k]["flash_launches"]
                    for k in ("plain", "self_draft", "independent_draft"))
              + out["retry"]["flash_launches"]
-             + out["programs"]["flash_launches"])
+             + out["programs"]["flash_launches"]
+             + out["graphs"]["flash_launches"])
     flash = launches["flash_attn_fwd"] + launches["flash_attn_fwd_bhsd"]
     if flash != parts or not flash:
         fail("serving v2: %d flash launches, the parts count %d"
@@ -2537,8 +2748,232 @@ def vision_phase(args, torch):
     return out
 
 
+# the data phase: ResNet-50 v1 trained from a RecordIO file
+DATA_IMAGES, DATA_SIDE = 640, 256          # raw 3 x 256 x 256 uint8 records
+DATA_STEPS, DATA_CHUNK, DATA_DEPTH = 16, 8, 4
+DATA_MEAN = (123.68, 116.28, 103.53)       # the reference's ImageNet ones
+DATA_STD = (58.395, 57.12, 57.375)
+DATA_LOADER_BATCHES, DATA_LOADER_WORKERS = 4, 4
+DATA_H2D_COPIES = 10
+
+
+def write_rec(args, dirname):
+    """``DATA_IMAGES`` raw records (``pack_img(..., ".raw")``: the card
+    has no libjpeg), each a 3 x 256 x 256 uint8 image made from ``--seed``
+    with numpy, label ``i % 1000``, with an ``.idx`` for the datasets."""
+    from mxnet_tpu_torch import recordio
+    path = os.path.join(dirname, "train.rec")
+    rec = recordio.MXIndexedRecordIO(path[:-4] + ".idx", path, "w")
+    rng = np.random.default_rng(args.seed + 11)
+    for i in range(DATA_IMAGES):
+        img = rng.integers(0, 256, (DATA_SIDE, DATA_SIDE, 3), dtype=np.uint8)
+        rec.write_idx(i, recordio.pack_img(
+            recordio.IRHeader(0, float(i % VISION_CLASSES), i, 0), img,
+            img_fmt=".raw"))
+    rec.close()
+    return path
+
+
+def _bits_sum(a):
+    """An exact, order-free checksum of float32 data: the sum of its bit
+    patterns as int64 (numpy array or tensor)."""
+    if isinstance(a, np.ndarray):
+        return int(a.view(np.int32).astype(np.int64).sum())
+    import torch
+    return a.contiguous().view(torch.int32).to(torch.int64).sum()
+
+
+class _Kept:
+    """An iterator's host batches, passed on and kept (``step()`` runs
+    over the same batches afterwards)."""
+
+    def __init__(self, it):
+        self.it = it
+        self.batches = []
+
+    def __iter__(self):
+        for b in self.it:
+            x, y = b.data[0].asnumpy(), b.label[0].asnumpy()
+            self.batches.append((x, y))
+            yield x, y
+
+
+def _checked_feed(torch):
+    from mxnet_tpu_torch.parallel import DeviceFeed
+
+    class CheckedFeed(DeviceFeed):
+        """A DeviceFeed that takes each served batch's checksum on the
+        consumer's stream (no host sync)."""
+
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            self.sums = []
+
+        def __next__(self):
+            item = super().__next__()
+            self.sums.append(_bits_sum(item[0][0]))
+            return item
+    return CheckedFeed
+
+
+def data_training(args, torch, path, dname):
+    """One dtype: ``step_stream`` over a ``DeviceFeed`` of the native
+    ``ImageRecordIter``, then ``step()`` over the same host batches from
+    the same parameters, then ``bench_span`` on the fed trainer."""
+    from mxnet_tpu_torch import random as trandom
+    from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+    from mxnet_tpu_torch.io import ImageRecordIter
+    from mxnet_tpu_torch.parallel import ShardedTrainer
+    net = _resnet50(torch, trandom, args.seed)
+    pre = None
+    if dname == "bfloat16":
+        net.cast("bfloat16")
+        pre = lambda x: x.to(torch.bfloat16)   # noqa: E731
+    fed, ref = (ShardedTrainer(net, SoftmaxCrossEntropyLoss(), "sgd",
+                               dict(VISION_SGD), preprocess=pre)
+                for _ in range(2))
+    it = ImageRecordIter(path, **_record_kw())
+    if not it.native:
+        fail("data %s: ImageRecordIter took the pure-Python path" % dname)
+    kept = _Kept(it)
+    feed = _checked_feed(torch)(kept, depth=DATA_DEPTH, name="data." + dname)
+    try:
+        staged = feed.prefill(timeout=120.0)
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        e0.record()
+        losses = fed.step_stream(feed, steps=DATA_STEPS, chunk=DATA_CHUNK)
+        e1.record()
+        torch.cuda.synchronize()
+        fed_ms = e0.elapsed_time(e1) / DATA_STEPS
+        stats = feed.stats()
+        sums = [int(v) for v in feed.sums]
+    finally:
+        feed.close()
+        it.close()
+    if stats["stage_waits"]:
+        fail("data %s: the consumer waited %d times on staging after the "
+             "warm-up" % (dname, stats["stage_waits"]))
+    host = kept.batches[:DATA_STEPS]
+    if len(sums) != DATA_STEPS or \
+            sums != [_bits_sum(x) for x, _ in host]:
+        fail("data %s: a staged batch differs from its host batch" % dname)
+    ref_losses = torch.stack([ref.step(x, y) for x, y in host])
+    if not torch.equal(losses, ref_losses):
+        fail("data %s: step_stream losses %s != step() losses %s"
+             % (dname, losses.tolist(), ref_losses.tolist()))
+    fl = [float(v) for v in losses]
+    if not all(np.isfinite(fl)):
+        fail("data %s: losses not finite: %r" % (dname, fl))
+    e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    e0.record()
+    fed.bench_span(VISION_SPAN, (VISION_BATCH, 3, VISION_IMAGE,
+                                 VISION_IMAGE), VISION_CLASSES, dtype=dname)
+    e1.record()
+    torch.cuda.synchronize()
+    span_ms = e0.elapsed_time(e1) / VISION_SPAN
+    del fed, ref, net
+    return {"losses": fl, "fed_step_ms": fed_ms,
+            "fed_img_s": VISION_BATCH * 1e3 / fed_ms,
+            "span_step_ms": span_ms,
+            "span_img_s": VISION_BATCH * 1e3 / span_ms,
+            "staged_before": staged, "feed": stats}
+
+
+def _record_kw():
+    return dict(data_shape=(3, VISION_IMAGE, VISION_IMAGE),
+                batch_size=VISION_BATCH, rand_crop=True, rand_mirror=True,
+                mean_r=DATA_MEAN[0], mean_g=DATA_MEAN[1],
+                mean_b=DATA_MEAN[2], std_r=DATA_STD[0], std_g=DATA_STD[1],
+                std_b=DATA_STD[2])
+
+
+def data_loader_check(torch, path):
+    """``DataLoader(ImageRecordDataset(...).transform_first(...),
+    pin_memory=True, num_workers=4)``: four batches, CUDA NDArrays equal
+    to the unpinned loader's."""
+    import itertools
+    from mxnet_tpu_torch.gluon.data import DataLoader
+    from mxnet_tpu_torch.gluon.data.vision import ImageRecordDataset
+    from mxnet_tpu_torch.gluon.data.vision import transforms as T
+    tf = T.Compose([T.ToTensor(),
+                    T.Normalize([m / 255 for m in DATA_MEAN],
+                                [d / 255 for d in DATA_STD])])
+    ds = ImageRecordDataset(path).transform_first(tf)
+    got = {}
+    t0 = time.perf_counter()
+    for pin in (True, False):
+        loader = DataLoader(ds, batch_size=VISION_BATCH, pin_memory=pin,
+                            num_workers=DATA_LOADER_WORKERS)
+        got[pin] = [(x.asnumpy(), y.asnumpy(), x.ctx.device_type)
+                    for x, y in itertools.islice(loader,
+                                                 DATA_LOADER_BATCHES)]
+        del loader
+    wall = time.perf_counter() - t0
+    for (a, b, dev), (c, d, host) in zip(got[True], got[False]):
+        if dev != "gpu" or host != "cpu" or not np.array_equal(a, c) or \
+                not np.array_equal(b, d):
+            fail("pinned DataLoader batch (%s) differs from the unpinned "
+                 "one (%s)" % (dev, host))
+    if len(got[True]) != DATA_LOADER_BATCHES:
+        fail("pinned DataLoader gave %d batches" % len(got[True]))
+    return {"batches": DATA_LOADER_BATCHES, "workers": DATA_LOADER_WORKERS,
+            "wall_s": wall, "shape": list(got[True][0][0].shape)}
+
+
+def data_phase(args, torch):
+    """ResNet-50 v1 trained from a RecordIO file: the native pump, a
+    ``DeviceFeed`` of pinned host buffers, ``step_stream``; the pinned
+    ``DataLoader``. No flash kernel runs on this path."""
+    import tempfile
+    from mxnet_tpu_torch import _native
+    from mxnet_tpu_torch.io import ImageRecordIter
+    from mxnet_tpu_torch.ops import flash_attention as fa
+    t0 = time.perf_counter()
+    fa.reset_launches()
+    t = time.perf_counter()
+    _native.build()
+    out = {"native_build_s": time.perf_counter() - t,
+           "native_jpeg": _native.has_jpeg()}
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_rec_") as d:
+        t = time.perf_counter()
+        path = write_rec(args, d)
+        out["rec_write_s"] = time.perf_counter() - t
+        out["rec_bytes"] = os.path.getsize(path)
+        it = ImageRecordIter(path, **_record_kw())
+        if not it.native:
+            fail("data: ImageRecordIter took the pure-Python path")
+        t = time.perf_counter()
+        n = sum(1 for _ in it)
+        out["pump_batches_s"] = n / (time.perf_counter() - t)
+        it.close()
+        pinned = torch.empty((VISION_BATCH, 3, VISION_IMAGE, VISION_IMAGE),
+                             pin_memory=True)
+        dev = torch.empty(pinned.shape, device="cuda")
+        dev.copy_(pinned, non_blocking=True)
+        ms = _events_ms(torch, lambda: dev.copy_(pinned, non_blocking=True),
+                        DATA_H2D_COPIES)
+        out["h2d_gb_s"] = pinned.numel() * 4 / ms / 1e6
+        del pinned, dev
+        try:
+            for dname in ("float32", "bfloat16"):
+                out[dname] = data_training(args, torch, path, dname)
+                gc.collect()
+                torch.cuda.empty_cache()
+        finally:
+            torch.backends.cudnn.deterministic = det
+        out["loader"] = data_loader_check(torch, path)
+    out["launches"] = kernel_launches()
+    if any(out["launches"].values()):
+        fail("data: a flash kernel launched on the data path: %s"
+             % out["launches"])
+    out["wall_s"] = time.perf_counter() - t0
+    return out
+
+
 def kernel_entries(serving, v2, training, bert, surface, core, vision,
-                   fwd_cases, bwd_cases):
+                   data, fwd_cases, bwd_cases):
     """The ``{"kernels": [...]}`` entries, one per TPU kernel. The three
     ``(B, S, H, D)`` ones: numbers of the main path's training shape (B 32,
     S 512, H 12, D 64, causal) in fp32, and under ``*_bf16`` keys in bf16;
@@ -2595,7 +3030,8 @@ def kernel_entries(serving, v2, training, bert, surface, core, vision,
              "surface": surface["launches"]["flash_attn_fwd"],
              "predict": core["predict"]["flash_attn_fwd"],
              "autograd": core["autograd"]["flash_attn_fwd"],
-             "vision": vision["launches"]["flash_attn_fwd"]}
+             "vision": vision["launches"]["flash_attn_fwd"],
+             "data": data["launches"]["flash_attn_fwd"]}
     train_timed = "B=%d S=%d H=12 D=64 BSHD causal, float32 (*_bf16: " \
         "bfloat16)" % (TRAIN_BATCH, TRAIN_SEQ)
     reg_timed = "B=8 S=512 H=12 D=64 BHSD causal with a key mask, float32 " \
@@ -2615,7 +3051,8 @@ def kernel_entries(serving, v2, training, bert, surface, core, vision,
                         if c["layout"] == "BHSD"),
         launches=reg["flash_attn_fwd_bhsd"],
         launches_by_path={"registry_op": reg["flash_attn_fwd_bhsd"],
-                          "vision": vision["launches"]["flash_attn_fwd_bhsd"]},
+                          "vision": vision["launches"]["flash_attn_fwd_bhsd"],
+                          "data": data["launches"]["flash_attn_fwd_bhsd"]},
         **timed(pick(fwd_cases, B=8, layout="BHSD"),
                 pick(fwd_cases, "bfloat16", B=8, layout="BHSD"))))
     for name, part, line, line_bhsd in (
@@ -2627,7 +3064,8 @@ def kernel_entries(serving, v2, training, bert, surface, core, vision,
               "surface": surface["launches"][name],
               "predict": core["predict"][name],
               "autograd": core["autograd"][name],
-              "vision": vision["launches"][name]}
+              "vision": vision["launches"][name],
+              "data": data["launches"][name]}
         for layout, ln in (("BSHD", line), ("BHSD", line_bhsd)):
             errs = [c["max_abs_err"][n] for c in bwd_cases
                     if c["layout"] == layout
@@ -2642,7 +3080,8 @@ def kernel_entries(serving, v2, training, bert, surface, core, vision,
                 e = dict(name=name + "_bhsd", line=ln, timed_case=reg_timed,
                          launches=reg[name],
                          launches_by_path={"registry_op": reg[name],
-                                           "vision": vision["launches"][name]},
+                                           "vision": vision["launches"][name],
+                                           "data": data["launches"][name]},
                          **timed(pick(bwd_cases, B=8, layout="BHSD"),
                                  pick(bwd_cases, "bfloat16", B=8,
                                       layout="BHSD"), part))
@@ -2710,6 +3149,16 @@ def print_v2(v2):
                  % (r["busy_ms"], r["kernels"], "; ".join(
                      "%s x%d %.2f ms" % (k["name"][:40], k["calls"], k["ms"])
                      for k in r["top"]))))
+    g = v2["graphs"]
+    print("serving v2 (g) decode step, 8 slots at %d tokens: replay %.3f ms "
+          "a call (%.0f kernels, busy %.3f ms), eager %.3f ms (%.0f kernels, "
+          "busy %.3f ms); slot swap bitwise; %d churned greedy streams equal "
+          "eager; captures %s" % (
+              LONG_LEN, g["decode_replay"]["ms"],
+              g["decode_replay"]["kernels"], g["decode_replay"]["busy_ms"],
+              g["decode_eager"]["ms"], g["decode_eager"]["kernels"],
+              g["decode_eager"]["busy_ms"], g["requests"],
+              {k: v["misses"] for k, v in g["compile"].items()}))
     print("serving v2 (c) speculative streams token-exact against plain; "
           "near ties %d; (d) lanes: prefill lane retired %r, decode lane "
           "skipped %d tokens, %d misses; (e) retry: %d retries, streams "
@@ -2753,9 +3202,11 @@ def main():
              serving["ttft_ms_p50_client"], serving["decode_tokens_s"],
              serving["step_ms_mean"], serving["prefill_ms_mean"]))
     print("serving: greedy streams equal re-prefill for prompts of %s "
-          "tokens; flash launches %d = %d prefills x 12 layers"
+          "tokens; flash launches %d = 2 x %d prefill captures x 12 layers "
+          "(%d prefills); captures %s"
           % (serving["greedy_reprefill_checked"], serving["flash_launches"],
-             serving["prefills"]))
+             serving["prefill_captures"], serving["prefills"],
+             {k: v["misses"] for k, v in serving["compile"].items()}))
 
     v2 = serving_v2_phase(args, torch)
     print_v2(v2)
@@ -2766,8 +3217,8 @@ def main():
     print("serving: %d bytes of device memory still allocated after both "
           "serving phases" % leftover)
     if leftover > LEFTOVER_BYTES:
-        fail("%d bytes of device memory outlive the serving phases"
-             % leftover)
+        fail("%d bytes of device memory outlive the serving phases; the "
+             "largest live tensors: %s" % (leftover, live_tensors(torch)))
 
     training = train_phase(args, torch)
     for dname in ("float32", "bfloat16"):
@@ -2892,6 +3343,31 @@ def main():
     print("vision: flash launches %s; %.1f s" % (vision["launches"],
                                                  vision["wall_s"]),
           flush=True)
+    data = data_phase(args, torch)
+    print("data: native IO library built in %.1f s (JPEG %s); %d raw "
+          "records, %d bytes, written in %.1f s; the pump alone %.2f "
+          "batches/s (b%d, 224 crops, mirror, mean/std); H2D %.1f GB/s "
+          "(pinned, %d copies) [%s]" % (
+              data["native_build_s"], "on" if data["native_jpeg"] else "off",
+              DATA_IMAGES, data["rec_bytes"], data["rec_write_s"],
+              data["pump_batches_s"], VISION_BATCH, data["h2d_gb_s"],
+              DATA_H2D_COPIES, card), flush=True)
+    for dname in ("float32", "bfloat16"):
+        t = data[dname]
+        print("data %s: step_stream %d steps (chunk %d, depth %d) %.2f ms a "
+              "step (%.1f img/s) against bench_span %.2f ms (%.1f img/s); "
+              "losses == step() bitwise, checksums equal, stage waits %d; "
+              "feed %s; losses %s [%s]" % (
+                  dname, DATA_STEPS, DATA_CHUNK, DATA_DEPTH,
+                  t["fed_step_ms"], t["fed_img_s"], t["span_step_ms"],
+                  t["span_img_s"], t["feed"]["stage_waits"], t["feed"],
+                  ", ".join("%.4f" % v for v in t["losses"]), card),
+              flush=True)
+    print("data: pinned DataLoader (%d workers) %d batches %s == unpinned, "
+          "%.1f s; flash launches %s; %.1f s" % (
+              data["loader"]["workers"], data["loader"]["batches"],
+              data["loader"]["shape"], data["loader"]["wall_s"],
+              data["launches"], data["wall_s"]), flush=True)
 
     for tag, prof in (("serving burst", serving["profile"]),
                       ("2 fp32 training steps",
@@ -2946,7 +3422,7 @@ def main():
                  ",".join("%.2g" % v for v in
                           c["max_err_rel_to_max"].values())))
     entries = kernel_entries(serving, v2, training, bert, surface, core,
-                             vision, fwd_cases, bwd_cases)
+                             vision, data, fwd_cases, bwd_cases)
     if args.out:
         with open(args.out, "w") as f:
             json.dump({"serving": serving, "serving_v2": v2,
@@ -2954,6 +3430,7 @@ def main():
                        "bert": bert, "surface": surface,
                        "predict": predict, "autograd": core_ag,
                        "registry_op": registry, "vision": vision,
+                       "data": data,
                        "kernels": entries, "card": card,
                        "build_s": build_s}, f, indent=1)
     print(json.dumps({"kernels": [{k: v for k, v in e.items()

@@ -25,11 +25,17 @@ What the port carries so far:
   ``csrc/flash_attn_bwd.cu``);
 - serving: ``/predict`` (``ModelServer(engine)`` over a
   ``DynamicBatcher`` over an ``InferenceEngine``) and ``/generate``
-  (``GenerationScheduler(DecodeEngine(lm))``).
+  (``GenerationScheduler(DecodeEngine(lm))``, its programs through
+  ``CachedOp``);
+- the data path: ``recordio``, ``io`` (``NDArrayIter``,
+  ``ImageRecordIter`` on the native pump built from ``csrc/io/``),
+  ``image``, ``gluon.data`` (datasets, samplers, ``DataLoader``, vision
+  transforms) and ``parallel.DeviceFeed`` (pinned staging on a CUDA
+  stream) under ``ShardedTrainer.step_stream``.
 """
 from . import (autograd, base, config, context, convert, engine, gluon,
-               initializer, lr_scheduler, models, ndarray, ops, optimizer,
-               parallel, random, runtime, serving)
+               image, initializer, io, lr_scheduler, models, ndarray, ops,
+               optimizer, parallel, random, recordio, runtime, serving)
 from .base import MXNetError
 from .cached_op import CachedOp
 from .context import (Context, cpu, current_context, default_device, gpu,
@@ -41,7 +47,7 @@ init = initializer
 __version__ = "0.3.0"
 
 __all__ = ["autograd", "base", "config", "context", "convert", "engine",
-           "gluon", "initializer", "init", "lr_scheduler", "models", "nd",
-           "ndarray", "ops", "optimizer", "parallel", "random", "runtime",
-           "serving", "CachedOp", "Context", "MXNetError", "cpu", "gpu",
+           "gluon", "image", "initializer", "init", "io", "lr_scheduler",
+           "models", "nd", "ndarray", "ops", "optimizer", "parallel",
+           "random", "recordio", "runtime", "serving", "CachedOp", "Context", "MXNetError", "cpu", "gpu",
            "current_context", "default_device", "num_gpus"]

@@ -11,17 +11,20 @@ process). What an entry holds:
 
 - **On a CUDA device, not recording and not training**, a miss runs the
   callable once on a side stream (so that cuBLAS and the kernels' loaders
-  allocate their workspaces outside the capture), then captures it into a
-  ``torch.cuda.CUDAGraph`` over static input buffers. A call copies its
-  inputs into the buffers, replays the graph and clones the outputs out
-  of the graph's buffers before the op's lock is released: many HTTP
-  threads dispatch one CachedOp, and the next replay overwrites those
-  buffers. The op's graphs share one memory pool; replays are serialized
-  under the lock, so one graph's intermediates never outlive its replay.
+  allocate their workspaces outside the capture; one stream a device for
+  every capture, since cuBLAS keeps a workspace per stream), then captures
+  it into a ``torch.cuda.CUDAGraph`` over static input buffers. A call
+  copies its inputs into the buffers, replays the graph and clones the
+  outputs out of the graph's buffers before the op's lock is released:
+  many HTTP threads dispatch one CachedOp, and the next replay overwrites
+  those buffers. The op's graphs share one memory pool; replays are
+  serialized under the lock, so one graph's intermediates never outlive
+  its replay.
   ``pool_bytes`` is the growth of the allocator's reserved bytes during
   the captures (the pool's size: later captures reuse its free blocks),
   and ``capture_ms`` each signature's capture time (host wall clock, the
-  side-stream run included). A capture that fails raises; nothing falls
+  side-stream run included). A capture runs with the garbage collector
+  paused, so that no finalizer of a CUDA resource runs inside it. A capture that fails raises; nothing falls
   back to eager execution. A graph reads the storage it was captured
   over, so whatever gives a parameter new storage (``Parameter.cast``,
   ``reset_ctx`` or a re-initialization, ``Block.cast``, a module's
@@ -35,6 +38,13 @@ process). What an entry holds:
 - **On the CPU**, a miss captures nothing and every call runs the
   callable; the counters are the same.
 
+A callable that draws from its own ``torch.Generator`` names it in
+``generators``: each graph registers it before the capture
+(``CUDAGraph.register_generator_state``), so every replay advances it and
+draws new numbers. The side-stream run and the capture advance it too, so
+after a miss a seeded generator is no longer where an eager run would
+have it.
+
 A CachedOp called while another one runs its callable (a hybridized block
 inside a served function) runs its callable inline, as the reference
 inlines a nested trace into the outer program. Aux-state writes
@@ -47,6 +57,7 @@ wait for the attribution module (ROADMAP Queue A item 11);
 """
 from __future__ import annotations
 
+import gc
 import threading
 import time
 from collections import OrderedDict
@@ -67,6 +78,21 @@ _inline = threading.local()
 # how many times some parameter's storage was replaced; an op whose graphs
 # were captured under an older count drops them
 _STORAGE_EPOCH = [0]
+
+
+_SIDE_STREAMS = {}
+
+
+def _side_stream(device):
+    """The one stream a device's captures warm up on. cuBLAS keeps a
+    workspace (32 MiB on Hopper) for every stream it has run on until the
+    process ends, so a new stream for each capture would leave one
+    workspace behind per capture."""
+    with _STATS_LOCK:
+        stream = _SIDE_STREAMS.get(device)
+        if stream is None:
+            stream = _SIDE_STREAMS[device] = torch.cuda.Stream(device)
+        return stream
 
 
 def storage_rebound():
@@ -116,13 +142,16 @@ class CachedOp:
     """Signature-cached executor of ``fn`` (NDArrays in, an NDArray or a
     list/tuple of NDArrays out). ``static_alloc``, ``static_shape`` and
     the bulk sizes are kept for API parity: a captured graph is always
-    statically allocated."""
+    statically allocated. ``generators`` are the CUDA generators ``fn``
+    draws from besides the default one."""
 
     def __init__(self, fn, static_alloc=False, static_shape=False,
                  inline_limit=2, forward_bulk_size=None,
-                 backward_bulk_size=None, name="CachedOp", capacity=None):
+                 backward_bulk_size=None, name="CachedOp", capacity=None,
+                 generators=()):
         self._fn = fn
         self._name = name
+        self._generators = tuple(generators)
         self._flags = dict(static_alloc=static_alloc,
                            static_shape=static_shape,
                            inline_limit=inline_limit,
@@ -196,7 +225,7 @@ class CachedOp:
         prev_rec = _tape.set_recording(False)
         try:
             with torch.no_grad():
-                side = torch.cuda.Stream(dev)
+                side = _side_stream(dev)
                 side.wait_stream(torch.cuda.current_stream(dev))
                 with torch.cuda.stream(side):
                     self._run(static)
@@ -204,11 +233,24 @@ class CachedOp:
                 if self._pool is None:
                     self._pool = torch.cuda.graph_pool_handle()
                 graph = torch.cuda.CUDAGraph()
-                with torch.cuda.graph(graph, pool=self._pool,
-                                      capture_error_mode="thread_local"):
-                    # read inside: entering the capture empties the cache
-                    reserved = torch.cuda.memory_reserved(dev)
-                    outs, n_out, multi, aux = self._run(static)
+                for gen in self._generators:
+                    graph.register_generator_state(gen)
+                # no collection inside the capture: a finalizer of garbage
+                # that owns CUDA resources (an old graph, an event, pinned
+                # memory) would call the runtime there and invalidate it
+                # (a collection first would cost every capture ~0.1 s)
+                gc_was_enabled = gc.isenabled()
+                gc.disable()
+                try:
+                    with torch.cuda.graph(graph, pool=self._pool,
+                                          capture_error_mode="thread_local"):
+                        # read inside: entering the capture empties the
+                        # cache
+                        reserved = torch.cuda.memory_reserved(dev)
+                        outs, n_out, multi, aux = self._run(static)
+                finally:
+                    if gc_was_enabled:
+                        gc.enable()
                 self.pool_bytes += torch.cuda.memory_reserved(dev) - reserved
                 torch.cuda.synchronize(dev)
         except BaseException:

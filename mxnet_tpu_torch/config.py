@@ -3,7 +3,7 @@
 Counterpart of ``mxnet_tpu/config.py``: the same ``MXNET_*`` names and
 defaults, for only the knobs that the port's modules read: the core
 runtime (engine, CachedOp), serving (``/predict`` and generation), the
-resilience stack and the tracer.
+resilience stack, the tracer and the data path.
 :func:`get` is a typed read of the environment, so a knob set after import
 takes effect at its next read.
 """
@@ -106,6 +106,18 @@ KNOBS = dict([
     _k("MXNET_TRACE_BUFFER", 65536, int,
        "span ring-buffer capacity in events; a full buffer drops the "
        "oldest record"),
+    _k("MXNET_CPU_WORKER_NTHREADS", 1, int,
+       "host-side worker threads: DataLoader default num_workers and the "
+       "native IO pump decode pool"),
+    _k("MXNET_DATALOADER_MAX_SKIPS", 100, int,
+       "DataLoader error_policy='skip': bad samples tolerated per "
+       "iteration before failing loudly (<0 = unbounded)"),
+    _k("MXNET_DATAFEED_DEPTH", 4, int,
+       "DeviceFeed staging ring depth: batches copied to the device ahead "
+       "of consumption (parallel/datafeed.py)"),
+    _k("MXNET_DATAFEED_CHUNK", 8, int,
+       "ShardedTrainer.step_stream steps per chunk: the chaos point fires "
+       "once per chunk, and the feed stages ahead while a chunk computes"),
     _k("MXNET_FLASH_ATTENTION", 1, int,
        "dispatch dot_product_attention to the CUDA flash-attention kernel "
        "when its gate holds (ops/nn.py; 0 = always take the plain path)"),

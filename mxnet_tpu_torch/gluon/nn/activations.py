@@ -4,8 +4,6 @@
 port or a sigmoid."""
 from __future__ import annotations
 
-import torch
-
 from ... import initializer as init_mod
 from ...ops import nn as _ops
 from ..block import HybridBlock
@@ -69,7 +67,7 @@ class Swish(HybridBlock):
         self._beta = beta
 
     def forward(self, x):
-        return x * torch.sigmoid(self._beta * x)
+        return x * _ops.sigmoid(_ops._const(self._beta, x) * x)
 
 
 class GELU(HybridBlock):

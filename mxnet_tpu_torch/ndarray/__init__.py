@@ -11,9 +11,6 @@ from .ndarray import (NDArray, arange, array, concat, empty, eye, from_dlpack,
 from .serialization import is_mxnet_binary, load_ndarrays, save_ndarrays
 
 _ops.populate_namespace(globals())
-# the constructors above take a ctx, as the reference's do; the registry's
-# op of the same name stays reachable through ops.get_op
-from .ndarray import arange  # noqa: E402,F811
 
 
 def __getattr__(name):

@@ -60,6 +60,8 @@ def _tensor(source, ctx=None, dtype=None):
             t = t.to(ctx.torch_device)
     else:
         host = _np.asarray(source)
+        if not host.flags.writeable:
+            host = host.copy()      # torch would share read-only memory
         if dtype is None and host.dtype == _np.float64:
             host = host.astype(_np.float32)
         if host.dtype.name == "bfloat16":
@@ -592,7 +594,7 @@ def full(shape, val, ctx=None, dtype=None):
 
 def arange(start, stop=None, step=1.0, repeat=1, ctx=None, dtype=None):
     from . import _op_proxy
-    return _op_proxy.arange(start, stop, step, repeat, ctx=ctx, dtype=dtype)
+    return _op_proxy._arange(start, stop, step, repeat, ctx=ctx, dtype=dtype)
 
 
 def eye(N, M=0, k=0, ctx=None, dtype=None):

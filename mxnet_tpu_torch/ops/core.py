@@ -98,7 +98,7 @@ for _name, _fn in (
         ("tan", torch.tan), ("arcsin", torch.asin),
         ("arccos", torch.acos), ("arctan", torch.atan),
         ("sinh", torch.sinh), ("cosh", torch.cosh), ("tanh", torch.tanh),
-        ("relu", torch.relu), ("sigmoid", torch.sigmoid)):
+        ("relu", torch.relu)):
     register(_name)(_fn)
 del _name, _fn
 
@@ -269,14 +269,31 @@ def swapaxes(data, dim1=0, dim2=0):
 
 @register("expand_dims")
 def expand_dims(data, axis=0):
-    return data.unsqueeze(axis)
+    """``jnp.expand_dims``: a tuple ``axis`` inserts an axis at each of
+    its positions in the result."""
+    if isinstance(axis, int):
+        return data.unsqueeze(axis)
+    rank = data.dim() + len(axis)
+    shape = iter(data.shape)
+    new = {a % rank for a in axis}
+    return data.reshape(tuple(1 if i in new else next(shape)
+                              for i in range(rank)))
 
 
 @register("squeeze")
 def squeeze(data, axis=None):
+    """``jnp.squeeze``: an ``axis`` whose size is not 1 raises
+    ``ValueError`` (torch would leave it)."""
     if axis is None:
         return data.squeeze()
-    return data.squeeze(axis if isinstance(axis, int) else tuple(axis))
+    axes = (axis,) if isinstance(axis, int) else tuple(axis)
+    for a in axes:
+        if data.shape[a] != 1:
+            raise ValueError(
+                "cannot select an axis to squeeze out which has size not "
+                "equal to one, got shape=%s and dimensions=%s"
+                % (tuple(data.shape), axes))
+    return data.squeeze(axes)
 
 
 @register("Flatten", aliases=("flatten",))
@@ -431,17 +448,22 @@ def full_like(data, fill_value=0.0):
     return torch.full_like(data, fill_value)
 
 
-@register("arange", differentiable=False)
-def arange(start, stop=None, step=1.0, repeat=1, ctx=None, dtype=None):
-    """``arange`` as the reference's op (the NDArray constructor of the
-    same name takes a ``ctx``)."""
+@register("_arange", aliases=("_contrib_arange",), differentiable=False)
+def _arange(start=0.0, stop=None, step=1.0, repeat=1, infer_range=False,
+            ctx=None, dtype=None):
+    """The reference's ``_arange`` op; the NDArray constructor ``arange``
+    takes the same arguments and a ``ctx``. The values are ``jnp.arange``'s,
+    computed in the result's dtype (float32 unless asked), not float64
+    values cast."""
     from ..context import Context, current_context
     if stop is None:
         start, stop = 0, start
     ctx = ctx if isinstance(ctx, Context) else current_context()
-    host = _np.arange(start, stop, step)
-    out = torch.as_tensor(host, dtype=torch_dtype(dtype),
-                          device=ctx.torch_device)
+    tdt = torch_dtype(dtype)
+    host = _np.float32 if tdt == torch.bfloat16 \
+        else torch.empty((), dtype=tdt).numpy().dtype
+    out = torch.as_tensor(_np.arange(start, stop, step, dtype=host),
+                          device=ctx.torch_device).to(tdt)
     return out.repeat_interleave(repeat) if repeat > 1 else out
 
 
@@ -478,6 +500,9 @@ def pad(data, mode="constant", pad_width=(), constant_value=0.0):
 
 @register("clip")
 def clip(data, a_min=None, a_max=None):
+    """``jnp.clip``: with neither bound the input comes back as it is."""
+    if a_min is None and a_max is None:
+        return data
     return torch.clamp(data, a_min, a_max)
 
 

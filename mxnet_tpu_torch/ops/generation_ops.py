@@ -6,11 +6,17 @@ Counterpart of ``mxnet_tpu/ops/generation_ops.py``.
   and the same logits give the same tokens. (It does not give the JAX
   package's tokens: ``jax.random`` and ``torch.Generator`` draw different
   numbers from one seed. Greedy rows match exactly.)
-- Per-row ``temperature <= 0`` selects greedy for that row.
+- Per-row ``temperature <= 0`` selects greedy for that row. The sampler
+  never reads a value back to the host, so a CUDA graph can hold it: it
+  draws one exponential per logit for every call, greedy rows too, and
+  takes ``argmax(p / q)`` (``torch.multinomial``'s own one-sample path,
+  without that path's host-side checks).
 - The cache writes update their target in place and return it: the
   reference returns a new buffer (XLA makes that an in-place
   ``dynamic_update_slice``); here the in-place write is what saves
-  copying the arena.
+  copying the arena. An arena index may be a Python int or a one-element
+  device tensor; a tensor index keeps the write (and the read, which is
+  then a copy) free of host values, as a captured graph needs.
 """
 from __future__ import annotations
 
@@ -33,19 +39,17 @@ def sample_temperature(logits, generator=None, temperature=1.0):
 
     ``temperature`` is a scalar or a per-row ``(B,)`` tensor over
     ``logits (B, V)``; rows with ``temperature <= 0`` take the argmax (the
-    first maximum on ties, as ``jnp.argmax``). Draws nothing when every row
-    is greedy."""
+    first maximum on ties, as ``jnp.argmax``). It draws for every row,
+    greedy ones too, so each call advances ``generator`` by the same
+    amount."""
     temp = torch.as_tensor(temperature, dtype=torch.float32,
                            device=logits.device)
     greedy = torch.argmax(logits, dim=-1)
     cold = temp <= 0.0
-    if bool(cold.all()):
-        return greedy
     t = temp[:, None] if temp.dim() == 1 else temp
     probs = torch.softmax(logits.float() / t.clamp_min(1e-6), dim=-1)
-    flat = probs.reshape(-1, probs.shape[-1])
-    sampled = torch.multinomial(flat, 1, generator=generator)
-    sampled = sampled.reshape(greedy.shape)
+    q = torch.empty_like(probs).exponential_(1.0, generator=generator)
+    sampled = torch.argmax(probs / q, dim=-1)
     return torch.where(cold, greedy, sampled)
 
 
@@ -87,9 +91,19 @@ def _clamped(index, arena, size, axis):
     return max(0, min(int(index), arena.shape[axis] - size))
 
 
+def _rows(index, arena, size, axis):
+    """The ``size`` indices on ``axis`` from a one-element tensor
+    ``index``, clamped into range, on the device."""
+    start = index.reshape(1).long().clamp(0, arena.shape[axis] - size)
+    return start + torch.arange(size, device=arena.device)
+
+
 def arena_slice(arena, index, size=1, axis=1):
-    """A view of ``size`` rows of ``arena`` at ``index`` on ``axis`` (full
-    extent elsewhere); the index clamps into range."""
+    """``size`` rows of ``arena`` at ``index`` on ``axis`` (full extent
+    elsewhere); the index clamps into range. A view for an int index, a
+    copy for a tensor index."""
+    if isinstance(index, torch.Tensor):
+        return arena.index_select(axis, _rows(index, arena, size, axis))
     return arena.narrow(axis, _clamped(index, arena, size, axis), size)
 
 
@@ -98,9 +112,14 @@ def arena_update(arena, block, index, axis=1):
     every other axis, in place; returns ``arena``. ``block`` has the
     arena's rank; the index clamps into range."""
     size = block.shape[axis]
-    dst = arena.narrow(axis, _clamped(index, arena, size, axis), size)
+    dst = arena
     for ax in range(arena.dim()):
         if ax != axis:
             dst = dst.narrow(ax, 0, block.shape[ax])
-    dst.copy_(block)
+    if isinstance(index, torch.Tensor):
+        dst.index_copy_(axis, _rows(index, arena, size, axis),
+                        block.to(arena.dtype))
+    else:
+        dst.narrow(axis, _clamped(index, arena, size, axis),
+                   size).copy_(block)
     return arena

@@ -41,6 +41,7 @@ card in both layouts.
 """
 from __future__ import annotations
 
+import functools
 import math
 import os
 
@@ -58,7 +59,7 @@ from .flash_attention import (_M32, SUPPORTED_DTYPES, SUPPORTED_HEAD_DIMS,
 __all__ = ["FullyConnected", "gelu", "LayerNorm", "log_softmax", "Dropout",
            "dot_product_attention", "Activation", "LeakyReLU", "softmax",
            "Convolution", "Deconvolution", "Pooling", "BatchNorm",
-           "InstanceNorm", "GroupNorm"]
+           "InstanceNorm", "GroupNorm", "sigmoid", "softrelu"]
 
 
 def FullyConnected(data, weight, bias=None, flatten=True):
@@ -69,8 +70,53 @@ def FullyConnected(data, weight, bias=None, flatten=True):
     return F.linear(data, weight, bias)
 
 
+@functools.lru_cache(maxsize=None)
+def _rounded(value, dtype):
+    return torch.tensor(value, dtype=dtype).item()
+
+
+def _const(value, like):
+    """``value`` rounded to ``like``'s dtype, as a Python number: a Python
+    scalar in a jax expression is weakly typed and rounds to the array's
+    dtype before the op, where torch would take it at full precision. A
+    number (not a tensor) keeps the op free of host-to-device copies, as a
+    CUDA graph's capture needs."""
+    return _rounded(float(value), like.dtype)
+
+
+# dtypes in which the reference's rounding after every op shows: there the
+# ops below mirror the reference's jax functions op for op. In float32 a
+# fused torch op agrees with them within 1e-6 in one kernel (and one
+# backward kernel), and is taken.
+_PER_OP_DTYPES = (torch.bfloat16, torch.float16)
+
+
+def _per_op(data):
+    return data.dtype in _PER_OP_DTYPES
+
+
+class _Gelu(torch.autograd.Function):
+    """``jax.nn.gelu(approximate=False)`` op for op: ``0.5 * x * erfc(-x *
+    sqrt(0.5))`` with ``sqrt(0.5)`` rounded to the dtype (``F.gelu``
+    rounds bf16 once, one ulp off the reference on ~38% of elements); the
+    gradient in one fused kernel."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.save_for_backward(x)
+        return (0.5 * x) * torch.erfc(x * -_const(math.sqrt(0.5), x))
+
+    @staticmethod
+    def backward(ctx, g):
+        x, = ctx.saved_tensors
+        return torch.ops.aten.gelu_backward(g, x, approximate="none")
+
+
 def gelu(data):
-    """The exact (erf) GELU, ``jax.nn.gelu(approximate=False)``."""
+    """The exact (erf) GELU, ``jax.nn.gelu(approximate=False)``: op for op
+    in bf16 and fp16 (:class:`_Gelu`), ``F.gelu`` in float32."""
+    if _per_op(data):
+        return _Gelu.apply(data)
     return F.gelu(data, approximate="none")
 
 
@@ -87,15 +133,113 @@ def LayerNorm(data, gamma, beta, axis=-1, eps=1e-5):
         + beta.reshape(shape)
 
 
+class _LogSoftmax(torch.autograd.Function):
+    """``jax.nn.log_softmax`` op for op, rounded where XLA rounds it: the
+    shift by the max in the input's dtype; ``exp`` and its sum in float32
+    (XLA fuses them into one reduction), the sum rounded to the dtype; then
+    ``log`` and the difference in the dtype (``torch.log_softmax`` rounds
+    bf16 once, and so differs from the reference by up to a bf16 ulp).
+    The gradient in one fused kernel."""
+
+    @staticmethod
+    def forward(ctx, x, axis):
+        shifted = x - x.amax(dim=axis, keepdim=True)
+        total = torch.exp(shifted.float()).sum(dim=axis, keepdim=True)
+        y = shifted - torch.log(total.to(x.dtype))
+        ctx.save_for_backward(y)
+        ctx.axis = axis
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        y, = ctx.saved_tensors
+        return torch._log_softmax_backward_data(g, y, ctx.axis,
+                                                y.dtype), None
+
+
 def log_softmax(data, axis=-1):
-    """``jax.nn.log_softmax`` op for op, in ``data``'s dtype: the shift by
-    the (constant) max, ``exp``, the sum, ``log`` and the difference, each
-    rounded to the dtype as the reference rounds it (``torch.log_softmax``
-    rounds bf16 once, and so differs from the reference by up to a bf16
-    ulp)."""
-    shifted = data - data.amax(dim=axis, keepdim=True).detach()
-    return shifted - torch.log(torch.exp(shifted).sum(dim=axis,
-                                                      keepdim=True))
+    """``jax.nn.log_softmax``: op for op in bf16 and fp16
+    (:class:`_LogSoftmax`), ``torch.log_softmax`` in float32."""
+    if _per_op(data):
+        return _LogSoftmax.apply(data, axis)
+    return torch.log_softmax(data, dim=axis)
+
+
+class _Softmax(torch.autograd.Function):
+    """``jax.nn.softmax`` op for op in the input's dtype: ``u = exp(x -
+    max)``, then ``u / sum(u)`` (``torch.softmax`` rounds bf16 once). The
+    gradient in one fused kernel for one axis, else ``y * (g - sum(g *
+    y))``."""
+
+    @staticmethod
+    def forward(ctx, x, axis):
+        u = torch.exp(x - x.amax(dim=axis, keepdim=True))
+        y = u / u.sum(dim=axis, keepdim=True)
+        ctx.save_for_backward(y)
+        ctx.axis = axis
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        y, = ctx.saved_tensors
+        if isinstance(ctx.axis, int):
+            return torch._softmax_backward_data(g, y, ctx.axis,
+                                                y.dtype), None
+        gy = g * y
+        return gy - y * gy.sum(dim=ctx.axis, keepdim=True), None
+
+
+def _softmax(data, axis=-1):
+    """``jax.nn.softmax`` over ``axis`` (an int or a tuple): op for op in
+    bf16 and fp16 (:class:`_Softmax`), ``torch.softmax`` in float32 over
+    one axis."""
+    if _per_op(data) or not isinstance(axis, int):
+        return _Softmax.apply(data, axis)
+    return torch.softmax(data, dim=axis)
+
+
+class _Sigmoid(torch.autograd.Function):
+    """``lax.logistic`` as XLA expands it, ``1 / (1 + exp(-x))`` op for op
+    in the input's dtype; its gradient is the reference's ``y * (1 - y)``
+    (the expansion's own would give NaN where ``exp(-x)`` overflows)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        y = 1.0 / (1.0 + torch.exp(-x))
+        ctx.save_for_backward(y)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        y, = ctx.saved_tensors
+        return g * y * (1 - y)
+
+
+class _Softplus(torch.autograd.Function):
+    """``jax.nn.softplus``, ``logaddexp(x, 0)`` as jax writes it:
+    ``max(x, 0) + log1p(exp(-|x|))`` op for op in the input's dtype."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.save_for_backward(x)
+        return torch.clamp_min(x, 0.0) + torch.log1p(torch.exp(-x.abs()))
+
+    @staticmethod
+    def backward(ctx, g):
+        x, = ctx.saved_tensors
+        return g * torch.sigmoid(x)
+
+
+def sigmoid(data):
+    """``jax.nn.sigmoid``: op for op in bf16 and fp16, ``torch.sigmoid``
+    in float32."""
+    return _Sigmoid.apply(data) if _per_op(data) else torch.sigmoid(data)
+
+
+def softrelu(data):
+    """``jax.nn.softplus``: op for op in bf16 and fp16, ``F.softplus`` in
+    float32."""
+    return _Softplus.apply(data) if _per_op(data) else F.softplus(data)
 
 
 def _hash_keep_mask(key, shape, keep_prob, device=None):
@@ -238,7 +382,7 @@ def _plain_attention(query, key, value, mask, drop, scaled, causal,
     the kernel, a fully masked row averages V uniformly here."""
     scores = torch.matmul(query, key.transpose(-1, -2))
     if scaled:
-        scores = scores / math.sqrt(query.shape[-1])
+        scores = scores / _const(math.sqrt(query.shape[-1]), scores)
     fill = torch.finfo(scores.dtype).min
     if causal:
         q, k = scores.shape[-2], scores.shape[-1]
@@ -250,7 +394,7 @@ def _plain_attention(query, key, value, mask, drop, scaled, causal,
                 tuple(m.shape) == (scores.shape[0], scores.shape[-1]):
             m = m[:, None, None, :]
         scores = scores.masked_fill(~m.bool(), fill)
-    w = torch.softmax(scores, dim=-1)
+    w = _softmax(scores, -1)
     if drop > 0.0:
         # drawn where the generator lives (a CPU generator may serve a
         # CUDA tensor)
@@ -320,12 +464,28 @@ def Deconvolution(data, weight, bias=None, kernel=(), stride=(), dilate=(),
 
 
 def _window_sum(x, kernel, stride):
-    """Sums over the windows of ``x`` (already padded), exactly."""
-    if len(kernel) == 1:
-        return F.avg_pool2d(x.unsqueeze(2), (1,) + kernel, (1,) + stride,
-                            divisor_override=1).squeeze(2)
-    pool = F.avg_pool2d if len(kernel) == 2 else F.avg_pool3d
-    return pool(x, kernel, stride, divisor_override=1)
+    """Sums over the windows of ``x`` (already padded). In bf16 and fp16
+    as the reference's ``reduce_window`` takes them: from 0, adding each
+    window's elements in row-major order, each sum rounded to the dtype (a
+    pooling kernel accumulates in float32 and rounds once); in float32 one
+    pooling kernel (exact to float32's rounding)."""
+    n = len(kernel)
+    if not _per_op(x):
+        if n == 1:
+            return F.avg_pool2d(x.unsqueeze(2), (1,) + kernel,
+                                (1,) + stride, divisor_override=1).squeeze(2)
+        pool = F.avg_pool2d if n == 2 else F.avg_pool3d
+        return pool(x, kernel, stride, divisor_override=1)
+    lead = x.dim() - n
+    outs = [(x.shape[lead + i] - kernel[i]) // stride[i] + 1
+            for i in range(n)]
+    total = None
+    for offs in np.ndindex(*kernel):
+        idx = (slice(None),) * lead + tuple(
+            slice(o, o + (m - 1) * s + 1, s)
+            for o, m, s in zip(offs, outs, stride))
+        total = x[idx] if total is None else total + x[idx]
+    return total
 
 
 def Pooling(data, kernel=(), pool_type="max", stride=(), pad=(),
@@ -460,8 +620,8 @@ def _dropout(data, p=0.5, mode="training", axes=(), cudnn_off=False,
 
 def Activation(data, act_type="relu"):
     """``relu``, ``sigmoid``, ``tanh``, ``softrelu`` or ``softsign``."""
-    fns = {"relu": torch.relu, "sigmoid": torch.sigmoid,
-           "tanh": torch.tanh, "softrelu": F.softplus,
+    fns = {"relu": torch.relu, "sigmoid": sigmoid,
+           "tanh": torch.tanh, "softrelu": softrelu,
            "softsign": F.softsign}
     if act_type not in fns:
         raise ValueError("unknown act_type %s" % act_type)
@@ -472,19 +632,23 @@ def LeakyReLU(data, gamma=None, act_type="leaky", slope=0.25,
               lower_bound=0.125, upper_bound=0.334, key=None, train=False):
     """The reference's ``leaky``, ``prelu``, ``elu``, ``selu`` and ``gelu``
     variants, and ``rrelu`` outside training (its training-time draw waits
-    for the rest of the op corpus, ROADMAP Queue A item 8)."""
+    for the rest of the op corpus, ROADMAP Queue A item 8). The scalars
+    are rounded to ``data``'s dtype first, as the reference's weakly typed
+    ones are."""
     zero = torch.zeros((), dtype=data.dtype, device=data.device)
     if act_type == "leaky":
-        return torch.where(data > zero, data, slope * data)
+        return torch.where(data > zero, data, _const(slope, data) * data)
     if act_type == "prelu":
         g = gamma
         if g.dim() == 1 and data.dim() > 1:
             g = g.reshape((1, -1) + (1,) * (data.dim() - 2))
         return torch.where(data > zero, data, g * data)
     if act_type == "elu":
-        return torch.where(data > zero, data, slope * torch.expm1(data))
+        return torch.where(data > zero, data,
+                           _const(slope, data) * torch.expm1(data))
     if act_type == "selu":
-        alpha, scale = 1.6732632423543772, 1.0507009873554805
+        alpha = _const(1.6732632423543772, data)
+        scale = _const(1.0507009873554805, data)
         return scale * torch.where(data > zero, data,
                                    alpha * torch.expm1(data))
     if act_type == "gelu":
@@ -495,14 +659,16 @@ def LeakyReLU(data, gamma=None, act_type="leaky", slope=0.25,
                 "LeakyReLU rrelu in training is not ported (ROADMAP Queue A "
                 "item 8)")
         return torch.where(data > zero, data,
-                           (lower_bound + upper_bound) / 2.0 * data)
+                           _const((lower_bound + upper_bound) / 2.0, data)
+                           * data)
     raise ValueError("unknown act_type %s" % act_type)
 
 
 def softmax(data, axis=-1, length=None, temperature=None, dtype=None,
             use_length=False):
-    """The reference's ``softmax``: with ``use_length`` the positions at
-    or past ``length`` along ``axis`` give 0."""
+    """The reference's ``softmax`` (op for op, :func:`_softmax`; ``axis``
+    may be a tuple): with ``use_length`` the positions at or past
+    ``length`` along ``axis`` give 0."""
     from ..base import torch_dtype
     x = data
     if temperature is not None and temperature != 1.0:
@@ -512,9 +678,9 @@ def softmax(data, axis=-1, length=None, temperature=None, dtype=None,
         shp[axis] = x.shape[axis]
         steps = torch.arange(x.shape[axis], device=x.device).reshape(shp)
         keep = steps < length.unsqueeze(axis)
-        out = torch.softmax(x.masked_fill(~keep, float("-inf")), dim=axis)
+        out = _softmax(x.masked_fill(~keep, float("-inf")), axis)
         return out.masked_fill(~keep, 0.0)
-    out = torch.softmax(x, dim=axis)
+    out = _softmax(x, axis if isinstance(axis, int) else tuple(axis))
     return out.to(torch_dtype(dtype)) if dtype else out
 
 
@@ -554,7 +720,8 @@ register("LeakyReLU", state_binders={"key": bind_key,
 register("gelu", aliases=("LeakyReLU_gelu", "_contrib_gelu"))(gelu)
 register("softmax")(softmax)
 register("log_softmax")(_log_softmax)
-register("softrelu")(F.softplus)
+register("softrelu")(softrelu)
+register("sigmoid")(sigmoid)
 register("softsign")(F.softsign)
 register("_contrib_dot_product_attention",
          state_binders={"rng_key": bind_key,

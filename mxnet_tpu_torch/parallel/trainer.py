@@ -13,6 +13,14 @@ Queue A step 11) and raise ``NotImplementedError``.
 As in the reference, the trainer holds its own copy of every parameter (in
 ``dtype`` when given, the optimizer state likewise); the block's own
 trainable parameters change only at :meth:`ShardedTrainer.sync_back`.
+:meth:`ShardedTrainer.step_stream` trains from a
+:class:`~.datafeed.DeviceFeed` (or any batch source, wrapped in one): it
+takes the feed's batches in chunks of ``MXNET_DATAFEED_CHUNK`` steps,
+fires the ``trainer.step`` chaos point once per chunk before it consumes,
+and runs each batch as one :meth:`ShardedTrainer.step` while the feed
+stages the next ones; so its losses are those of ``step()`` calls over the
+same batches, bit for bit.
+
 Aux state (BatchNorm's moving statistics) is carried as the reference
 carries it (``parallel/trainer.py:180-190``): each step's aux writes land
 in the trainer's own values, never pass through the optimizer (a
@@ -21,15 +29,23 @@ tensors after the step, as the reference writes its handles.
 """
 from __future__ import annotations
 
+import itertools
+
 import torch
 from torch.func import functional_call
 
 from .. import _tape
+from .. import config as _config
 from .. import random as _random
 from ..context import default_device
+from ..observability import tracer as _trace
+from ..resilience import chaos as _chaos
 from .functional import functional_optimizer
 
 __all__ = ["ShardedTrainer"]
+
+# a stats name for each feed that step_stream wraps around a plain source
+_stream_seq = itertools.count()
 
 
 def _torch_dtype(dtype):
@@ -224,6 +240,89 @@ class ShardedTrainer:
         for i in range(xs[0].shape[0]):
             x = tuple(a[i] for a in xs) if multi else xs[0][i]
             losses.append(self.step(x, label[i], lr))
+        return torch.stack(losses)
+
+    def step_stream(self, feed, steps=None, chunk=None, lr=None,
+                    preemption=None):
+        """Train off a :class:`~.datafeed.DeviceFeed` (any other batch
+        source is wrapped in one on the trainer's device, and closed on
+        return) in chunks of ``chunk`` steps (``MXNET_DATAFEED_CHUNK``):
+        while a chunk's steps run, the feed's stager copies the next
+        batches to the device.
+
+        ``steps`` caps the steps run (None: until the feed is dry). Each
+        chunk first takes one batch (a dry feed fires nothing), then fires
+        the ``trainer.step`` chaos point before any state changes; on a
+        fault the batch is handed back to the feed, so a retry loses
+        nothing. Each batch runs as one :meth:`step` as soon as it is
+        taken (the reference stacks a chunk into one program and so needs
+        it whole; here one staged batch ahead is enough, whatever the
+        chunk). Returns the losses, shape ``(n_run,)``.
+
+        ``preemption`` handlers and the ``trainer.grads`` poison point wait
+        for the resilience slice (ROADMAP Queue A item 11) and raise
+        :class:`NotImplementedError`."""
+        from .datafeed import DeviceFeed
+        if preemption is not None:
+            raise NotImplementedError(
+                "ShardedTrainer.step_stream: preemption handlers are not "
+                "ported yet (ROADMAP Queue A item 11)")
+        chunk = int(_config.get("MXNET_DATAFEED_CHUNK") if chunk is None
+                    else chunk)
+        if chunk < 1:
+            raise ValueError("chunk must be >= 1, got %r" % (chunk,))
+        if steps is not None and steps < 0:
+            raise ValueError("steps must be >= 0, got %r" % (steps,))
+        owned = not isinstance(feed, DeviceFeed)
+        if owned:
+            feed = DeviceFeed(feed, device=self._device,
+                              name="step_stream.%d" % next(_stream_seq))
+        losses = []
+        try:
+            it = iter(feed)
+            remaining = None if steps is None else int(steps)
+            chunk_idx = 0
+            while remaining is None or remaining > 0:
+                with _trace.span("trainer.chunk", feed=feed.name,
+                                 chunk=chunk_idx, t0=self._t + 1) as sp:
+                    try:
+                        first = next(it)
+                    except StopIteration:
+                        sp.cancel()
+                        break
+                    try:
+                        _chaos.point("trainer.step")
+                        if _chaos.poisoned("trainer.grads"):
+                            raise NotImplementedError(
+                                "ShardedTrainer.step_stream: the "
+                                "trainer.grads poison point is not ported "
+                                "yet (ROADMAP Queue A item 11)")
+                    except BaseException:
+                        feed._unget(first)
+                        raise
+                    take = chunk if remaining is None \
+                        else min(chunk, remaining)
+                    n, batch = 0, first
+                    while batch is not None:
+                        xs, y = batch
+                        losses.append(self.step(
+                            xs if len(xs) > 1 else xs[0], y, lr))
+                        n += 1
+                        batch = None
+                        if n < take:
+                            try:
+                                batch = next(it)
+                            except StopIteration:
+                                pass
+                    sp.set(steps=n)
+                    if remaining is not None:
+                        remaining -= n
+                chunk_idx += 1
+        finally:
+            if owned:
+                feed.close()
+        if not losses:
+            return torch.zeros((0,), device=self._device)
         return torch.stack(losses)
 
     def sync_back(self):

@@ -21,11 +21,31 @@ families run on the K/V arena:
 All three write the arena in place. The prefix cache
 (:class:`~.prefix_cache.PrefixCache`, on by default as
 ``MXNET_GEN_PREFIX_CACHE``) holds host copies of prompt K/V: an admit that
-hits copies the slab into its slot; a finished prefill publishes its
-prompt's rows from a background thread, after the scheduler's thread has
-snapshotted them on the device (the slot is overwritten by the next step
-or occupant). PyTorch runs eagerly, so there is no compile to count; the
-engine counts prefills and chunk calls per rung and decode steps.
+hits copies the slab into its slot (the **prefix_insert** program); a
+finished prefill publishes its prompt's rows from a background thread,
+after the scheduler's thread has copied them out on the device (the
+**prefix_extract** program; the slot is overwritten by the next step or
+occupant).
+
+The five programs run through :class:`~mxnet_tpu_torch.cached_op.CachedOp`
+under the reference's names (``<name>.decode``, ``.prefill``, ``.chunk``,
+``.prefix_insert``, ``.prefix_extract``): on the card each signature is
+captured once as a CUDA graph and replayed, on the CPU each runs eagerly
+and its signatures are still counted (:meth:`DecodeEngine.compile_stats`,
+bounded by :meth:`DecodeEngine.program_bound`). A graph holds no host
+value, so the programs take only small device tensors as arguments:
+tokens, lengths, temperatures, the slot index, the chunk start and the
+prefix slabs. The arena is not an argument (a replay would copy it in):
+each program closes over the cache's arena tensors and writes them in
+place, and indexes the slot with ``index_select``/``index_copy_``. The
+signature is the rung, chunk width or slab width, as in the reference, so
+requests joining and leaving the batch capture nothing new.
+
+The sampler draws from the engine's own ``torch.Generator``, which the
+decode graph registers: a fixed ``seed`` makes an engine's run repeat
+itself, and greedy streams are token for token those of an eager run (and
+the reference's), but a sampled stream depends on how many draws the
+captures took and so differs from an eager run's.
 """
 from __future__ import annotations
 
@@ -38,6 +58,7 @@ import numpy as np
 import torch
 
 from ... import config as _config
+from ...cached_op import CachedOp
 from ...context import default_device
 from ...observability import tracer as _trace
 from ...ops import generation_ops as _gen
@@ -53,13 +74,14 @@ _PUBLISH_QUEUE = 8
 _PUBLISH_POLL_S = 1.0
 
 
-def _next_pow2(n):
-    """Smallest power of two >= n: the width of an arena-edge chunk tail
-    that no chunk rung fits."""
+def _next_pow2(n, cap=None):
+    """Smallest power of two >= n (capped at ``cap``): the width of an
+    arena-edge chunk tail that no chunk rung fits, and of a prefix slab's
+    insert."""
     w = 1
     while w < n:
         w <<= 1
-    return w
+    return min(w, cap) if cap is not None else w
 
 
 def _host(t):
@@ -119,12 +141,17 @@ class DecodeEngine:
         Prefix of the tracer spans of this engine's programs
         (``<span>.prefill``, ``.prefill_chunk``, ``.step``,
         ``.prefix_hit``); a draft engine takes its own.
+    cached : bool
+        Run the five programs through ``CachedOp`` (the default: one CUDA
+        graph per signature on the card). False runs them eagerly, every
+        call launching its kernels (the replay's baseline); their counts
+        then stay at 0.
     """
 
     def __init__(self, model, cache=None, num_slots=None, max_seq=None,
                  ladder=None, top_k=None, seed=0, dtype="float32",
                  chunk=None, prefix_cache=None, device=None,
-                 name="generation", span="generation"):
+                 name="generation", span="generation", cached=True):
         self.device = default_device(device)
         if model.device != self.device:
             raise ValueError("model lives on %s, engine on %s"
@@ -172,6 +199,16 @@ class DecodeEngine:
             self.prefix = prefix_cache or None
         self._generator = torch.Generator(device=self.device)
         self._generator.manual_seed(int(seed))
+        gens = (self._generator,) if self.device.type == "cuda" else ()
+        program = CachedOp if cached else _Eager
+        self._decode_op = program(self._decode_fn, name=name + ".decode",
+                                  generators=gens)
+        self._prefill_op = program(self._prefill_fn, name=name + ".prefill")
+        self._chunk_op = program(self._chunk_fn, name=name + ".chunk")
+        self._insert_op = program(self._insert_fn,
+                                  name=name + ".prefix_insert")
+        self._extract_op = program(self._extract_fn,
+                                   name=name + ".prefix_extract")
         self._lock = threading.Lock()
         self._prefills = {r: 0 for r in self._ladder}
         self._chunks = {}
@@ -236,6 +273,72 @@ class DecodeEngine:
             return w
         return m
 
+    # ---- the programs (NDArrays in and out; the arena in place) ----------
+    def _layers(self):
+        return range(self.cache.num_layers)
+
+    def _prefill_fn(self, tokens, length, slot):
+        """Prefill one slot: the model's forward over the padded prompt,
+        its K/V rows written into the slot (a traced index: one program
+        per rung serves every slot); returns the last valid logits."""
+        from ...ndarray import NDArray
+        logits, cache = self._model.prefill(tokens._data, length._data)
+        for layer, (k, v) in zip(self._layers(), cache):
+            _gen.arena_update(self.cache.k_arena[layer], k, slot._data,
+                              axis=0)
+            _gen.arena_update(self.cache.v_arena[layer], v, slot._data,
+                              axis=0)
+        return NDArray(logits)
+
+    def _decode_fn(self, tokens, lengths, temps):
+        """One decode step for every slot, sampling included."""
+        from ...ndarray import NDArray
+        cache = [(self.cache.k_arena[layer], self.cache.v_arena[layer])
+                 for layer in self._layers()]
+        logits, _ = self._model.step(tokens._data, cache, lengths._data)
+        return NDArray(_gen.generation_sample(
+            logits, self._generator, temps._data, k=self._top_k))
+
+    def _chunk_fn(self, tokens, start, slot):
+        """One chunk of one slot's prefill: the slot's rows copied out of
+        the arena, the chunk appended at ``start`` by the model, the rows
+        written back; returns the chunk's per-position logits."""
+        from ...ndarray import NDArray
+        rows = [(_gen.arena_slice(self.cache.k_arena[layer], slot._data,
+                                  axis=0),
+                 _gen.arena_slice(self.cache.v_arena[layer], slot._data,
+                                  axis=0)) for layer in self._layers()]
+        logits, _ = self._model.prefill_chunk(tokens._data, rows,
+                                              start._data)
+        for layer, (k, v) in zip(self._layers(), rows):
+            _gen.arena_update(self.cache.k_arena[layer], k, slot._data,
+                              axis=0)
+            _gen.arena_update(self.cache.v_arena[layer], v, slot._data,
+                              axis=0)
+        return NDArray(logits)
+
+    def _insert_fn(self, k_slab, v_slab, slot):
+        """Copy-on-admit: a prefix slab ``(L, 1, W, H, D)`` into ``slot``
+        (``W`` a power of two: one program per width)."""
+        _gen.arena_update(self.cache.k_arena, k_slab._data, slot._data,
+                          axis=1)
+        _gen.arena_update(self.cache.v_arena, v_slab._data, slot._data,
+                          axis=1)
+        return ()
+
+    def _extract_fn(self, slot):
+        """A copy of one slot's K/V rows ``(L, 1, max_seq, H, D)``, for a
+        prefix publish (one signature)."""
+        from ...ndarray import NDArray
+        return (NDArray(_gen.arena_slice(self.cache.k_arena, slot._data,
+                                         axis=1)),
+                NDArray(_gen.arena_slice(self.cache.v_arena, slot._data,
+                                         axis=1)))
+
+    def _index(self, values):
+        """Host ints as a device int64 tensor (a program argument)."""
+        return torch.tensor(values, dtype=torch.int64, device=self.device)
+
     # ---- entry points -----------------------------------------------------
     def prefill(self, slot, prompt, temperature=0.0):
         """Fill ``slot`` from ``prompt`` (1-D token ids) and sample the
@@ -248,12 +351,9 @@ class DecodeEngine:
         padded[0, :n] = prompt
         with _trace.span(self._span + ".prefill", rung=rung, prompt_len=n,
                          slot=int(slot)), torch.no_grad():
-            tokens = torch.from_numpy(padded).to(self.device)
-            lengths = torch.tensor([n], device=self.device)
-            logits, cache = self._model.prefill(tokens, lengths)
-            for layer, (k, v) in enumerate(cache):
-                _gen.arena_update(self.cache.k_arena[layer], k, slot, axis=0)
-                _gen.arena_update(self.cache.v_arena[layer], v, slot, axis=0)
+            logits = self._prefill_op(
+                torch.from_numpy(padded).to(self.device), self._index([n]),
+                self._index([int(slot)]))._data
             tok = self._sample_first(logits, temperature)
         self.cache.set_length(slot, n)
         with self._lock:
@@ -267,13 +367,6 @@ class DecodeEngine:
         tok = _gen.generation_sample(logits, self._generator, temps,
                                      k=self._top_k)
         return int(tok.item())
-
-    def _slot_cache(self, slot):
-        """Per-layer ``(k, v)`` views ``(1, max_seq, H, D)`` of one slot's
-        arena rows: what the chunk program writes through."""
-        k = self.cache.k_arena.narrow(1, int(slot), 1)
-        v = self.cache.v_arena.narrow(1, int(slot), 1)
-        return [(k[layer], v[layer]) for layer in range(k.shape[0])]
 
     def prefill_chunks(self, slot, prompt, start, temperature=0.0,
                        max_chunks=None, sample=True):
@@ -299,7 +392,7 @@ class DecodeEngine:
         if not 0 <= pos < n:
             raise ServingError("chunk start %d outside prompt [0, %d)"
                                % (pos, n))
-        cache = self._slot_cache(slot)
+        slot_t = self._index([int(slot)])
         steps = 0
         tok = None
         while pos < n and (max_chunks is None or steps < max_chunks):
@@ -312,9 +405,9 @@ class DecodeEngine:
             with _trace.span(self._span + ".prefill_chunk", rung=rung,
                              start=pos, tokens=m, slot=int(slot)), \
                     torch.no_grad():
-                logits, _ = self._model.prefill_chunk(
-                    torch.from_numpy(padded).to(self.device), cache,
-                    torch.tensor([pos], device=self.device))
+                logits = self._chunk_op(
+                    torch.from_numpy(padded).to(self.device),
+                    self._index([pos]), slot_t)._data
                 self.cache.set_length(slot, end)
                 if end >= n and sample:
                     tok = self._sample_first(logits[0, m - 1:m], temperature)
@@ -338,20 +431,22 @@ class DecodeEngine:
         lengths = np.minimum(self.cache.lengths, self.max_seq - 1)
         with _trace.span(self._span + ".step",
                          slots=int(self.cache.in_use)), torch.no_grad():
-            cache = [(self.cache.k_arena[layer], self.cache.v_arena[layer])
-                     for layer in range(self.cache.num_layers)]
-            logits, _ = self._model.step(
-                torch.from_numpy(tokens).to(self.device), cache,
-                torch.from_numpy(lengths).to(self.device))
-            toks = _gen.generation_sample(
-                logits, self._generator,
-                torch.from_numpy(temps).to(self.device), k=self._top_k)
+            toks = self._decode_op(
+                torch.from_numpy(tokens).to(self.device),
+                torch.from_numpy(lengths).to(self.device),
+                torch.from_numpy(temps).to(self.device))._data
             out = toks.cpu().numpy().reshape(-1)
         with self._lock:
             self._decode_steps += 1
         return out
 
     # ---- prefix cache -----------------------------------------------------
+    @staticmethod
+    def _slab_rung(n, max_seq):
+        """Power-of-two padded insert width: at most log2(max_seq) insert
+        programs."""
+        return _next_pow2(n, cap=max_seq)
+
     def prefix_admit(self, slot, prompt):
         """Probe the prefix cache for the longest usable cached prefix of
         ``prompt``; on a hit, copy its K/V slab into ``slot`` and commit
@@ -364,12 +459,18 @@ class DecodeEngine:
             return 0
         entry, plen = hit
         try:
+            width = self._slab_rung(plen, self.cache.max_seq)
+            slabs = []
+            for slab in (entry.k_slab, entry.v_slab):
+                shape = list(slab.shape)
+                shape[2] = width
+                pad = np.zeros(shape, dtype=slab.dtype)
+                pad[:, :, :plen] = slab[:, :, :plen]
+                slabs.append(torch.from_numpy(pad).view(
+                    self.cache.k_arena.dtype).to(self.device))
             with _trace.span(self._span + ".prefix_hit", tokens=plen,
-                             slot=int(slot)):
-                for arena, slab in ((self.cache.k_arena, entry.k_slab),
-                                    (self.cache.v_arena, entry.v_slab)):
-                    arena[:, int(slot), :plen].copy_(
-                        torch.from_numpy(slab[:, 0]).view(arena.dtype))
+                             slot=int(slot)), torch.no_grad():
+                self._insert_op(slabs[0], slabs[1], self._index([int(slot)]))
                 self.cache.set_length(slot, plen)
         finally:
             self.prefix.release(entry)
@@ -385,10 +486,9 @@ class DecodeEngine:
         if not points:
             return None
         n = points[-1]
-        rows = slice(int(slot), int(slot) + 1)
-        return (self.cache.k_arena[:, rows, :n].clone(),
-                self.cache.v_arena[:, rows, :n].clone(),
-                prompt, points, chain)
+        with torch.no_grad():
+            k, v = self._extract_op(self._index([int(slot)]))
+        return k._data[:, :, :n], v._data[:, :, :n], prompt, points, chain
 
     def _store(self, snap):
         k, v, prompt, points, chain = snap
@@ -450,6 +550,30 @@ class DecodeEngine:
             q.join()
 
     # ---- stats ------------------------------------------------------------
+    def compile_stats(self):
+        """Each program family's CachedOp stats (``hits``, ``misses``,
+        ``size``, ``graphs``, ...): requests joining and leaving the batch
+        leave ``decode["misses"]`` at 1; prefill is bounded by the ladder,
+        chunk by the chunk ladder and the arena-edge widths, insert by
+        log2(max_seq)."""
+        return {"decode": self._decode_op.cache_stats(),
+                "prefill": self._prefill_op.cache_stats(),
+                "chunk": self._chunk_op.cache_stats(),
+                "prefix_insert": self._insert_op.cache_stats(),
+                "prefix_extract": self._extract_op.cache_stats()}
+
+    def program_bound(self):
+        """The most programs this engine can hold, by the reference's
+        formula: the prefill rungs and the decode step, the chunk rungs
+        and the power-of-two arena-edge widths, and with a prefix cache
+        the insert widths and the extract."""
+        log_widths = max(1, self.cache.max_seq.bit_length())
+        n = len(self._ladder) + 1
+        n += len(self._chunk_ladder) + log_widths
+        if self.prefix is not None:
+            n += log_widths + 1
+        return n
+
     def stats(self):
         """Prefills and chunk calls per rung, decode steps, and failed
         prefix publishes so far."""
@@ -462,16 +586,41 @@ class DecodeEngine:
                     "publish_errors": self._publish_errors}
 
     def close(self):
-        """Stop the publisher thread (queued publishes land first), close
-        an owned prefix cache and unregister the arena's stats."""
+        """Stop the publisher thread (queued publishes land first), drop
+        the programs' graphs, close an owned prefix cache and unregister
+        the arena's stats."""
         with self._publish_lock:
             publisher, self._publisher = self._publisher, None
         if publisher is not None:
             self._publish_q.put(None)
             publisher.join(timeout=30.0)
+        for op in (self._decode_op, self._prefill_op, self._chunk_op,
+                   self._insert_op, self._extract_op):
+            op.clear()
         if self.prefix is not None and self._owns_prefix:
             self.prefix.close()
         self.cache.close()
+
+
+class _Eager:
+    """A program called as it is, without a CachedOp (``cached=False``):
+    the arguments wrapped as the CachedOp wraps them, no counts."""
+
+    def __init__(self, fn, name, generators=()):
+        self._fn = fn
+        self._name = name
+
+    def __call__(self, *args):
+        from ...ndarray import NDArray
+        return self._fn(*[a if isinstance(a, NDArray) else NDArray(a)
+                          for a in args])
+
+    def cache_stats(self):
+        return {"hits": 0, "misses": 0, "evictions": 0, "size": 0,
+                "graphs": 0, "pool_bytes": 0, "capacity": 0}
+
+    def clear(self):
+        pass
 
 
 def _publish_loop(engine_ref, q):

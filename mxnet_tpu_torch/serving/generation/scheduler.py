@@ -306,6 +306,14 @@ class GenerationScheduler:
         self._lane = _lane(lane)
         return self
 
+    def program_bound(self):
+        """The programs this scheduler's lane can hold: the engine's, and
+        with speculative decoding the draft engine's and the verify."""
+        n = self.engine.program_bound()
+        if self._spec is not None:
+            n += self._spec.draft.program_bound() + 1
+        return n
+
     def stats(self):
         with self._lock:
             out = dict(self._c)
@@ -315,6 +323,7 @@ class GenerationScheduler:
             out["closing"] = self._closing
         out["lane"] = self._lane
         out["engine"] = self.engine.stats()
+        out["compile"] = self.engine.compile_stats()
         if self.engine.prefix is not None:
             out["prefix"] = self.engine.prefix.stats()
         if self._spec is not None:

@@ -236,8 +236,8 @@ class GenerationMetrics:
         self._queue_depth_fn = fn
 
     def set_engine(self, engine):
-        """Wire a ``DecodeEngine`` so snapshots carry its cache occupancy
-        and prefill/step counters."""
+        """Wire a ``DecodeEngine`` so snapshots carry its cache occupancy,
+        prefill/step counters and compile counters."""
         self._engine = engine
 
     # ---- reading ----------------------------------------------------------
@@ -274,6 +274,7 @@ class GenerationMetrics:
         if self._engine is not None:
             out["kvcache"] = self._engine.cache.stats()
             out["engine"] = self._engine.stats()
+            out["compile"] = self._engine.compile_stats()
             if self._engine.prefix is not None:
                 out["prefix"] = self._engine.prefix.stats()
         return out

@@ -31,8 +31,10 @@ may carry both. Endpoints (JSON):
   (QPS, latency percentiles, occupancy, queue depth, and the
   ``executor_cache`` gauge: the engine's CachedOp counters); with
   ``/generate``, the scheduler's stats and its
-  ``GenerationMetrics.snapshot()`` under ``"generation"``; and the
-  ``"breaker"`` and ``"retry"`` gauges.
+  ``GenerationMetrics.snapshot()`` under ``"generation"`` (its
+  ``"compile"`` block: the generation programs' CachedOp counts); and
+  the ``"breaker"``, ``"retry"`` and ``"datafeed"`` (every live
+  ``DeviceFeed``'s counters) gauges.
 
 Model faults feed a :class:`~mxnet_tpu_torch.resilience.CircuitBreaker`;
 while it is open, ``/predict`` and ``/generate`` fast-fail with 503 +
@@ -403,6 +405,8 @@ class ModelServer:
     def metrics_snapshot(self):
         out = self.metrics.snapshot() if self.engine is not None else {}
         out["retry"] = _retry.all_stats()
+        from ..parallel.datafeed import feed_stats
+        out["datafeed"] = feed_stats()
         if self.generator is not None:
             out["scheduler"] = self.generator.stats()
             if self.generator.metrics is not None:

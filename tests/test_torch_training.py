@@ -96,13 +96,15 @@ def test_softmax_ce_matches():
     np.testing.assert_allclose(out, ref, atol=1e-6, rtol=1e-6)
 
 
-def test_softmax_ce_bf16_matches_bitwise():
+@pytest.mark.parametrize("shape", [(4, 6, 50), (256, 2), (64, 1000)])
+def test_softmax_ce_bf16_matches_bitwise(shape):
     """In bf16 the loss is taken in ``pred``'s type, op for op, as the
-    reference takes it: the same bf16 values."""
+    reference takes it: the same bf16 values, also at the NSP head's
+    (256, 2)."""
     rng = np.random.default_rng(1)
-    pred = (3 * rng.standard_normal((4, 6, 50))).astype("float32")
-    label = rng.integers(0, 50, (4, 6)).astype("int32")
-    label[1, 3] = -1
+    pred = (3 * rng.standard_normal(shape)).astype("float32")
+    label = rng.integers(0, shape[-1], shape[:-1]).astype("int32")
+    label.reshape(-1)[3] = -1
     ref = jgluon.loss.SoftmaxCrossEntropyLoss()(
         nd.array(pred).astype("bfloat16"), nd.array(label))
     assert str(ref.dtype) == "bfloat16"

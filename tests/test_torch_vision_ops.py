@@ -305,10 +305,17 @@ def test_instance_and_group_norm_match_reference(layer, kw):
     assert _rel(got, ref(mx.nd.array(x)).asnumpy()) <= TOL
 
 
-def test_sequential_lambda_and_dense_layers_match_reference():
+def test_sequential_lambda_and_dense_layers_match_reference(monkeypatch):
     """``Sequential`` of a ``Lambda``, ``HybridSequential`` of a
     ``HybridLambda``, ``Flatten`` and a deferred ``Dense`` with its
-    activation, from the same seed's ``Xavier()`` draws."""
+    activation, from the same seed's ``Xavier()`` draws. The blocks are
+    made outside a name scope, so each package numbers them from its
+    process-wide counters: both start from empty ones here, whatever
+    earlier tests in the process made."""
+    from mxnet_tpu.gluon import block as jblock
+    from mxnet_tpu_torch.gluon import block as tblock
+    monkeypatch.setattr(jblock, "_global_counter", {})
+    monkeypatch.setattr(tblock, "_global_counter", {})
     x = _rand(np.random.default_rng(11), 2, 3, 4, 4)
 
     def build(pkg):
