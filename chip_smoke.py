@@ -252,6 +252,40 @@ Builds the package's CUDA kernels from the sources in this checkout
     (...).transform_first(Compose([ToTensor(), Normalize(...)])),
     batch_size=32, pin_memory=True, num_workers=4)`` must be CUDA
     NDArrays equal to the unpinned loader's. No flash kernel may launch.
+13. **RNN phase: the LSTM word language model at WikiText-2 width.**
+    ``RNNModel("lstm", 33278, 1500, 1500, 2, dropout=0)`` from
+    ``Xavier()`` (``benchmark/bench_lm.py:266-300``), every layer through
+    cuDNN (``ops/rnn.py``). (b) First, the first step's loss
+    (``bench_lm.py``'s float32 log-softmax cross-entropy over (T·B, V))
+    and every gradient through cuDNN against the plain per-step path on
+    the card at b128 s35: fp32 within ``RNN_LOSS_TOL`` (1e-5, of the loss)
+    and ``RNN_GRAD_TOL`` (1e-4 of each gradient's largest |value|); in
+    bf16 both against fp32 on an fp32 copy of the bf16 weights, each
+    gradient's cuDNN distance at most ``RNN_BF16_FACTOR`` (2x) the plain
+    path's for the same parameter (floored at ``RNN_BF16_FLOOR``). (a)
+    ``ShardedTrainer`` (SGD lr 1.0, no mesh) 8 fp32 and 8 bf16 steps at
+    b128 s35: ms a step (CUDA events, steps 2..8), tokens/s, peak memory,
+    losses, each layer's path (every call cuDNN's), whether torch warned
+    that the weights are "not part of single contiguous chunk of memory"
+    (the warning is shown, not silenced) with the bytes cuDNN copies a
+    step and the time of one such copy, the LSTM stack's forward and
+    backward alone, and one more step under ``torch.profiler`` (the
+    cuDNN RNN kernels by name; one must appear). (c)
+    ``example/gluon/word_language_model.py``'s eager loop at the same
+    width, fp32, 4 steps: ``gluon.Trainer("sgd")``, the hidden state
+    carried and detached, ``clip_global_norm(grads, 0.25 x 35 x 128)``,
+    dropout 0.2 (keyed ``Dropout``), fed by ``mx.rnn.BucketSentenceIter``
+    over a synthetic corpus from ``--seed`` (the example's rule): step ms
+    and clip norms. (d) The hybridized forward with ``hidden`` through
+    ``CachedOp`` (a CUDA graph) at b128 s35, fp32 and bf16: the replay
+    equal to eager bit for bit, replay and eager ms. (e) ``Estimator.fit``
+    (``fit_batch`` taking the loader's (B, T) batches as (T, B)), one
+    epoch of 8 b32 batches of a pinned ``DataLoader`` over token windows,
+    ``Loss`` and ``Accuracy``, ``LoggingHandler`` and ``CheckpointHandler``
+    into a temporary directory, the default context the card; the
+    checkpoint, loaded through ``convert.load_mxnet_params`` into a fresh
+    ``RNNModel``, gives the trained model's forward bit for bit. No flash
+    kernel may launch.
 
 With ``--profile`` the burst is served a second time, serving v2's part
 (f) is profiled, and two fp32 and two bf16 training steps, two bf16 BERT
@@ -261,14 +295,14 @@ phase) are run, under ``torch.profiler`` (after the checked runs) to
 print the device's busy share, its kernel count and its top kernels.
 
 Prints the serving, serving v2, training, BERT, surface, predict,
-autograd, registry-op, vision and data numbers, one ``{"kernels": [...]}``
-line with an
+autograd, registry-op, vision, data and rnn numbers, one
+``{"kernels": [...]}`` line with an
 entry per TPU kernel (the three (B, S, H, D) ones with the numbers of the
 training shape in fp32, under ``*_bf16`` keys in bf16, and under ``bert``
 those of the BERT shape; the three (B, H, S, D) ones with the numbers of
-the registry op's shape; every kernel's launches also under ``vision``
-and ``data``, where none runs), the card's name and power limit, and last
-``{"ok": true, "device": {...}}``.
+the registry op's shape; every kernel's launches also under ``vision``,
+``data`` and ``rnn``, where none runs), the card's name and power limit,
+and last ``{"ok": true, "device": {...}}``.
 Any failure exits non-zero before that line. Without CUDA it exits 2.
 """
 from __future__ import annotations
@@ -410,10 +444,11 @@ def run_burst(url, prompts):
     return results, time.perf_counter() - t0
 
 
-def profile(torch, fn):
+def profile(torch, fn, match=None):
     """``fn()`` once more under ``torch.profiler``: the device's busy time
     (sum of kernel times; one stream) against the wall time, and the
-    kernels that took the most device time."""
+    kernels that took the most device time; with ``match`` (a regex), also
+    every kernel whose name it finds, and their share of the busy time."""
     from torch.profiler import ProfilerActivity, profile as _profile
     with _profile(activities=[ProfilerActivity.CPU,
                               ProfilerActivity.CUDA]) as prof:
@@ -428,11 +463,18 @@ def profile(torch, fn):
             per[e.name] = (calls + 1, us + e.time_range.elapsed_us())
     busy_us = sum(us for _, us in per.values())
     top = sorted(per.items(), key=lambda kv: -kv[1][1])[:8]
-    return {"wall_ms": wall * 1e3, "device_busy_ms": busy_us / 1e3,
-            "device_busy_share": busy_us / (wall * 1e6),
-            "kernels_launched": sum(c for c, _ in per.values()),
-            "top_kernels": [{"name": n[:90], "calls": c, "ms": us / 1e3}
-                            for n, (c, us) in top]}
+    out = {"wall_ms": wall * 1e3, "device_busy_ms": busy_us / 1e3,
+           "device_busy_share": busy_us / (wall * 1e6),
+           "kernels_launched": sum(c for c, _ in per.values()),
+           "top_kernels": [{"name": n[:90], "calls": c, "ms": us / 1e3}
+                           for n, (c, us) in top]}
+    if match is not None:
+        hit = {n[:120]: {"calls": c, "ms": us / 1e3}
+               for n, (c, us) in per.items() if match.search(n)}
+        out["matched"] = hit
+        out["matched_share_of_busy"] = sum(
+            v["ms"] for v in hit.values()) * 1e3 / max(busy_us, 1e-9)
+    return out
 
 
 def serving_phase(args, torch):
@@ -2972,8 +3014,424 @@ def data_phase(args, torch):
     return out
 
 
+# the rnn phase: the LSTM word language model at WikiText-2 width
+# (benchmark/bench_lm.py:266-300)
+RNN_VOCAB, RNN_WIDTH, RNN_LAYERS = 33278, 1500, 2
+RNN_SEQ, RNN_BATCH, RNN_STEPS = 35, 128, 8
+RNN_SGD = {"learning_rate": 1.0}
+# (b) cuDNN against the plain per-step path in fp32, with the tolerances
+# of tests/test_torch_rnn.py (outputs, here the loss, within 1e-5 of
+# their largest |value|; gradients within 1e-4 of theirs); in bf16 each
+# path against an fp32 run on an fp32 copy of the bf16 weights, each
+# gradient of the card's path at most twice as far as the plain path's
+# same gradient (PREDICT_BF16_FACTOR), the plain distance floored at one
+# bf16 step at the gradient's largest |value| (2^-8 of it)
+RNN_LOSS_TOL, RNN_GRAD_TOL, RNN_BF16_FACTOR = 1e-5, 1e-4, 2.0
+RNN_BF16_FLOOR = 2.0 ** -8
+# (c) example/gluon/word_language_model.py's loop: dropout 0.2, the clip
+RNN_EAGER_STEPS, RNN_EAGER_DROPOUT, RNN_CLIP = 4, 0.2, 0.25
+# (d) calls timed a side; (e) the estimator's batch and epoch
+RNN_CALLS = 10
+RNN_EST_BATCH, RNN_EST_BATCHES = 32, 8
+RNN_KERNEL_RE = re.compile(r"(?i)rnn|lstm|gru|cudnn")
+
+
+class RNNLoss:
+    """``benchmark/bench_lm.py``'s ``LMLoss``: the float32 log-softmax
+    cross-entropy over ``(T*B, V)``, its mean."""
+
+    def __call__(self, out, y):
+        import torch
+        logp = torch.log_softmax(out.float(), dim=-1)
+        return -logp.reshape(-1, logp.shape[-1]).gather(
+            1, y.reshape(-1, 1).long()).mean()
+
+
+def rnn_model(seed, dropout=0.0, init=True):
+    """``RNNModel("lstm", 33278, 1500, 1500, 2)`` as the reference's bench
+    makes it: ``random.seed``, then ``initialize(Xavier())`` on the card
+    (when ``init``)."""
+    from mxnet_tpu_torch import initializer, random as trandom
+    from mxnet_tpu_torch.models import RNNModel
+    trandom.seed(seed)
+    np.random.seed(seed)
+    net = RNNModel("lstm", RNN_VOCAB, RNN_WIDTH, RNN_WIDTH, RNN_LAYERS,
+                   dropout=dropout)
+    if init:
+        net.initialize(initializer.Xavier())
+    return net
+
+
+def rnn_batch(seed, batch=None):
+    """Random ``(T, B)`` tokens and labels (B 128 unless ``batch``), as
+    the bench draws them."""
+    rng = np.random.default_rng(seed)
+    shape = (RNN_SEQ, batch or RNN_BATCH)
+    return (rng.integers(0, RNN_VOCAB, shape),
+            rng.integers(0, RNN_VOCAB, shape))
+
+
+def rnn_grads(torch, net, values, x, y, dtype, plain):
+    """The loss and every gradient (as fp32) of ``RNNLoss`` over ``net``
+    run on copies of ``values`` in ``dtype``, through the card's path or
+    the plain one (``force_plain``)."""
+    import contextlib
+    from torch.func import functional_call
+    from mxnet_tpu_torch.ops import rnn as orn
+    vals = {n: v.detach().to(dtype).clone().requires_grad_()
+            for n, v in values.items()}
+    net.train()
+    with orn.force_plain() if plain else contextlib.nullcontext():
+        loss = RNNLoss()(functional_call(net, vals, (x,)), y)
+        loss.backward()
+    return float(loss.detach()), {n: v.grad.float() for n, v in vals.items()}
+
+
+def rnn_against_plain(torch, net, x, y):
+    """(b) The first step's loss and gradients at full width, the card's
+    path against the plain per-step one: fp32 within the CPU tests'
+    tolerances; in bf16 both held against fp32 on an fp32 copy of the
+    bf16 weights."""
+    from mxnet_tpu_torch.ops import rnn as orn
+    values = {n: p.detach() for n, p in net.named_parameters()}
+    before = orn.path_counts()
+    loss_c, g_c = rnn_grads(torch, net, values, x, y, torch.float32, False)
+    loss_p, g_p = rnn_grads(torch, net, values, x, y, torch.float32, True)
+    took = {k: v - before[k] for k, v in orn.path_counts().items()}
+    if took != {"cudnn": RNN_LAYERS, "native": 0, "plain": RNN_LAYERS}:
+        fail("rnn (b): the fp32 runs took the paths %s" % took)
+    err = {n: rel_to_max(g_c[n], g_p[n]) for n in g_p}
+    worst = max(err, key=err.get)
+    loss_rel = abs(loss_c - loss_p) / abs(loss_p)
+    out = {"float32": {"loss_cudnn": loss_c, "loss_plain": loss_p,
+                       "loss_rel_err": loss_rel, "grad_worst_param": worst,
+                       "grad_worst_rel_to_max": err[worst],
+                       "loss_tol": RNN_LOSS_TOL, "grad_tol": RNN_GRAD_TOL}}
+    if loss_rel > RNN_LOSS_TOL or err[worst] > RNN_GRAD_TOL:
+        fail("rnn (b): fp32 cuDNN against plain: loss rel %g (tol %g), "
+             "gradient of %s %g of its max (tol %g)" % (
+                 loss_rel, RNN_LOSS_TOL, worst, err[worst], RNN_GRAD_TOL))
+    del g_c, g_p
+    rounded = {n: v.to(torch.bfloat16).float() for n, v in values.items()}
+    truth = rnn_grads(torch, net, rounded, x, y, torch.float32, True)[1]
+    runs = {"card": rnn_grads(torch, net, rounded, x, y, torch.bfloat16,
+                              False),
+            "plain": rnn_grads(torch, net, rounded, x, y, torch.bfloat16,
+                               True)}
+    dist = {k: {n: rel_to_max(g[n], truth[n]) for n in truth}
+            for k, (_, g) in runs.items()}
+    # each parameter's cuDNN distance against the plain path's for the
+    # same parameter, the plain one floored at RNN_BF16_FLOOR
+    ratio = {n: dist["card"][n] / max(dist["plain"][n], RNN_BF16_FLOOR)
+             for n in truth}
+    worst = max(ratio, key=ratio.get)
+    out["bfloat16"] = {
+        "path": orn.layer_path(torch.zeros(1, device=x.device,
+                                           dtype=torch.bfloat16)),
+        "loss": runs["card"][0], "loss_plain": runs["plain"][0],
+        "grad_rel_to_max": {n: [dist["card"][n], dist["plain"][n]]
+                            for n in truth},
+        "worst_ratio_param": worst, "worst_ratio": ratio[worst],
+        "factor": RNN_BF16_FACTOR, "floor": RNN_BF16_FLOOR}
+    if ratio[worst] > RNN_BF16_FACTOR:
+        fail("rnn (b): bf16 gradient of %s %g of its max from fp32, more "
+             "than %g x the plain path's %g (floor %g)" % (
+                 worst, dist["card"][worst], RNN_BF16_FACTOR,
+                 dist["plain"][worst], RNN_BF16_FLOOR))
+    return out
+
+
+def rnn_weight_copy(torch, values, caught):
+    """The copy of the LSTM's weights into cuDNN's flat buffer that every
+    call makes (the layer's tensors are separate parameters): whether torch
+    warned of it, its bytes a step (one forward), and the time of one copy
+    of as many bytes between CUDA events."""
+    ws = [v.detach() for n, v in values.items() if n.startswith("rnn.")]
+    flat = torch.empty(sum(p.numel() for p in ws), device=ws[0].device,
+                       dtype=ws[0].dtype)
+
+    def copy():
+        off = 0
+        for p in ws:
+            flat[off:off + p.numel()].copy_(p.reshape(-1))
+            off += p.numel()
+    copy()
+    msgs = [str(w.message) for w in caught]
+    return {"warned": any("single contiguous chunk" in m for m in msgs),
+            "warnings": sorted(set(m[:160] for m in msgs)),
+            "bytes_a_step": flat.numel() * flat.element_size(),
+            "copy_ms": _events_ms(torch, copy, RNN_CALLS)}
+
+
+def rnn_training(args, torch, net, dname):
+    """(a) ``bench_lstm``: SGD lr 1.0 through ``ShardedTrainer`` (no mesh:
+    one device), 8 steps at b128 s35; step ms (CUDA events, steps 2..8),
+    tokens/s, peak memory, losses, the paths each step took; then the
+    same step once more under ``torch.profiler``."""
+    import warnings
+    from mxnet_tpu_torch.ops import rnn as orn
+    from mxnet_tpu_torch.parallel import ShardedTrainer
+    tr = ShardedTrainer(net, RNNLoss(), "sgd", dict(RNN_SGD),
+                        dtype=None if dname == "float32" else dname)
+    x, y = rnn_batch(args.seed)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    orn.reset_path_counts()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        losses, ms = train_steps(torch, tr, x, y, RNN_STEPS)
+    shown = set()
+    for w in caught:    # shown (once each) as well as counted
+        if str(w.message) not in shown:
+            shown.add(str(w.message))
+            warnings.warn_explicit(w.message, w.category, w.filename,
+                                   w.lineno)
+    paths = orn.path_counts()
+    if paths != {"cudnn": RNN_STEPS * RNN_LAYERS, "native": 0, "plain": 0}:
+        fail("rnn (a) %s: the layers took the paths %s, not %d cuDNN calls"
+             % (dname, paths, RNN_STEPS * RNN_LAYERS))
+    if not all(np.isfinite(losses)):
+        fail("rnn (a) %s: losses %s" % (dname, losses))
+    mean = float(np.mean(ms[1:]))
+    out = {"losses": losses, "step_ms": ms, "step_ms_mean": mean,
+           "first_step_ms": ms[0],
+           "tokens_s": RNN_SEQ * RNN_BATCH / mean * 1e3,
+           "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "paths": paths,
+           "weight_copy": rnn_weight_copy(torch, tr.values, caught),
+           "lstm_ms": rnn_lstm_ms(torch, net, tr.values)}
+    out["profile"] = profile(torch, lambda: tr.step(x, y), RNN_KERNEL_RE)
+    if not any("RNN" in n or "LSTM" in n for n in out["profile"]["matched"]):
+        fail("rnn (a) %s: no cuDNN RNN kernel in the profile: %s"
+             % (dname, out["profile"]["matched"]))
+    return out
+
+
+def rnn_lstm_ms(torch, net, values):
+    """The LSTM stack's forward and backward alone (cuDNN), on the
+    trainer's values and a ``(T, B, 1500)`` input: ms a call between CUDA
+    events, the part of a step the RNN kernels and their GEMMs take."""
+    from torch.func import functional_call
+    vals = {n[len("rnn."):]: v for n, v in values.items()
+            if n.startswith("rnn.")}
+    dtype = next(iter(vals.values())).dtype
+    x = torch.randn(RNN_SEQ, RNN_BATCH, RNN_WIDTH, device="cuda",
+                    dtype=dtype, requires_grad=True)
+
+    def run():
+        functional_call(net.rnn, vals, (x,)).float().sum().backward()
+    run()
+    ms = _events_ms(torch, run, RNN_CALLS)
+    for v in vals.values():
+        v.grad = None
+    return ms
+
+
+def rnn_eager(args, torch):
+    """(c) ``example/gluon/word_language_model.py``'s loop at the same
+    width, fp32: ``gluon.Trainer("sgd")``, the hidden state carried and
+    detached, ``clip_global_norm(grads, 0.25 * bptt * batch)``, dropout
+    0.2 (keyed ``Dropout``), fed by ``mx.rnn.BucketSentenceIter`` over a
+    synthetic corpus (the example's Markov-ish rule, vocab 33278)."""
+    import random
+    from mxnet_tpu_torch import autograd, gluon
+    from mxnet_tpu_torch import rnn as mrnn
+    net = rnn_model(args.seed + 1, dropout=RNN_EAGER_DROPOUT)
+    params = net.collect_params()
+    trainer = gluon.Trainer(params, "sgd", {"learning_rate": 1.0,
+                                            "momentum": 0, "wd": 0})
+    loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
+    rng = np.random.RandomState(args.seed)
+    corpus = [0]
+    for _ in range(RNN_EAGER_STEPS * RNN_BATCH * RNN_SEQ - 1):
+        corpus.append((corpus[-1] * 31 + rng.randint(0, 7)) % RNN_VOCAB)
+    sentences = [corpus[i:i + RNN_SEQ]
+                 for i in range(0, len(corpus), RNN_SEQ)]
+    random.seed(args.seed)
+    np.random.seed(args.seed)
+    it = mrnn.BucketSentenceIter(sentences, RNN_BATCH, buckets=[RNN_SEQ],
+                                 layout="TN")
+    hidden = net.begin_state(batch_size=RNN_BATCH)
+    ctx = hidden[0].ctx
+    losses, norms, events = [], [], []
+    for batch in it:
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        x = batch.data[0].as_in_context(ctx)
+        y = batch.label[0].as_in_context(ctx).reshape((-1,))
+        hidden = [h.detach() for h in hidden]
+        with autograd.record():
+            output, hidden = net(x, hidden)
+            L = loss_fn(output.reshape((-1, RNN_VOCAB)), y).mean()
+        L.backward()
+        grads = [p.grad() for p in params.values() if p.grad_req != "null"]
+        norms.append(float(gluon.utils.clip_global_norm(
+            grads, RNN_CLIP * RNN_SEQ * RNN_BATCH)))
+        trainer.step(1)
+        losses.append(float(L.asscalar()))
+        e1.record()
+        events.append((e0, e1))
+    torch.cuda.synchronize()
+    ms = [a.elapsed_time(b) for a, b in events]
+    if len(losses) != RNN_EAGER_STEPS or not all(np.isfinite(losses)) \
+            or not all(np.isfinite(norms)):
+        fail("rnn (c): %d steps, losses %s, norms %s"
+             % (len(losses), losses, norms))
+    return {"losses": losses, "clip_norms": norms, "step_ms": ms,
+            "step_ms_mean": float(np.mean(ms[1:]))}
+
+
+def rnn_inference(args, torch, net, dname):
+    """(d) The hybridized ``RNNModel`` forward with ``hidden`` through
+    ``CachedOp`` (a CUDA graph) at b128 s35, against the same call eager:
+    equal bit for bit; ms a call of each (CUDA events)."""
+    from mxnet_tpu_torch import cached_op, nd
+    x, _ = rnn_batch(args.seed + 2)
+    x = nd.array(x.astype(np.float32))
+    hidden = net.begin_state(batch_size=RNN_BATCH, dtype=dname)
+    net.hybridize(False)
+
+    def eager():
+        return net(x, hidden)
+    e_out, e_hid = eager()
+    e_ms = _events_ms(torch, eager, RNN_CALLS)
+    net.hybridize()
+    cached_op.reset_cache_stats()
+    r_out, r_hid = net(x, hidden)          # the capture
+    r_out, r_hid = net(x, hidden)          # a replay
+    r_ms = _events_ms(torch, lambda: net(x, hidden), RNN_CALLS)
+    stats = cached_op.cache_stats()
+    net.hybridize(False)
+    pairs = [("output", e_out, r_out)] + [
+        ("state%d" % i, a, b) for i, (a, b) in enumerate(zip(e_hid, r_hid))]
+    for what, a, b in pairs:
+        if not torch.equal(a._data, b._data):
+            fail("rnn (d) %s: the replayed %s differs from eager (max %g)"
+                 % (dname, what, (a._data.float() - b._data.float())
+                    .abs().max().item()))
+    if stats["misses"] != 1 or stats["hits"] < RNN_CALLS + 1:
+        fail("rnn (d) %s: CachedOp %s" % (dname, stats))
+    return {"eager_ms": e_ms, "replay_ms": r_ms, "cache": stats,
+            "bitwise": True,
+            "tokens_s_replay": RNN_SEQ * RNN_BATCH / r_ms * 1e3}
+
+
+def rnn_estimator(args, torch, net):
+    """(e) ``Estimator.fit`` for one epoch of 8 batches of a pinned
+    ``DataLoader`` over token windows at b32 (``Loss`` and ``Accuracy``
+    metrics, ``LoggingHandler``, ``CheckpointHandler`` into a temporary
+    directory); the checkpoint, loaded through ``load_mxnet_params`` into a
+    fresh ``RNNModel``, must give the trained model's forward bit for
+    bit."""
+    import logging
+    import tempfile
+    from mxnet_tpu_torch import autograd, convert, gluon, gpu, metric, nd
+    from mxnet_tpu_torch.gluon.contrib.estimator import (
+        CheckpointHandler, Estimator, LoggingHandler)
+    rng = np.random.default_rng(args.seed + 3)
+    n = RNN_EST_BATCH * RNN_EST_BATCHES
+    windows = rng.integers(0, RNN_VOCAB, (n, RNN_SEQ + 1)).astype(np.float32)
+    ds = gluon.data.ArrayDataset(windows[:, :-1], windows[:, 1:])
+    loader = gluon.data.DataLoader(ds, batch_size=RNN_EST_BATCH,
+                                   pin_memory=True)
+    class TimeMajorEstimator(Estimator):
+        """The loader's ``(B, T)`` batches enter ``RNNModel`` as ``(T,
+        B)``."""
+
+        def fit_batch(self, train_batch, batch_axis=0):
+            data, label = train_batch[0].T, train_batch[1].T
+            with autograd.record():
+                pred = self.net(data)
+                loss = self.loss(pred, label)
+            loss.backward()
+            self.trainer.step(data.shape[1])
+            return data, label, pred, loss
+
+    est = TimeMajorEstimator(
+        net, gluon.loss.SoftmaxCrossEntropyLoss(),
+        metrics=[metric.Accuracy(axis=2)],
+        trainer=gluon.Trainer(net.collect_params(), "sgd", dict(RNN_SGD)))
+    if est.context != [gpu(0)]:
+        fail("rnn (e): the estimator's default context is %s" % est.context)
+    seen = []
+
+    class Record(logging.Handler):
+        def emit(self, record):
+            seen.append(record.getMessage())
+    log = logging.getLogger(
+        "mxnet_tpu_torch.gluon.contrib.estimator.event_handler")
+    rec = Record()
+    log.addHandler(rec)
+    log.setLevel(logging.INFO)
+    t0 = time.perf_counter()
+    try:
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_rnn_") as d:
+            est.fit(loader, epochs=1, event_handlers=[
+                LoggingHandler(metrics=est.train_metrics
+                               + est.train_loss_metrics),
+                CheckpointHandler(d, model_prefix="rnnlm")])
+            wall = time.perf_counter() - t0
+            path = os.path.join(d, "rnnlm-epoch1.params")
+            fresh = rnn_model(args.seed, init=False)
+            convert.load_mxnet_params(fresh, path)
+    finally:
+        log.removeHandler(rec)
+    x = nd.array(rnn_batch(args.seed + 4, RNN_EST_BATCH)[0]
+                 .astype(np.float32))
+    a, b = net(x), fresh(x)
+    if not torch.equal(a._data, b._data):
+        fail("rnn (e): the reloaded checkpoint's forward differs (max %g)"
+             % (a._data - b._data).abs().max().item())
+    loss = est.train_loss_metrics[0].get()[1]
+    acc = est.train_metrics[0].get()[1]
+    if not np.isfinite(loss) or not 0.0 <= acc <= 1.0:
+        fail("rnn (e): loss %r, accuracy %r" % (loss, acc))
+    del fresh
+    return {"loss": loss, "accuracy": acc, "wall_s": wall, "log": seen,
+            "checkpoint_bitwise": True}
+
+
+def rnn_phase(args, torch):
+    """The LSTM word language model at WikiText-2 width: (a) training,
+    (b) the card's path against the plain one, (c) the eager loop, (d)
+    inference through ``CachedOp``, (e) the estimator. No flash kernel
+    runs on this path."""
+    from mxnet_tpu_torch.ops import flash_attention as fa
+    t0 = time.perf_counter()
+    fa.reset_launches()
+    net = rnn_model(args.seed)
+    out = {"init_s": time.perf_counter() - t0}
+    x, y = (torch.as_tensor(v, device="cuda") for v in rnn_batch(args.seed))
+    out["plain_check"] = rnn_against_plain(torch, net, x, y)
+    del x, y
+    for dname in ("float32", "bfloat16"):
+        out[dname] = rnn_training(args, torch, net, dname)
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["eager"] = rnn_eager(args, torch)
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["inference"] = {"float32": rnn_inference(args, torch, net,
+                                                 "float32")}
+    out["estimator"] = rnn_estimator(args, torch, net)
+    net.cast("bfloat16")
+    out["inference"]["bfloat16"] = rnn_inference(args, torch, net,
+                                                 "bfloat16")
+    del net
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["launches"] = kernel_launches()
+    if any(out["launches"].values()):
+        fail("rnn: a flash kernel launched on the rnn path: %s"
+             % out["launches"])
+    out["wall_s"] = time.perf_counter() - t0
+    return out
+
+
 def kernel_entries(serving, v2, training, bert, surface, core, vision,
-                   data, fwd_cases, bwd_cases):
+                   data, rnn, fwd_cases, bwd_cases):
     """The ``{"kernels": [...]}`` entries, one per TPU kernel. The three
     ``(B, S, H, D)`` ones: numbers of the main path's training shape (B 32,
     S 512, H 12, D 64, causal) in fp32, and under ``*_bf16`` keys in bf16;
@@ -2982,8 +3440,8 @@ def kernel_entries(serving, v2, training, bert, surface, core, vision,
     at the registry op's shape (B 8, S 512, H 12, D 64, causal, key mask).
     ``core`` holds the predict, autograd and registry-op phases' launch
     counts; the backward kernels serve both layouts, so their launches are
-    split by the phase's layout. The vision phase's launches (none: no
-    attention on that path) are listed under ``vision``."""
+    split by the phase's layout. The vision, data and rnn phases' launches
+    (none: no attention on those paths) are listed under their names."""
     def pick(cases, dtype="float32", B=TRAIN_BATCH, layout="BSHD"):
         return next(c for c in cases if c["B"] == B and c["S"] == 512
                     and c["D"] == 64 and c["layout"] == layout
@@ -3031,7 +3489,8 @@ def kernel_entries(serving, v2, training, bert, surface, core, vision,
              "predict": core["predict"]["flash_attn_fwd"],
              "autograd": core["autograd"]["flash_attn_fwd"],
              "vision": vision["launches"]["flash_attn_fwd"],
-             "data": data["launches"]["flash_attn_fwd"]}
+             "data": data["launches"]["flash_attn_fwd"],
+             "rnn": rnn["launches"]["flash_attn_fwd"]}
     train_timed = "B=%d S=%d H=12 D=64 BSHD causal, float32 (*_bf16: " \
         "bfloat16)" % (TRAIN_BATCH, TRAIN_SEQ)
     reg_timed = "B=8 S=512 H=12 D=64 BHSD causal with a key mask, float32 " \
@@ -3052,7 +3511,8 @@ def kernel_entries(serving, v2, training, bert, surface, core, vision,
         launches=reg["flash_attn_fwd_bhsd"],
         launches_by_path={"registry_op": reg["flash_attn_fwd_bhsd"],
                           "vision": vision["launches"]["flash_attn_fwd_bhsd"],
-                          "data": data["launches"]["flash_attn_fwd_bhsd"]},
+                          "data": data["launches"]["flash_attn_fwd_bhsd"],
+                          "rnn": rnn["launches"]["flash_attn_fwd_bhsd"]},
         **timed(pick(fwd_cases, B=8, layout="BHSD"),
                 pick(fwd_cases, "bfloat16", B=8, layout="BHSD"))))
     for name, part, line, line_bhsd in (
@@ -3065,7 +3525,8 @@ def kernel_entries(serving, v2, training, bert, surface, core, vision,
               "predict": core["predict"][name],
               "autograd": core["autograd"][name],
               "vision": vision["launches"][name],
-              "data": data["launches"][name]}
+              "data": data["launches"][name],
+              "rnn": rnn["launches"][name]}
         for layout, ln in (("BSHD", line), ("BHSD", line_bhsd)):
             errs = [c["max_abs_err"][n] for c in bwd_cases
                     if c["layout"] == layout
@@ -3081,7 +3542,8 @@ def kernel_entries(serving, v2, training, bert, surface, core, vision,
                          launches=reg[name],
                          launches_by_path={"registry_op": reg[name],
                                            "vision": vision["launches"][name],
-                                           "data": data["launches"][name]},
+                                           "data": data["launches"][name],
+                                           "rnn": rnn["launches"][name]},
                          **timed(pick(bwd_cases, B=8, layout="BHSD"),
                                  pick(bwd_cases, "bfloat16", B=8,
                                       layout="BHSD"), part))
@@ -3094,6 +3556,67 @@ def kernel_entries(serving, v2, training, bert, surface, core, vision,
     entries[0]["cases"] = fwd_cases
     entries[2]["cases"] = bwd_cases
     return entries
+
+
+def print_rnn(rnn, card):
+    """The rnn phase's lines of the output."""
+    pc = rnn["plain_check"]
+    f, b = pc["float32"], pc["bfloat16"]
+    print("rnn (b) first step at full width, cuDNN vs the plain per-step "
+          "path, fp32: loss %.6f / %.6f (rel %.3g), worst gradient %s at "
+          "%.3g of its max; bf16 (%s path) vs fp32 on the same weights, "
+          "each gradient's distance cuDNN / plain: %s; worst ratio %s %.3g "
+          "(limit %g) (init %.1f s) [%s]"
+          % (f["loss_cudnn"], f["loss_plain"], f["loss_rel_err"],
+             f["grad_worst_param"], f["grad_worst_rel_to_max"], b["path"],
+             ", ".join("%s %.3g / %.3g" % (n, c, p) for n, (c, p) in
+                       b["grad_rel_to_max"].items()),
+             b["worst_ratio_param"], b["worst_ratio"], b["factor"],
+             rnn["init_s"], card), flush=True)
+    for dname in ("float32", "bfloat16"):
+        t = rnn[dname]
+        w, pr = t["weight_copy"], t["profile"]
+        print("rnn (a) %s: LSTM LM V%d %dx%d b%d s%d SGD, step %.2f ms mean "
+              "(first %.2f), %.1f tokens/s, peak memory %.2f GB, losses %s; "
+              "paths %s; the LSTM's forward and backward alone %.2f ms; "
+              "weights-not-contiguous warning %s, %d bytes copied a step "
+              "(one such copy %.3f ms) [%s]" % (
+                  dname, RNN_VOCAB, RNN_LAYERS, RNN_WIDTH, RNN_BATCH,
+                  RNN_SEQ, t["step_ms_mean"], t["first_step_ms"],
+                  t["tokens_s"], t["max_memory_allocated_gb"],
+                  ", ".join("%.4f" % v for v in t["losses"]), t["paths"],
+                  t["lstm_ms"], w["warned"], w["bytes_a_step"], w["copy_ms"],
+                  card), flush=True)
+        print("rnn (a) %s profiled step: %.1f ms wall, busy %.1f ms (%.1f%%), "
+              "%d kernels; RNN kernels %.1f%% of busy: %s; top: %s" % (
+                  dname, pr["wall_ms"], pr["device_busy_ms"],
+                  100 * pr["device_busy_share"], pr["kernels_launched"],
+                  100 * pr["matched_share_of_busy"], "; ".join(
+                      "%s x%d %.2f ms" % (n[:60], v["calls"], v["ms"])
+                      for n, v in sorted(pr["matched"].items(),
+                                         key=lambda kv: -kv[1]["ms"])[:6]),
+                  "; ".join("%s x%d %.1f ms" % (k["name"][:40], k["calls"],
+                                                k["ms"])
+                            for k in pr["top_kernels"][:4])), flush=True)
+    e = rnn["eager"]
+    print("rnn (c) eager word-LM loop fp32 b%d bptt %d dropout %.1f: step "
+          "%.2f ms mean (%s), losses %s, clip norms %s" % (
+              RNN_BATCH, RNN_SEQ, RNN_EAGER_DROPOUT, e["step_ms_mean"],
+              ", ".join("%.2f" % m for m in e["step_ms"]),
+              ", ".join("%.4f" % v for v in e["losses"]),
+              ", ".join("%.4g" % v for v in e["clip_norms"])), flush=True)
+    for dname, r in rnn["inference"].items():
+        print("rnn (d) %s hybridized forward with hidden, b%d s%d: replay "
+              "%.3f ms, eager %.3f ms (%.2fx), bitwise equal; %s" % (
+                  dname, RNN_BATCH, RNN_SEQ, r["replay_ms"], r["eager_ms"],
+                  r["eager_ms"] / r["replay_ms"], r["cache"]), flush=True)
+    s = rnn["estimator"]
+    print("rnn (e) Estimator.fit 1 epoch of %d b%d batches in %.1f s: loss "
+          "%.4f, accuracy %.4f; checkpoint reloaded bitwise; log: %s" % (
+              RNN_EST_BATCHES, RNN_EST_BATCH, s["wall_s"], s["loss"],
+              s["accuracy"], " | ".join(s["log"])), flush=True)
+    print("rnn: flash launches %s; %.1f s" % (rnn["launches"],
+                                               rnn["wall_s"]), flush=True)
 
 
 def print_v2(v2):
@@ -3369,6 +3892,9 @@ def main():
               data["loader"]["shape"], data["loader"]["wall_s"],
               data["launches"], data["wall_s"]), flush=True)
 
+    rnn = rnn_phase(args, torch)
+    print_rnn(rnn, card)
+
     for tag, prof in (("serving burst", serving["profile"]),
                       ("2 fp32 training steps",
                        training.get("profile_float32")),
@@ -3422,7 +3948,7 @@ def main():
                  ",".join("%.2g" % v for v in
                           c["max_err_rel_to_max"].values())))
     entries = kernel_entries(serving, v2, training, bert, surface, core,
-                             vision, data, fwd_cases, bwd_cases)
+                             vision, data, rnn, fwd_cases, bwd_cases)
     if args.out:
         with open(args.out, "w") as f:
             json.dump({"serving": serving, "serving_v2": v2,
@@ -3430,7 +3956,7 @@ def main():
                        "bert": bert, "surface": surface,
                        "predict": predict, "autograd": core_ag,
                        "registry_op": registry, "vision": vision,
-                       "data": data,
+                       "data": data, "rnn": rnn,
                        "kernels": entries, "card": card,
                        "build_s": build_s}, f, indent=1)
     print(json.dumps({"kernels": [{k: v for k, v in e.items()

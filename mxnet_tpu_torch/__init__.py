@@ -31,11 +31,17 @@ What the port carries so far:
   ``ImageRecordIter`` on the native pump built from ``csrc/io/``),
   ``image``, ``gluon.data`` (datasets, samplers, ``DataLoader``, vision
   transforms) and ``parallel.DeviceFeed`` (pinned staging on a CUDA
-  stream) under ``ShardedTrainer.step_stream``.
+  stream) under ``ShardedTrainer.step_stream``;
+- the RNN family: the fused ``RNN`` op (cuDNN on the card),
+  ``gluon.rnn`` (the cells, ``RNN``/``LSTM``/``GRU``), ``gluon.contrib``
+  (its layers and cells, the ``Estimator``), ``rnn``
+  (``BucketSentenceIter``), ``metric`` and the word language model
+  (``models.RNNModel``).
 """
 from . import (autograd, base, config, context, convert, engine, gluon,
-               image, initializer, io, lr_scheduler, models, ndarray, ops,
-               optimizer, parallel, random, recordio, runtime, serving)
+               image, initializer, io, lr_scheduler, metric, models, ndarray,
+               ops, optimizer, parallel, random, recordio, rnn, runtime,
+               serving)
 from .base import MXNetError
 from .cached_op import CachedOp
 from .context import (Context, cpu, current_context, default_device, gpu,
@@ -48,6 +54,6 @@ __version__ = "0.3.0"
 
 __all__ = ["autograd", "base", "config", "context", "convert", "engine",
            "gluon", "image", "initializer", "init", "io", "lr_scheduler",
-           "models", "nd", "ndarray", "ops", "optimizer", "parallel",
-           "random", "recordio", "runtime", "serving", "CachedOp", "Context", "MXNetError", "cpu", "gpu",
+           "metric", "models", "nd", "ndarray", "ops", "optimizer",
+           "parallel", "random", "recordio", "rnn", "runtime", "serving", "CachedOp", "Context", "MXNetError", "cpu", "gpu",
            "current_context", "default_device", "num_gpus"]

@@ -55,7 +55,14 @@ the reference's. :func:`load_mxnet_params` maps the file's prefix onto
 the net's, and :func:`mxnet_params_from_state_dict` writes the names back,
 with ``export``'s ``arg:``/``aux:`` marks when asked (``aux:`` for
 BatchNorm's moving statistics, as the reference's ``export`` marks its
-auxiliary states).
+auxiliary states). The RNN family is such a block: ``RNNModel``
+(``rnnmodel<n>_embedding<n>_weight``, ``rnnmodel<n>_lstm<n>_l<i>_{i2h,
+h2h}_{weight,bias}``, ``rnnmodel<n>_dense<n>_{weight,bias}``; a tied
+decoder's bias is ``embedding<n>_bias`` and its weight the embedding's), a
+bare ``RNN``/``LSTM``/``GRU`` (``lstm<n>_l<i>_...``) and the cells
+(``lstm<n>_i2h_weight``); :func:`state_dict_from_mxnet` maps those names
+by structure onto ``encoder.weight``, ``rnn.l0_i2h_weight``,
+``decoder.bias``, ... (a bare layer's or a cell's leaves as they are).
 """
 from __future__ import annotations
 
@@ -228,17 +235,77 @@ def _read(params):
     return out
 
 
+# the RNN family's names after the net's prefix: RNNModel's children, a
+# bare layer's {l,r}<i>_ leaves, a cell's i2h/h2h (h2r: LSTMPCell) leaves
+_RNN_FAMILY = re.compile(r"(?:^|_)(?:[lr]\d+_)?(?:i2h|h2h|h2r)_(?:weight|bias)$")
+_RNN_PREFIX = re.compile(r"^[a-z]+(?:_(?:relu|tanh))?\d+_")
+_RNN_LEAF = re.compile(r"^(?:[lr]\d+_)?(?:i2h|h2h|h2r)_(?:weight|bias)$")
+_RNN_CHILD = [(re.compile(r"^embedding\d+_weight$"), "encoder.weight"),
+              (re.compile(r"^embedding\d+_bias$"), "decoder.bias"),
+              (re.compile(r"^dense\d+_(weight|bias)$"), r"decoder.\1"),
+              (re.compile(r"^(?:lstm|gru|rnn_relu|rnn_tanh)\d+_(.+)$"),
+               r"rnn.\1")]
+
+
+def _rnn_state_dict_names(names, prefix):
+    """``{reference name: state_dict name}`` of an ``RNNModel`` (its
+    children by structure: ``encoder``, ``rnn``, ``decoder``), a bare
+    ``RNN``/``LSTM``/``GRU`` or a cell, from full names after ``prefix``
+    (None: the first name's ``<alias><n>_``) or structural names."""
+    if all("." in n for n in names):
+        return {n: n for n in names}
+    if prefix is None:
+        m = _RNN_PREFIX.match(names[0])
+        if m is None:
+            raise ValueError("cannot infer the net's prefix from %r"
+                             % names[0])
+        prefix = m.group(0)
+    out = {}
+    for n in names:
+        if not n.startswith(prefix):
+            raise ValueError("unexpected parameter %r: outside prefix %r"
+                             % (n, prefix))
+        rest = n[len(prefix):]
+        if _RNN_LEAF.match(rest):
+            out[n] = rest
+            continue
+        for pat, repl in _RNN_CHILD:
+            if pat.match(rest):
+                out[n] = pat.sub(repl, rest)
+                break
+        else:
+            out[n] = None
+    return out
+
+
 def state_dict_from_mxnet(params, prefix=None):
     """Map reference parameters (``{name: np.ndarray}`` or a ``.params``
     file) to a port ``{state_dict name: torch.Tensor}`` (CPU tensors) of a
-    ``TransformerLM`` or a ``BERTModel``, whichever the names describe.
+    ``TransformerLM``, a ``BERTModel``, or the RNN family (``RNNModel``, a
+    bare ``RNN``/``LSTM``/``GRU``, a cell), whichever the names describe.
     Full names follow ``prefix``, the reference net's own (``net.prefix``,
     e.g. ``"transformerlm0_"``; None infers it from the word embedding's
-    name); structural names (with a ``.``) need none. Raises
-    :class:`ValueError` naming any parameter outside the prefix or the
-    structure, or mapped twice."""
+    name, or an RNN net's first name); structural names (with a ``.``)
+    need none. A tied ``RNNModel`` (an ``embedding<n>_bias``, no
+    ``dense<n>_weight``) gives its embedding as ``decoder.weight`` too, as
+    the port's state dict holds it. Raises :class:`ValueError` naming any
+    parameter outside the prefix or the structure, or mapped twice."""
     params = _read(params)
     names = list(params)
+    if any(_RNN_FAMILY.search(n) for n in names):
+        mapped = _rnn_state_dict_names(names, prefix)
+        out = {}
+        for n, t in mapped.items():
+            if t is None:
+                raise ValueError("unexpected parameter %r: no counterpart "
+                                 "in the port's RNN family" % n)
+            if t in out:
+                raise ValueError("parameter %r maps onto %r twice" % (n, t))
+            out[t] = torch.from_numpy(np.array(params[n], copy=True))
+        if "decoder.bias" in out and "encoder.weight" in out and \
+                "decoder.weight" not in out:
+            out["decoder.weight"] = out["encoder.weight"]
+        return out
     arch = _BERT if any("word_embed" in n for n in names) else _LM
     if names and all("." in n for n in names):
         mapped = _structural_names(names, arch)

@@ -31,7 +31,9 @@ draws the reference's values, and ``save_parameters``/``load_parameters``
 read and write the reference's structural names in its ``.params``
 bytes. ``hybridize()`` sends NDArray calls through a :class:`~mxnet_tpu_
 torch.cached_op.CachedOp` (one CUDA graph per input signature on the
-card); a block whose parameters are rebound or cast clears it.
+card); a block whose parameters are rebound or cast clears it. Nested
+arguments (an RNN's states) enter the CachedOp as their leaves, and a
+nested output (``(out, [h, c])``) comes back in its eager structure.
 ``SymbolBlock``, ``export`` and ``imports`` wait for the symbol frontend
 (ROADMAP Queue A item 9).
 """
@@ -43,6 +45,7 @@ from collections import OrderedDict
 
 import torch
 from torch import nn
+from torch.utils._pytree import tree_flatten, tree_unflatten
 
 from .. import _tape
 from ..ndarray.ndarray import NDArray
@@ -131,6 +134,10 @@ def _has_nd(args, kwargs):
 
 
 def _unwrap(x):
+    """An NDArray's tensor; a list or tuple (an RNN's states) element by
+    element."""
+    if isinstance(x, (list, tuple)):
+        return type(x)(_unwrap(v) for v in x)
     return x._data if isinstance(x, NDArray) else x
 
 
@@ -555,25 +562,30 @@ class HybridBlock(Block):
             if any(p._deferred_init for p in self.collect_params().values()):
                 return self._nd_forward(*args)  # finishes the shapes
             self.__dict__["_params_ready"] = True
-        slots = tuple(i for i, a in enumerate(args)
+        # nested arguments (an RNN's states) enter as their leaves, and the
+        # output's nesting (``(out, [h, c])``) is rebuilt around the leaves
+        flat, spec = tree_flatten(list(args))
+        slots = tuple(i for i, a in enumerate(flat)
                       if isinstance(a, NDArray))
-        consts = tuple((i, a) for i, a in enumerate(args)
+        consts = tuple((i, a) for i, a in enumerate(flat)
                        if not isinstance(a, NDArray))
-        key = (len(args), consts)
+        key = (spec, consts)
         op = self._cached_ops.get(key)
         if op is None:
-            def fn(*nds, _n=len(args), _consts=dict(consts), _slots=slots):
+            def fn(*nds, _n=len(flat), _consts=dict(consts), _slots=slots):
                 full = [_consts.get(i) for i in range(_n)]
                 for i, v in zip(_slots, nds):
                     full[i] = v
-                return self._nd_forward(*full)
+                leaves, op.out_spec = tree_flatten(
+                    self._nd_forward(*tree_unflatten(full, spec)))
+                return leaves
             op = CachedOp(fn, name=self.name or "CachedOp",
                           **{k: v for k, v in self._flags.items()
                              if k in ("static_alloc", "static_shape",
                                       "inline_limit", "forward_bulk_size",
                                       "backward_bulk_size")})
             self._cached_ops[key] = op
-        return op(*[args[i] for i in slots])
+        return tree_unflatten(op(*[flat[i] for i in slots]), op.out_spec)
 
     def hybrid_forward(self, F, x, *args, **kwargs):
         raise NotImplementedError

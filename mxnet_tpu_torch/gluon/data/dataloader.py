@@ -70,10 +70,10 @@ def default_batchify_fn(data):
     if isinstance(data[0], tuple):
         data = zip(*data)
         return [default_batchify_fn(i) for i in data]
-    data = np.asarray(data)
-    return _nd.array(data, ctx=cpu(),
-                     dtype=data.dtype if data.dtype != np.float64
-                     else np.float32)
+    data = np.asarray(data)         # a new array: the samples stacked
+    return NDArray(data, ctx=cpu(),
+                   dtype=data.dtype if data.dtype != np.float64
+                   else np.float32)
 
 
 class DataLoader:

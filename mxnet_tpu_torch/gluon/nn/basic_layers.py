@@ -236,23 +236,38 @@ class _Lookup(torch.autograd.Function):
 
 class Embedding(HybridBlock):
     """Embedding lookup: ``weight (input_dim, output_dim)``; integer ids
-    of any integer dtype. The weight gradient is the same, bit for bit,
-    in every run (:class:`_Lookup`)."""
+    of any integer dtype (float ids are truncated). The weight gradient is
+    the same, bit for bit, in every run (:class:`_Lookup`). Given a
+    ``device``, the weight is made now (``Xavier``-drawn until
+    ``initialize``); without one, as the reference's layer
+    (``self.params.get``, made by ``initialize(ctx=...)``; ``params=``
+    shares another block's, as a tied decoder shares the encoder's).
+    ``sparse_grad`` is accepted; the gradient is dense."""
 
     _param_init = {"weight": None}
 
     def __init__(self, input_dim, output_dim, device=None,
-                 dtype=torch.float32):
-        super().__init__()
-        device = default_device(device)
-        self.weight = _param((input_dim, output_dim), device, dtype)
-        self.reset_parameters()
+                 dtype=torch.float32, weight_initializer=None,
+                 sparse_grad=False, prefix=None, params=None):
+        super().__init__(prefix=prefix, params=params)
+        self._input_dim = input_dim
+        self._output_dim = output_dim
+        if device is not None:
+            device = default_device(device)
+            self.weight = _param((input_dim, output_dim), device, dtype)
+            self.reset_parameters()
+        else:
+            with self.name_scope():
+                self.weight = self.params.get(
+                    "weight", shape=(input_dim, output_dim), dtype=dtype,
+                    init=weight_initializer)
 
     def reset_parameters(self):
         _xavier_(self.weight)
 
     def forward(self, x):
-        return _Lookup.apply(x.long(), self.weight)
+        self._ready(x)
+        return _Lookup.apply(x.long(), self._parameters["weight"])
 
 
 class LayerNorm(HybridBlock):

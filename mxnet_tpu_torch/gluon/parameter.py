@@ -455,7 +455,10 @@ class ParameterDict:
 
     def get(self, name, **kwargs):
         """The parameter ``prefix + name``, created with ``kwargs`` when
-        it does not exist (a partially known shape merges)."""
+        it does not exist. An existing one keeps its attributes; a shape
+        merges dim by dim as the reference's does (a known dim of the new
+        shape wins, a 0 keeps the old one: a tied ``Dense(units)`` asks
+        ``(units, 0)`` of an embedding's ``(units, in)`` weight)."""
         name = self._prefix + name
         param = self._get_impl(name)
         if param is None:
@@ -464,7 +467,13 @@ class ParameterDict:
             return param
         shape = kwargs.pop("shape", None)
         if shape is not None:
-            param.shape = (shape,) if isinstance(shape, int) else shape
+            shape = (shape,) if isinstance(shape, int) else tuple(shape)
+            cur = param.shape
+            if cur is not None and len(cur) == len(shape):
+                param._shape = tuple(a if a != 0 else b
+                                     for a, b in zip(shape, cur))
+            elif cur is None:
+                param.shape = shape
         for k, v in kwargs.items():
             if getattr(param, k, None) is None:
                 setattr(param, k, v)

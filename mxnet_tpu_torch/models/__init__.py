@@ -1,7 +1,8 @@
-"""Model zoo (counterpart of ``mxnet_tpu.models``): the transformer LM and
-BERT, with BERT's pretraining step."""
+"""Model zoo (counterpart of ``mxnet_tpu.models``): the transformer LM,
+BERT with its pretraining step, and the LSTM word language model."""
 from .bert import (BERTEncoder, BERTModel, BERTPretrainingLoss, PretrainLoss,
                    PretrainStep, bert_base, bert_tiny, synthetic_batch)
+from .lstm_lm import RNNModel
 from .transformer import (MultiHeadAttention, TransformerEncoderLayer,
                           TransformerLM, transformer_lm_base,
                           transformer_lm_small, transformer_lm_tiny)
@@ -10,4 +11,4 @@ __all__ = ["MultiHeadAttention", "TransformerEncoderLayer", "TransformerLM",
            "transformer_lm_tiny", "transformer_lm_small",
            "transformer_lm_base", "BERTModel", "BERTEncoder",
            "BERTPretrainingLoss", "bert_tiny", "bert_base", "PretrainStep",
-           "PretrainLoss", "synthetic_batch"]
+           "PretrainLoss", "synthetic_batch", "RNNModel"]

@@ -42,13 +42,16 @@ def _device(ctx):
 
 
 def _host(t):
-    """A tensor as a numpy array (bfloat16 through ``base.dtype_np``)."""
+    """A tensor as a numpy array of its own (bfloat16 through
+    ``base.dtype_np``): a CPU tensor's memory is copied, never shared, as
+    the reference's ``asnumpy`` never aliases its array."""
+    on_host = t.device.type == "cpu"
     t = t.detach().cpu()
     if t.dtype == torch.bfloat16:
         np_bf16 = dtype_np("bfloat16")
         return t.float().numpy().astype(np_bf16) \
             if isinstance(np_bf16, _np.dtype) else t.float().numpy()
-    return t.numpy()
+    return t.numpy().copy() if on_host else t.numpy()
 
 
 def _tensor(source, ctx=None, dtype=None):
@@ -561,12 +564,18 @@ def _canonical_index(key):
 
 def array(source_array, ctx=None, dtype=None):
     """An NDArray holding a copy of ``source_array`` (float64 host data
-    becomes float32 unless ``dtype`` says otherwise)."""
+    becomes float32 unless ``dtype`` says otherwise); a numpy array's
+    memory is not shared, even on the CPU."""
     if isinstance(source_array, NDArray):
         source_array = source_array._data.detach().clone()
     elif isinstance(source_array, torch.Tensor):
         source_array = source_array.detach().clone()
-    return NDArray(source_array, ctx=ctx, dtype=dtype)
+    out = NDArray(source_array, ctx=ctx, dtype=dtype)
+    if isinstance(source_array, _np.ndarray) and \
+            out._data.device.type == "cpu" and \
+            out._data.data_ptr() == source_array.ctypes.data:
+        out._data = out._data.clone()     # torch.as_tensor shared it
+    return out
 
 
 def empty(shape, ctx=None, dtype=None):

@@ -1,11 +1,11 @@
 """Operators: plain functions on tensors, the CUDA kernels' wrappers, and
 the op registry that the ``nd`` namespace is generated from. Importing
-this package registers the ops of ``core`` and ``nn``."""
+this package registers the ops of ``core``, ``nn`` and ``rnn``."""
 from . import registry
-from . import core, ctc, flash_attention, generation_ops, nn  # noqa: F401
+from . import core, ctc, flash_attention, generation_ops, nn, rnn  # noqa: F401
 from .registry import Op, get_op, invoke, list_ops, register
 
-__all__ = ["ctc", "core", "flash_attention", "generation_ops", "nn",
+__all__ = ["ctc", "core", "flash_attention", "generation_ops", "nn", "rnn",
            "registry", "register", "get_op", "list_ops", "invoke", "Op",
            "populate_namespace"]
 

@@ -5,8 +5,10 @@ methods dispatch and that Gluon's layers and the two models call through
 ``F.``: each op is a short function over torch tensors with the
 reference op's name, aliases, arguments and result dtypes (comparisons
 give 1.0/0.0 in the input's floating type, or float32; ``argmax`` and
-``argmin`` give float32 indices; ``one_hot`` float32). The rest of the
-reference's corpus is ROADMAP Queue A item 8.
+``argmin`` give float32 indices; ``one_hot`` float32), and the sequence
+ops the recurrent cells use (``SequenceMask``, ``SequenceLast``,
+``SequenceReverse``, ``_rnn_param_concat``). The rest of the reference's
+corpus is ROADMAP Queue A item 8.
 """
 from __future__ import annotations
 
@@ -322,6 +324,13 @@ def concat(*data, dim=1, num_args=None):
     return torch.cat(data, dim=dim)
 
 
+@register("_rnn_param_concat", aliases=("_npi_rnn_param_concat",))
+def _rnn_param_concat(*args, dim=0, num_args=None):
+    """``concat`` of an RNN's flattened parameters (the reference's
+    ``ops/tensor_extra.py``)."""
+    return torch.cat(args, dim=int(dim))
+
+
 @register("stack")
 def stack(*data, axis=0, num_args=None):
     return torch.stack(data, dim=axis)
@@ -428,6 +437,70 @@ def one_hot(indices, depth=1, on_value=1.0, off_value=0.0, dtype="float32"):
 def embedding(data, weight, input_dim=None, output_dim=None, dtype=None,
               sparse_grad=False):
     return weight[data.long()]
+
+
+# ---------------------------------------------------------------- sequences
+# ``axis`` is the time axis (0 or 1); the batch axis is the other one.
+# Without ``use_sequence_length`` (or a length) each op takes every step.
+
+
+def _steps_mask(data, sequence_length, axis):
+    """``(T, B)``-broadcastable bool mask of the steps before each
+    sequence's length, shaped like ``data`` with 1s elsewhere."""
+    shape = [1] * data.dim()
+    shape[axis] = data.shape[axis]
+    steps = torch.arange(data.shape[axis], device=data.device).reshape(shape)
+    lshape = [1] * data.dim()
+    batch_axis = 1 if axis == 0 else 0
+    lshape[batch_axis] = data.shape[batch_axis]
+    return steps < sequence_length.reshape(lshape)
+
+
+@register("SequenceMask", aliases=("sequence_mask",
+                                   "_npx_sequence_mask"))
+def SequenceMask(data, sequence_length=None, use_sequence_length=False,
+                 value=0.0, axis=0):
+    """The steps at or past each sequence's length set to ``value``."""
+    if not use_sequence_length or sequence_length is None:
+        return data
+    fill = torch.full((), value, dtype=data.dtype, device=data.device)
+    return torch.where(_steps_mask(data, sequence_length, axis), data, fill)
+
+
+@register("SequenceLast")
+def SequenceLast(data, sequence_length=None, use_sequence_length=False,
+                 axis=0):
+    """Each sequence's last valid step (the last step without lengths).
+    With lengths the reference takes axis 0 only (on axis 1 its
+    ``take_along_axis`` index does not fit and it raises); the port takes
+    either."""
+    if not use_sequence_length or sequence_length is None:
+        return data.select(axis, data.shape[axis] - 1)
+    last = (sequence_length.long() - 1).reshape(
+        (-1,) + (1,) * (data.dim() - 2))
+    t_first = data if axis == 0 else data.transpose(0, 1)
+    idx = last.unsqueeze(0).expand((1,) + tuple(t_first.shape[1:]))
+    return torch.gather(t_first, 0, idx).squeeze(0)
+
+
+@register("SequenceReverse")
+def SequenceReverse(data, sequence_length=None, use_sequence_length=False,
+                    axis=0):
+    """Each sequence's first ``length`` steps reversed in place, the rest
+    kept (the whole time axis flipped without lengths). With lengths the
+    reference reverses along axis 0 whatever ``axis`` says; the port
+    follows ``axis``."""
+    if not use_sequence_length or sequence_length is None:
+        return torch.flip(data, (axis,))
+    t_first = data if axis == 0 else data.transpose(0, 1)
+    T = t_first.shape[0]
+    steps = torch.arange(T, device=data.device).unsqueeze(1)     # (T, 1)
+    sl = sequence_length.long().reshape(1, -1)                   # (1, B)
+    rev = torch.where(steps < sl, sl - 1 - steps, steps)         # (T, B)
+    rev = rev.reshape(rev.shape + (1,) * (t_first.dim() - 2)) \
+        .expand(t_first.shape)
+    out = torch.gather(t_first, 0, rev)
+    return out if axis == 0 else out.transpose(0, 1)
 
 
 # ---------------------------------------------------------------- init-like

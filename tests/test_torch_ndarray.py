@@ -182,6 +182,29 @@ def test_setitem_matches_reference():
         _same(own, ref, tol=0)
 
 
+@pytest.mark.parametrize("kind", ["float32", "strided", "int64", "float64"])
+def test_array_and_asnumpy_share_no_memory(kind):
+    """``nd.array`` of a numpy array and ``asnumpy`` hold copies of their
+    own on the CPU (MXNet's ``array`` copies): a later write to one side
+    does not show on the other. Port only: the JAX package's CPU arrays
+    may alias an aligned numpy buffer."""
+    src = np.arange(24, dtype=np.float32).reshape(4, 6)
+    dtype = None
+    if kind == "strided":
+        src = src[:, 1::2]
+    elif kind != "float32":
+        src = src.astype(kind)
+        dtype = kind
+    want = src.copy()
+    a = tnd.array(src, ctx=tmx.cpu(), dtype=dtype)
+    host = a.asnumpy()
+    src[0, 0] = 99
+    np.testing.assert_array_equal(a.asnumpy(), want)
+    host[1, 1] = -7
+    np.testing.assert_array_equal(a.asnumpy(), want)
+    assert str(a.dtype) == str(want.dtype)
+
+
 def test_mutation_rebinds_as_the_reference():
     x = _x(3)
     for F in (jnd, tnd):
