@@ -286,22 +286,57 @@ Builds the package's CUDA kernels from the sources in this checkout
     checkpoint, loaded through ``convert.load_mxnet_params`` into a fresh
     ``RNNModel``, gives the trained model's forward bit for bit. No flash
     kernel may launch.
+14. **Symbol phase: the symbolic and legacy frontends.** (a)
+    ``resnet50_v1()`` (the vision phase's, from ``Xavier()``) exported
+    (``HybridBlock.export`` into a temporary directory) and imported as
+    a ``SymbolBlock`` on the card: the graph's op counts (53
+    ``Convolution``, 53 ``BatchNorm``, 49 ``Activation``, 2 ``Pooling``,
+    16 ``add``, 1 ``FullyConnected``), the imported block's b32 eager
+    forward equal to the original's bit for bit in fp32 and, both cast,
+    in bf16 (BatchNorm's inputs float32), each block's CUDA-graph replay
+    equal to its eager forward, and both replays' ms. (b)
+    ``InferenceEngine.load`` of those files (buckets 1, 2, 4) behind
+    ``ModelServer``: 8 single-image ``/predict`` requests in waves of 1,
+    3 and 4, each answer within ``SYMBOL_PREDICT_TOL`` (1e-5) of its max
+    from the imported block's forward of its row; client p50 and the
+    buckets seen. (c) The exported symbol under ``mx.sym.SoftmaxOutput``,
+    bound in ``mx.mod.Module`` for (32, 3, 224, 224) and initialized from
+    ``mx.model.load_checkpoint`` of (a)'s files, SGD lr 0.1 momentum 0.9
+    (``bench.py``'s): the first update within ``SYMBOL_STEP_TOL`` (1e-5)
+    of each weight's max from one eager ``gluon.Trainer`` step of the
+    original net under ``autograd.record(train_mode=False)`` (the
+    executor runs BatchNorm on its moving statistics, as the reference's
+    does), 8 steps (ms a step by CUDA events over steps 2..8, img/s,
+    printed beside the vision phase's fp32 ``bench_span``), every moving
+    statistic unchanged, and the first step's ``save_checkpoint`` ->
+    ``Module.load`` -> ``predict`` equal to that module's ``predict`` bit
+    for bit (nothing normalizes the activations, so at this rate the
+    weights may leave the finite range by the 8th step: printed).
+    No flash kernel may launch in (a)-(c). (d)
+    ``mx.sym._contrib_dot_product_attention`` (BHSD, causal) at the
+    registry phase's shape through ``simple_bind`` in fp32 and bf16: a
+    training forward and ``backward`` launch the forward, dQ and dK/dV
+    kernels once each, and match the plain path at the registry phase's
+    tolerances; the inference forward's replay (the executor's
+    ``CachedOp``) equals its eager forward.
 
 With ``--profile`` the burst is served a second time, serving v2's part
 (f) is profiled, and two fp32 and two bf16 training steps, two bf16 BERT
 steps and two bf16 BERT steps each with LAMB and Adam (surface phase),
 one bf16 ResNet-50 step and one b32 bf16 ResNet-50 eager forward (vision
-phase) are run, under ``torch.profiler`` (after the checked runs) to
-print the device's busy share, its kernel count and its top kernels.
+phase) and one fp32 ``Module`` step (symbol phase) are run, under
+``torch.profiler`` (after the checked runs) to print the device's busy
+share, its kernel count and its top kernels.
 
 Prints the serving, serving v2, training, BERT, surface, predict,
-autograd, registry-op, vision, data and rnn numbers, one
+autograd, registry-op, vision, data, rnn and symbol numbers, one
 ``{"kernels": [...]}`` line with an
 entry per TPU kernel (the three (B, S, H, D) ones with the numbers of the
 training shape in fp32, under ``*_bf16`` keys in bf16, and under ``bert``
 those of the BERT shape; the three (B, H, S, D) ones with the numbers of
 the registry op's shape; every kernel's launches also under ``vision``,
-``data`` and ``rnn``, where none runs), the card's name and power limit,
+``data`` and ``rnn``, where none runs, and ``symbol``), the card's name
+and power limit,
 and last ``{"ok": true, "device": {...}}``.
 Any failure exits non-zero before that line. Without CUDA it exits 2.
 """
@@ -3430,8 +3465,410 @@ def rnn_phase(args, torch):
     return out
 
 
+# the symbol phase: ResNet-50 v1 exported, imported, served and trained
+# through Module, and the attention op through an Executor
+SYMBOL_OPS = {"Convolution": 53, "BatchNorm": 53, "Activation": 49,
+              "Pooling": 2, "add": 16, "FullyConnected": 1}
+SYMBOL_REPLAYS = 20
+SYMBOL_WAVES = (1, 3, 4)        # /predict requests sent together (8 in all)
+SYMBOL_BUCKETS = (1, 2, 4)
+SYMBOL_PREDICT_TOL = 1e-5       # an answer against the block's row, of max
+SYMBOL_STEPS = 8
+SYMBOL_STEP_TOL = 1e-5          # Module step against Gluon's, of each max
+
+
+def _graph_ops(path):
+    with open(path) as f:
+        nodes = json.load(f)["nodes"]
+    ops = {}
+    for n in nodes:
+        if n["op"] != "null":
+            ops[n["op"]] = ops.get(n["op"], 0) + 1
+    return ops
+
+
+def _replay_check(torch, blocks, xn, what):
+    """Hybridize each block; its CUDA-graph replay must equal its eager
+    output; the replay ms of each."""
+    from mxnet_tpu_torch import autograd
+    out = {}
+    for name, (block, eager) in blocks.items():
+        block.hybridize()
+        with autograd.predict_mode():
+            block(xn)                           # the capture
+            replay = block(xn)._data
+            if not torch.equal(replay, eager):
+                fail("symbol %s: %s's replay differs from its eager forward "
+                     "(max |diff| %g)" % (what, name, (
+                         replay.float() - eager.float()).abs().max()))
+            out[name] = _events_ms(torch, lambda: block(xn), SYMBOL_REPLAYS)
+        block.hybridize(False)
+    return out
+
+
+def symbol_export(args, torch, tmp):
+    """(a) ``resnet50_v1`` exported and imported as a ``SymbolBlock`` on
+    the card: the graph's ops, the imported eager forward equal to the
+    original's bit for bit, each replay equal to its eager forward."""
+    from mxnet_tpu_torch import autograd, nd
+    from mxnet_tpu_torch import random as trandom
+    from mxnet_tpu_torch.gluon import SymbolBlock
+    dev = torch.device("cuda")
+    net = _resnet50(torch, trandom, args.seed)
+    prefix = os.path.join(tmp, "resnet50_v1")
+    t0 = time.perf_counter()
+    files = net.export(prefix)
+    export_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    block = SymbolBlock.imports(files[0], ["data"], files[1])
+    import_s = time.perf_counter() - t0
+    ops = _graph_ops(files[0])
+    if ops != SYMBOL_OPS:
+        fail("symbol (a): the exported graph's ops %s, not %s"
+             % (ops, SYMBOL_OPS))
+    x = torch.rand((VISION_BATCH, 3, VISION_IMAGE, VISION_IMAGE),
+                   generator=torch.Generator().manual_seed(args.seed)).to(dev)
+    res = {"ops": ops, "export_s": export_s, "import_s": import_s,
+           "prefix": prefix, "param_prefix": net.prefix,
+           "param_bytes": os.path.getsize(files[1])}
+    xn = nd.NDArray(x)
+    with autograd.predict_mode():
+        orig, imp = net(xn)._data, block(xn)._data
+    if not torch.equal(orig, imp) or not torch.isfinite(orig).all():
+        fail("symbol (a) float32: the imported forward differs from the "
+             "original's (max |diff| %g)" % (orig - imp).abs().max())
+    res["float32"] = {"imported_equals_original": True, "replay_ms":
+                      _replay_check(torch, {"original": (net, orig),
+                                            "imported": (block, imp)},
+                                    xn, "(a) float32")}
+    return net, block, res
+
+
+def symbol_bf16(torch, net, block, x):
+    """(a) in bf16: both cast (BatchNorm's inputs stay float32)."""
+    from mxnet_tpu_torch import autograd, nd
+    net.cast("bfloat16")
+    block.cast("bfloat16")
+    xn = nd.NDArray(x.bfloat16())
+    with autograd.predict_mode():
+        orig, imp = net(xn)._data, block(xn)._data
+    if imp.dtype != torch.bfloat16 or not torch.equal(orig, imp):
+        fail("symbol (a) bfloat16: the imported forward differs from the "
+             "original's (max |diff| %g)" % (
+                 orig.float() - imp.float()).abs().max())
+    return {"imported_equals_original": True, "replay_ms": _replay_check(
+        torch, {"original": (net, orig), "imported": (block, imp)}, xn,
+        "(a) bfloat16")}
+
+
+def symbol_predict(args, torch, prefix, block):
+    """(b) ``InferenceEngine.load`` of (a)'s files behind ``ModelServer``:
+    8 single-image requests in waves of 1, 3 and 4; each answer against
+    the imported block's eager forward of its row."""
+    from concurrent.futures import ThreadPoolExecutor
+    from mxnet_tpu_torch import autograd, nd
+    from mxnet_tpu_torch.serving import InferenceEngine, ModelServer
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    engine = InferenceEngine.load(prefix, buckets=SYMBOL_BUCKETS)
+    load_s = time.perf_counter() - t0
+    n = sum(SYMBOL_WAVES)
+    imgs = np.random.default_rng(args.seed + 3).random(
+        (n, 3, VISION_IMAGE, VISION_IMAGE)).astype("float32")
+    answers, client_ms = [None] * n, [None] * n
+    srv = ModelServer(engine, port=0).start()
+
+    def post(i):
+        body = json.dumps({"data": imgs[i].tolist()}).encode()
+        req = urllib.request.Request(srv.url + "/predict", data=body,
+                                     headers={"Content-Type":
+                                              "application/json"})
+        t = time.perf_counter()
+        reply = json.loads(urllib.request.urlopen(req, timeout=120).read())
+        client_ms[i] = (time.perf_counter() - t) * 1e3
+        answers[i] = np.asarray(reply["output"], np.float32)
+
+    try:
+        start = 0
+        with ThreadPoolExecutor(max(SYMBOL_WAVES)) as pool:
+            for wave in SYMBOL_WAVES:
+                list(pool.map(post, range(start, start + wave)))
+                start += wave
+    finally:
+        srv.stop()
+    errs = []
+    with autograd.predict_mode():
+        for i in range(n):
+            row = block(nd.NDArray(torch.from_numpy(imgs[i:i + 1]).to(dev)))
+            want = row.asnumpy().reshape(answers[i].shape)
+            errs.append(float(np.abs(answers[i] - want).max()
+                              / np.abs(want).max()))
+    if not max(errs) <= SYMBOL_PREDICT_TOL:
+        fail("symbol (b): an answer lies %.3g of its max from the block's "
+             "forward (tolerance %g)" % (max(errs), SYMBOL_PREDICT_TOL))
+    stats = engine.stats()
+    engine.close()
+    return {"requests": n, "waves": list(SYMBOL_WAVES), "load_s": load_s,
+            "buckets_seen": stats["buckets_seen"], "misses": stats["misses"],
+            "client_ms_p50": nearest_rank(client_ms, 50),
+            "client_ms_max": max(client_ms),
+            "max_err_rel_to_max": max(errs)}
+
+
+def _sm_loss(torch, probs, y):
+    """The mean negative log-likelihood of the labels under ``probs``."""
+    p = probs.gather(1, y.long().reshape(-1, 1)).clamp_min(1e-30)
+    return float(-p.log().mean())
+
+
+def symbol_module(args, torch, prefix, param_prefix, tmp):
+    """(c) the exported symbol under ``SoftmaxOutput``, bound for b32 in a
+    ``Module`` from ``load_checkpoint`` of (a)'s files; SGD lr 0.1
+    momentum 0.9 (``bench.py``'s); the first update against one eager
+    ``gluon.Trainer`` step of the original net; the moving statistics;
+    the first step's ``save_checkpoint`` -> ``Module.load`` -> ``predict``
+    against that module's ``predict``. (With BatchNorm on its moving
+    statistics nothing normalizes the activations, and at this rate the
+    weights leave the finite range after a few steps: the outputs after
+    the 8th step are reported, not required finite.)"""
+    from mxnet_tpu_torch import autograd, gluon, io, model, nd, sym
+    from mxnet_tpu_torch import module as mod_ns
+    from mxnet_tpu_torch import random as trandom
+    from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+    dev = torch.device("cuda")
+    shape = (VISION_BATCH, 3, VISION_IMAGE, VISION_IMAGE)
+    t0 = time.perf_counter()
+    graph, arg_p, aux_p = model.load_checkpoint(prefix, 0)
+    head = sym.SoftmaxOutput(graph, sym.var("softmax_label"), name="softmax")
+    m = mod_ns.Module(head)
+    m.bind(data_shapes=[("data", shape)],
+           label_shapes=[("softmax_label", (VISION_BATCH,))])
+    m.init_params(arg_params=arg_p, aux_params=aux_p)
+    m.init_optimizer(optimizer="sgd", optimizer_params=dict(VISION_SGD))
+    bind_s = time.perf_counter() - t0
+    g = torch.Generator(dev).manual_seed(args.seed + 4)
+    x = torch.rand(shape, generator=g, device=dev)
+    y = torch.randint(0, VISION_CLASSES, (VISION_BATCH,), generator=g,
+                      device=dev).float()
+    batch = io.DataBatch(data=[nd.NDArray(x)], label=[nd.NDArray(y)])
+    # one eager Gluon step of the original net from the same weights, with
+    # BatchNorm on its moving statistics as the Module's executor runs it
+    net = _resnet50(torch, trandom, args.seed)
+    trainer = gluon.Trainer(net.collect_params(), "sgd", dict(VISION_SGD))
+    with autograd.record(train_mode=False):
+        loss = SoftmaxCrossEntropyLoss()(net(nd.NDArray(x)), nd.NDArray(y))
+    loss.backward()
+    trainer.step(VISION_BATCH)
+    gluon_w = {param_prefix + n[len(net.prefix):]: p.tensor()
+               for n, p in net.collect_params().items()}
+    aux0 = {n: a._data.clone() for n, a in m.get_params()[1].items()}
+    losses = []
+    m.forward_backward(batch)
+    m.update()
+    losses.append(_sm_loss(torch, m.get_outputs()[0]._data, y))
+    worst, worst_name = 0.0, None
+    for n, w in m.get_params()[0].items():
+        err = rel_to_max(w._data, gluon_w[n])
+        if err > worst:
+            worst, worst_name = err, n
+    if not worst <= SYMBOL_STEP_TOL:
+        fail("symbol (c): after the first step %s lies %.3g of its max "
+             "from the Gluon step's (tolerance %g)"
+             % (worst_name, worst, SYMBOL_STEP_TOL))
+    del net, trainer, gluon_w, loss
+    # the checkpoint of the first step, and its module's inference outputs
+    ckpt = os.path.join(tmp, "module")
+    m.save_checkpoint(ckpt, 1)
+    data = io.NDArrayIter(x.cpu().numpy(), y.cpu().numpy(),
+                          batch_size=VISION_BATCH)
+    want = m.predict(data)._data
+
+    def step():
+        m.forward_backward(batch)
+        m.update()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    for _ in range(SYMBOL_STEPS - 1):
+        step()
+        losses.append(_sm_loss(torch, m.get_outputs()[0]._data, y))
+    e1.record()
+    torch.cuda.synchronize()
+    step_ms = e0.elapsed_time(e1) / (SYMBOL_STEPS - 1)
+    if not all(np.isfinite(losses)):
+        fail("symbol (c): losses not finite: %r" % losses)
+    moved = [n for n, a in m.get_params()[1].items()
+             if not torch.equal(a._data, aux0[n])]
+    if moved:
+        fail("symbol (c): Module training moved the moving statistics %s "
+             "(the reference's executor leaves them)" % moved[:4])
+    res = {"bind_s": bind_s, "losses": losses, "step_ms": step_ms,
+           "img_s": VISION_BATCH * 1e3 / step_ms,
+           "first_step_vs_gluon_rel_to_max": worst,
+           "first_step_worst_param": worst_name,
+           "moving_stats_unchanged": len(aux0),
+           "outputs_finite_after": bool(torch.isfinite(
+               m.predict(data)._data).all())}
+    back = mod_ns.Module.load(ckpt, 1)
+    back.bind(data_shapes=[("data", shape)],
+              label_shapes=[("softmax_label", (VISION_BATCH,))],
+              for_training=False)
+    got = back.predict(data)._data
+    if not torch.isfinite(want).all() or not torch.equal(got, want):
+        fail("symbol (c): Module.load -> predict differs from the saved "
+             "module's (max |diff| %g; %d non-finite of %d)" % (
+                 (got - want).abs().max(), (~torch.isfinite(want)).sum(),
+                 want.numel()))
+    res["load_predict_equal"] = True
+    if args.profile:
+        res["profile"] = profile(torch, step)
+    return res
+
+
+def symbol_attention(torch):
+    """(d) ``sym._contrib_dot_product_attention`` (BHSD, causal) at the
+    registry op's shape through an ``Executor`` in fp32 and bf16:
+    ``simple_bind``, a training forward and ``backward``, one launch of
+    each kernel a call, held against the plain path; the inference
+    forward's replay against its eager forward."""
+    from mxnet_tpu_torch import gpu, nd, sym
+    from mxnet_tpu_torch.symbol.symbol import evaluate_graph
+    B, S, H, D = REGISTRY_SHAPE
+    g = torch.Generator(device="cuda").manual_seed(778)
+    att = sym._contrib_dot_product_attention(
+        sym.var("q"), sym.var("k"), sym.var("v"), causal=True, name="att")
+    cases = []
+    for dt in (torch.float32, torch.bfloat16):
+        dname = str(dt).replace("torch.", "")
+        ex = att.simple_bind(gpu(0), type_dict=dict.fromkeys("qkv", dname),
+                             q=(B, H, S, D), k=(B, H, S, D), v=(B, H, S, D))
+        (q, k, v, do), _ = attention_inputs(torch, g, B, S, H, D, "BHSD", dt,
+                                            4, False)
+        feed = {"q": nd.NDArray(q), "k": nd.NDArray(k), "v": nd.NDArray(v)}
+
+        def run():
+            ex.forward(is_train=True, **feed)
+            ex.backward([nd.NDArray(do)])
+            return [ex.outputs[0]._data.clone()] + [
+                ex.grad_dict[n]._data.clone() for n in "qkv"]
+
+        n0 = kernel_launches()
+        got = run()
+        torch.cuda.synchronize()
+        per_call = {n: c - n0[n] for n, c in kernel_launches().items()}
+        if per_call != {"flash_attn_fwd": 0, "flash_attn_fwd_bhsd": 1,
+                        "flash_attn_bwd_dq": 1, "flash_attn_bwd_dkv": 1}:
+            fail("symbol (d) %s: a training forward and backward launched "
+                 "%s" % (dname, per_call))
+        ref = on_plain_path(run, "symbol (d)")
+        tol = 2e-4 if dt == torch.float32 else 2e-2
+        errs = {}
+        for name, a, r in zip(("o", "dq", "dk", "dv"), got, ref):
+            errs[name] = rel_to_max(a, r)
+            if not errs[name] <= tol:
+                fail("symbol (d) %s: %s differs from the plain path by %g "
+                     "of its max (tolerance %g)" % (dname, name, errs[name],
+                                                    tol))
+        ex.forward(**feed)                     # the capture
+        replay = ex.forward(**feed)[0]._data
+        with torch.no_grad():
+            eager = evaluate_graph(att, ex._bindings())[0]
+        if not torch.equal(replay, eager):
+            fail("symbol (d) %s: the executor's replay differs from its "
+                 "eager forward" % dname)
+        cases.append({"dtype": dname, "per_call": per_call,
+                      "err_rel_to_max": errs, "tol": tol,
+                      "replay_equals_eager": True})
+    return {"shape": "B=%d S=%d H=%d D=%d BHSD causal" % REGISTRY_SHAPE,
+            "cases": cases}
+
+
+def symbol_phase(args, torch):
+    """ResNet-50 v1 through the symbol frontend (a)-(c): no flash kernel;
+    then the attention op through an Executor (d): every BHSD kernel."""
+    import tempfile
+    from mxnet_tpu_torch.ops import flash_attention as fa
+    t0 = time.perf_counter()
+    fa.reset_launches()
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        net, block, out["export"] = symbol_export(args, torch, tmp)
+        prefix = out["export"]["prefix"]
+        out["predict"] = symbol_predict(args, torch, prefix, block)
+        x = torch.rand((VISION_BATCH, 3, VISION_IMAGE, VISION_IMAGE),
+                       generator=torch.Generator().manual_seed(args.seed)) \
+            .to(torch.device("cuda"))
+        out["export"]["bfloat16"] = symbol_bf16(torch, net, block, x)
+        del net, block, x
+        gc.collect()
+        torch.cuda.empty_cache()
+        out["module"] = symbol_module(args, torch, prefix,
+                                      out["export"]["param_prefix"], tmp)
+    gc.collect()
+    torch.cuda.empty_cache()
+    resnet = kernel_launches()
+    if any(resnet.values()):
+        fail("symbol: a flash kernel launched on the ResNet-50 path: %s"
+             % resnet)
+    out["attention"] = symbol_attention(torch)
+    out["launches"] = kernel_launches()
+    if not all(out["launches"][n] for n in (
+            "flash_attn_fwd_bhsd", "flash_attn_bwd_dq",
+            "flash_attn_bwd_dkv")):
+        fail("symbol: a BHSD kernel never launched: %s" % out["launches"])
+    out["wall_s"] = time.perf_counter() - t0
+    return out
+
+
+def print_symbol(sym_out, vision, card):
+    e, p, m = sym_out["export"], sym_out["predict"], sym_out["module"]
+    print("symbol (a) resnet50_v1 export %.2f s (%d bytes of params), "
+          "SymbolBlock.imports %.2f s; graph %s; imported == original "
+          "bitwise in fp32 and bf16; replay ms original/imported fp32 "
+          "%.3f/%.3f, bf16 %.3f/%.3f [%s]" % (
+              e["export_s"], e["param_bytes"], e["import_s"], e["ops"],
+              e["float32"]["replay_ms"]["original"],
+              e["float32"]["replay_ms"]["imported"],
+              e["bfloat16"]["replay_ms"]["original"],
+              e["bfloat16"]["replay_ms"]["imported"], card), flush=True)
+    print("symbol (b) InferenceEngine.load %.2f s, /predict %d requests "
+          "(waves %s): client p50 %.2f ms, max %.2f ms; buckets %s; answers "
+          "vs the block's rows %.3g of max [%s]" % (
+              p["load_s"], p["requests"], p["waves"], p["client_ms_p50"],
+              p["client_ms_max"], p["buckets_seen"],
+              p["max_err_rel_to_max"], card), flush=True)
+    print("symbol (c) Module b%d fp32 SGD: step %.2f ms (steps 2..%d, %.1f "
+          "img/s) against the vision phase's fp32 bench_span %.2f ms (%.1f "
+          "img/s); first update vs Gluon %.3g of max (%s); %d moving "
+          "statistics unchanged; Module.load -> predict bitwise; losses %s; "
+          "outputs finite after step %d: %s [%s]" % (
+              VISION_BATCH, m["step_ms"], SYMBOL_STEPS, m["img_s"],
+              vision["float32"]["span_step_ms"], vision["float32"]["img_s"],
+              m["first_step_vs_gluon_rel_to_max"],
+              m["first_step_worst_param"], m["moving_stats_unchanged"],
+              ", ".join("%.4f" % v for v in m["losses"]), SYMBOL_STEPS,
+              m["outputs_finite_after"], card), flush=True)
+    a = sym_out["attention"]
+    print("symbol (d) _contrib_dot_product_attention %s through an "
+          "Executor: %s; launches %s; %.1f s" % (
+              a["shape"], "; ".join(
+                  "%s %s replay == eager" % (c["dtype"], ", ".join(
+                      "%s %.2g" % kv for kv in c["err_rel_to_max"].items()))
+                  for c in a["cases"]), sym_out["launches"],
+              sym_out["wall_s"]), flush=True)
+    if "profile" in m:
+        pr = m["profile"]
+        print("profile 1 fp32 Module step (symbol): %.1f ms wall, device "
+              "busy %.1f ms (%.1f%%), %d kernels; top: %s" % (
+                  pr["wall_ms"], pr["device_busy_ms"],
+                  100 * pr["device_busy_share"], pr["kernels_launched"],
+                  "; ".join("%s x%d %.1f ms" % (k["name"][:40], k["calls"],
+                                                k["ms"])
+                            for k in pr["top_kernels"][:6])), flush=True)
+
+
 def kernel_entries(serving, v2, training, bert, surface, core, vision,
-                   data, rnn, fwd_cases, bwd_cases):
+                   data, rnn, symbol, fwd_cases, bwd_cases):
     """The ``{"kernels": [...]}`` entries, one per TPU kernel. The three
     ``(B, S, H, D)`` ones: numbers of the main path's training shape (B 32,
     S 512, H 12, D 64, causal) in fp32, and under ``*_bf16`` keys in bf16;
@@ -3441,7 +3878,8 @@ def kernel_entries(serving, v2, training, bert, surface, core, vision,
     ``core`` holds the predict, autograd and registry-op phases' launch
     counts; the backward kernels serve both layouts, so their launches are
     split by the phase's layout. The vision, data and rnn phases' launches
-    (none: no attention on those paths) are listed under their names."""
+    (none: no attention on those paths) are listed under their names, and
+    the symbol phase's (its attention op through an Executor: BHSD)."""
     def pick(cases, dtype="float32", B=TRAIN_BATCH, layout="BSHD"):
         return next(c for c in cases if c["B"] == B and c["S"] == 512
                     and c["D"] == 64 and c["layout"] == layout
@@ -3490,7 +3928,8 @@ def kernel_entries(serving, v2, training, bert, surface, core, vision,
              "autograd": core["autograd"]["flash_attn_fwd"],
              "vision": vision["launches"]["flash_attn_fwd"],
              "data": data["launches"]["flash_attn_fwd"],
-             "rnn": rnn["launches"]["flash_attn_fwd"]}
+             "rnn": rnn["launches"]["flash_attn_fwd"],
+             "symbol": symbol["launches"]["flash_attn_fwd"]}
     train_timed = "B=%d S=%d H=12 D=64 BSHD causal, float32 (*_bf16: " \
         "bfloat16)" % (TRAIN_BATCH, TRAIN_SEQ)
     reg_timed = "B=8 S=512 H=12 D=64 BHSD causal with a key mask, float32 " \
@@ -3508,11 +3947,14 @@ def kernel_entries(serving, v2, training, bert, surface, core, vision,
         timed_case=reg_timed,
         max_abs_err=max(c["max_abs_err"] for c in fwd_cases
                         if c["layout"] == "BHSD"),
-        launches=reg["flash_attn_fwd_bhsd"],
+        launches=reg["flash_attn_fwd_bhsd"]
+        + symbol["launches"]["flash_attn_fwd_bhsd"],
         launches_by_path={"registry_op": reg["flash_attn_fwd_bhsd"],
                           "vision": vision["launches"]["flash_attn_fwd_bhsd"],
                           "data": data["launches"]["flash_attn_fwd_bhsd"],
-                          "rnn": rnn["launches"]["flash_attn_fwd_bhsd"]},
+                          "rnn": rnn["launches"]["flash_attn_fwd_bhsd"],
+                          "symbol":
+                              symbol["launches"]["flash_attn_fwd_bhsd"]},
         **timed(pick(fwd_cases, B=8, layout="BHSD"),
                 pick(fwd_cases, "bfloat16", B=8, layout="BHSD"))))
     for name, part, line, line_bhsd in (
@@ -3526,7 +3968,8 @@ def kernel_entries(serving, v2, training, bert, surface, core, vision,
               "autograd": core["autograd"][name],
               "vision": vision["launches"][name],
               "data": data["launches"][name],
-              "rnn": rnn["launches"][name]}
+              "rnn": rnn["launches"][name],
+              "symbol": 0}
         for layout, ln in (("BSHD", line), ("BHSD", line_bhsd)):
             errs = [c["max_abs_err"][n] for c in bwd_cases
                     if c["layout"] == layout
@@ -3539,11 +3982,13 @@ def kernel_entries(serving, v2, training, bert, surface, core, vision,
                                                        "bfloat16"), part))
             else:
                 e = dict(name=name + "_bhsd", line=ln, timed_case=reg_timed,
-                         launches=reg[name],
+                         launches=reg[name] + symbol["launches"][name],
                          launches_by_path={"registry_op": reg[name],
                                            "vision": vision["launches"][name],
                                            "data": data["launches"][name],
-                                           "rnn": rnn["launches"][name]},
+                                           "rnn": rnn["launches"][name],
+                                           "symbol":
+                                               symbol["launches"][name]},
                          **timed(pick(bwd_cases, B=8, layout="BHSD"),
                                  pick(bwd_cases, "bfloat16", B=8,
                                       layout="BHSD"), part))
@@ -3894,6 +4339,8 @@ def main():
 
     rnn = rnn_phase(args, torch)
     print_rnn(rnn, card)
+    symbol = symbol_phase(args, torch)
+    print_symbol(symbol, vision, card)
 
     for tag, prof in (("serving burst", serving["profile"]),
                       ("2 fp32 training steps",
@@ -3948,7 +4395,7 @@ def main():
                  ",".join("%.2g" % v for v in
                           c["max_err_rel_to_max"].values())))
     entries = kernel_entries(serving, v2, training, bert, surface, core,
-                             vision, data, rnn, fwd_cases, bwd_cases)
+                             vision, data, rnn, symbol, fwd_cases, bwd_cases)
     if args.out:
         with open(args.out, "w") as f:
             json.dump({"serving": serving, "serving_v2": v2,
@@ -3956,7 +4403,7 @@ def main():
                        "bert": bert, "surface": surface,
                        "predict": predict, "autograd": core_ag,
                        "registry_op": registry, "vision": vision,
-                       "data": data, "rnn": rnn,
+                       "data": data, "rnn": rnn, "symbol": symbol,
                        "kernels": entries, "card": card,
                        "build_s": build_s}, f, indent=1)
     print(json.dumps({"kernels": [{k: v for k, v in e.items()

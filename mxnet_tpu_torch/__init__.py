@@ -36,12 +36,19 @@ What the port carries so far:
   ``gluon.rnn`` (the cells, ``RNN``/``LSTM``/``GRU``), ``gluon.contrib``
   (its layers and cells, the ``Estimator``), ``rnn``
   (``BucketSentenceIter``), ``metric`` and the word language model
-  (``models.RNNModel``).
+  (``models.RNNModel``);
+- the symbolic and legacy frontends: ``sym``/``symbol`` (``Symbol``,
+  ``Executor``: inference forwards through ``CachedOp``), ``mod``/
+  ``module`` (``Module``, ``BucketingModule``, ``SequentialModule``,
+  ``PythonModule``), ``model`` (checkpoints, ``FeedForward``),
+  ``callback``, ``monitor``, ``viz``, ``gluon.SymbolBlock`` with
+  ``HybridBlock.export``, and ``serving.InferenceEngine.load``.
 """
-from . import (autograd, base, config, context, convert, engine, gluon,
-               image, initializer, io, lr_scheduler, metric, models, ndarray,
-               ops, optimizer, parallel, random, recordio, rnn, runtime,
-               serving)
+from . import (autograd, base, callback, config, context, convert, engine,
+               gluon, image, initializer, io, lr_scheduler, metric, model,
+               models, module, monitor, ndarray, ops, optimizer, parallel,
+               random, recordio, rnn, runtime, serving, symbol,
+               visualization)
 from .base import MXNetError
 from .cached_op import CachedOp
 from .context import (Context, cpu, current_context, default_device, gpu,
@@ -49,11 +56,17 @@ from .context import (Context, cpu, current_context, default_device, gpu,
 
 nd = ndarray
 init = initializer
+sym = symbol
+mod = module
+viz = visualization
 
 __version__ = "0.3.0"
 
-__all__ = ["autograd", "base", "config", "context", "convert", "engine",
-           "gluon", "image", "initializer", "init", "io", "lr_scheduler",
-           "metric", "models", "nd", "ndarray", "ops", "optimizer",
-           "parallel", "random", "recordio", "rnn", "runtime", "serving", "CachedOp", "Context", "MXNetError", "cpu", "gpu",
-           "current_context", "default_device", "num_gpus"]
+__all__ = ["autograd", "base", "callback", "config", "context", "convert",
+           "engine", "gluon", "image", "initializer", "init", "io",
+           "lr_scheduler", "metric", "mod", "model", "models", "module",
+           "monitor", "nd", "ndarray", "ops", "optimizer", "parallel",
+           "random", "recordio", "rnn", "runtime", "serving", "sym",
+           "symbol", "visualization", "viz", "CachedOp", "Context",
+           "MXNetError", "cpu", "gpu", "current_context", "default_device",
+           "num_gpus"]

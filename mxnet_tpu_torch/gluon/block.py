@@ -34,8 +34,16 @@ torch.cached_op.CachedOp` (one CUDA graph per input signature on the
 card); a block whose parameters are rebound or cast clears it. Nested
 arguments (an RNN's states) enter the CachedOp as their leaves, and a
 nested output (``(out, [h, c])``) comes back in its eager structure.
-``SymbolBlock``, ``export`` and ``imports`` wait for the symbol frontend
-(ROADMAP Queue A item 9).
+
+A call with a :class:`~mxnet_tpu_torch.symbol.Symbol` composes the block
+into a graph instead (:meth:`Block._symbol_call`): a user block through its
+``hybrid_forward`` with ``F`` the port's ``sym``, a leaf layer through its
+``_sym_forward`` (the op and attrs the reference's layer emits, its
+parameters as variables under their full names), and a composite through
+its own ``forward``, whose torch calls the ``Symbol`` answers.
+:meth:`HybridBlock.export` writes the graph and the parameters as the
+reference's ``export`` does; :class:`SymbolBlock` runs a graph (``imports``
+reads those files back).
 """
 from __future__ import annotations
 
@@ -49,10 +57,11 @@ from torch.utils._pytree import tree_flatten, tree_unflatten
 
 from .. import _tape
 from ..ndarray.ndarray import NDArray
+from ..symbol.symbol import Symbol
 from .parameter import (DeferredInitializationError, Parameter,
                         ParameterDict, load_param_from_array, wrap_tensor)
 
-__all__ = ["Block", "HybridBlock"]
+__all__ = ["Block", "HybridBlock", "SymbolBlock"]
 
 _naming = threading.local()
 _global_counter = {}
@@ -436,6 +445,8 @@ class Block(nn.Module):
             hook(self, args)
         if _has_nd(args, kwargs):
             out = self._nd_call(*args, **kwargs)
+        elif args and isinstance(args[0], Symbol):
+            out = self._symbol_call(*args)
         else:
             out = super().__call__(*args, **kwargs)
         for hook in self._mx_forward_hooks.values():
@@ -467,6 +478,10 @@ class Block(nn.Module):
     def _nd_body(self, *args, **kwargs):
         """A user block's ``forward`` over NDArrays."""
         return self.forward(*args, **kwargs)
+
+    def _symbol_call(self, *args):
+        """A call with Symbols: the block composed into their graph."""
+        return self.forward(*args)
 
     def forward(self, *args):
         raise NotImplementedError
@@ -587,5 +602,183 @@ class HybridBlock(Block):
             self._cached_ops[key] = op
         return tree_unflatten(op(*[flat[i] for i in slots]), op.out_spec)
 
+    def _param_vars(self):
+        """``{leaf: variable}`` of this block's own parameters, each named
+        by its parameter's full name."""
+        from ..symbol import var
+        out = {leaf: var(p.name) for leaf, p in self._reg_params.items()}
+        for leaf, t in self._parameters.items():
+            if leaf not in out and t is not None:
+                p = getattr(t, "_mx_parameter", None)
+                out[leaf] = var(p.name if p is not None
+                                else self.prefix + leaf)
+        return out
+
+    def _symbol_call(self, *args):
+        from .. import symbol as F
+        if not self._takes_tensors():
+            return self.hybrid_forward(F, *args, **self._param_vars())
+        sym_forward = getattr(self, "_sym_forward", None)
+        if sym_forward is not None:
+            return sym_forward(F, *args, **self._param_vars())
+        return self.forward(*args)
+
+    def _export_arity(self):
+        """How many data inputs a call takes: the positional parameters of
+        ``forward`` (of ``hybrid_forward`` after ``F``) without a default
+        that are not parameters of the block."""
+        import inspect
+        fn = self.forward if self._takes_tensors() else self.hybrid_forward
+        params = list(inspect.signature(fn).parameters.values())
+        if not self._takes_tensors():
+            params = params[1:]
+        kinds = (inspect.Parameter.POSITIONAL_ONLY,
+                 inspect.Parameter.POSITIONAL_OR_KEYWORD)
+        return max(1, sum(1 for p in params if p.kind in kinds
+                          and p.default is p.empty
+                          and p.name not in self._reg_params))
+
+    def export(self, path, epoch=0, remove_amp_cast=True):
+        """Write ``path-symbol.json`` (the block composed on variables
+        ``data``, or ``data0``, ``data1``, ... for several inputs) and
+        ``path-%04d.params`` (the parameters the graph reads, as
+        ``arg:<name>`` and ``aux:<name>``), as the reference's ``export``
+        does; returns the two file names. ``SymbolBlock.imports`` and
+        ``mx.model.load_checkpoint`` read them back."""
+        from .. import symbol as sym_ns
+        from ..ndarray.serialization import save_ndarrays
+        n = self._export_arity()
+        names = ["data"] if n == 1 else ["data%d" % i for i in range(n)]
+        out = self(*[sym_ns.var(name) for name in names])
+        if isinstance(out, (list, tuple)):
+            out = sym_ns.Group(list(out))
+        symbol_file = "%s-symbol.json" % path
+        out.save(symbol_file)
+        inputs = set(out.list_inputs())
+        aux = set(out.list_auxiliary_states())
+        keys, arrays = [], []
+        for name, p in self.collect_params().items():
+            if name in inputs:
+                keys.append(("aux:" if name in aux else "arg:") + name)
+                arrays.append(p._reduce())
+        params_file = "%s-%04d.params" % (path, epoch)
+        save_ndarrays(params_file, arrays, keys)
+        return symbol_file, params_file
+
     def hybrid_forward(self, F, x, *args, **kwargs):
         raise NotImplementedError
+
+
+class SymbolBlock(HybridBlock):
+    """A Symbol graph as a block: every variable that is not one of
+    ``inputs`` becomes a :class:`Parameter` of that name (an aux state
+    with ``grad_req="null"``), its shape deferred until the first call
+    (``infer_shape`` runs the graph's shape pass). The forward evaluates
+    the graph's op functions on tensors, resolving their state (the
+    training flag, the dropout key) as an eager call does, so it records
+    under ``autograd.record()``; ``hybridize()`` sends NDArray calls
+    through a ``CachedOp``. ``cast`` to a 16-bit type keeps the
+    parameters that feed ``BatchNorm``'s gamma, beta and moving statistics
+    in float32, as the port's ``BatchNorm`` layer keeps its own."""
+
+    @staticmethod
+    def imports(symbol_file, input_names, param_file=None, ctx=None):
+        """A block from ``export``'s files (or ``Module.save_checkpoint``'s,
+        or the reference's): the graph of ``symbol_file`` with
+        ``input_names`` as its inputs, and the ``arg:``/``aux:`` arrays of
+        ``param_file`` on ``ctx`` (the current context when None)."""
+        from .. import symbol as sym_ns
+        from ..ndarray.serialization import load_ndarrays
+        out = sym_ns.load(symbol_file)
+        if isinstance(input_names, str):
+            input_names = [input_names]
+        block = SymbolBlock(out, [sym_ns.var(n) for n in input_names])
+        if param_file is None:
+            return block
+        arrays, names = load_ndarrays(param_file)
+        if arrays and not names:
+            raise ValueError("params file %s has unnamed arrays; a "
+                             "SymbolBlock needs named ones" % param_file)
+        params = block.collect_params()
+        for key, arr in zip(names, arrays):
+            name = key.split(":", 1)[1] \
+                if key.startswith(("arg:", "aux:")) else key
+            if name not in params:
+                raise AssertionError(
+                    "Parameter %s in file %s is not a variable of the "
+                    "symbol graph" % (name, param_file))
+            load_param_from_array(params[name], arr, ctx)
+        return block
+
+    def __init__(self, outputs, inputs, params=None):
+        super().__init__(prefix="", params=params)
+        from ..symbol import Group
+        if isinstance(outputs, (list, tuple)):
+            outputs = Group(list(outputs))
+        if isinstance(inputs, Symbol):
+            inputs = [inputs]
+        self._sb_outputs = outputs
+        self._input_names = [i.name for i in inputs]
+        self._bn_params = set()
+        for node in outputs._toposort():
+            if node._op is not None and node._op.name == "BatchNorm":
+                self._bn_params.update(p._name for p, _ in node._inputs[1:5]
+                                       if p._op is None)
+            if node._op is not None or node._name in self._input_names:
+                continue
+            aux = bool(node._attr.get("__aux__"))
+            p = self.params.get(node._name,
+                                grad_req="null" if aux else "write",
+                                allow_deferred_init=True)
+            self._reg_params[node._name] = p
+            p._attach(self, node._name)
+
+    def infer_shape(self, *args):
+        from ..symbol.symbol import _infer_shapes
+        shapes = _infer_shapes(self._sb_outputs, {
+            n: tuple(a.shape) for n, a in zip(self._input_names, args)})
+        for name, p in self._reg_params.items():
+            if shapes.get(name) is not None:
+                p.shape = shapes[name]
+
+    def cast(self, dtype):
+        from ..base import dtype_name
+        super().cast(dtype)
+        if dtype_name(dtype) in ("float16", "bfloat16"):
+            for name in self._bn_params:
+                if name in self._reg_params:
+                    self._reg_params[name].cast("float32")
+
+    def _export_arity(self):
+        return len(self._input_names)
+
+    def forward(self, *args):
+        from ..symbol.symbol import evaluate_graph
+        if len(args) != len(self._input_names):
+            raise ValueError("SymbolBlock expects %d inputs (%s), got %d"
+                             % (len(self._input_names), self._input_names,
+                                len(args)))
+        self._ready(*args)
+        binds = dict(self._parameters)
+        binds.update(zip(self._input_names, args))
+        outs = evaluate_graph(self._sb_outputs, binds, bind_state=True)
+        return outs if len(outs) > 1 else outs[0]
+
+    def _sym_forward(self, F, *args, **params):
+        """The graph composed again on ``args`` (re-export), each node
+        under its own name."""
+        from ..symbol.symbol import _out_key, _is_const, _sym_op
+        values = {}
+        binds = dict(params)
+        binds.update(zip(self._input_names, args))
+        for node in self._sb_outputs._toposort():
+            if node._op is None:
+                values[_out_key(node, 0)] = binds[node._name]
+                continue
+            call = [p[1] if _is_const(p) else values[_out_key(*p)]
+                    for p in getattr(node, "_raw_inputs", node._inputs)]
+            values[_out_key(node, 0)] = _sym_op(node._op.name)(
+                *call, name=node._name, **node._kwargs)
+        outs = [values[_out_key(s, i)]
+                for s, i in self._sb_outputs._outputs_list()]
+        return outs if len(outs) > 1 else outs[0]

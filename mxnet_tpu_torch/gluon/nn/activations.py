@@ -23,6 +23,9 @@ class LeakyReLU(HybridBlock):
     def forward(self, x):
         return _ops.LeakyReLU(x, act_type="leaky", slope=self._alpha)
 
+    def _sym_forward(self, F, x):
+        return F.LeakyReLU(x, act_type="leaky", slope=self._alpha)
+
 
 class PReLU(HybridBlock):
     """Leaky ReLU with a learned slope ``alpha`` of shape ``(1,)``
@@ -40,6 +43,9 @@ class PReLU(HybridBlock):
         self._ready(x)
         return _ops.LeakyReLU(x, self._parameters["alpha"], act_type="prelu")
 
+    def _sym_forward(self, F, x, alpha):
+        return F.LeakyReLU(x, alpha, act_type="prelu")
+
 
 class ELU(HybridBlock):
     """``alpha * (exp(x) - 1)`` where not positive."""
@@ -51,12 +57,18 @@ class ELU(HybridBlock):
     def forward(self, x):
         return _ops.LeakyReLU(x, act_type="elu", slope=self._alpha)
 
+    def _sym_forward(self, F, x):
+        return F.LeakyReLU(x, act_type="elu", slope=self._alpha)
+
 
 class SELU(HybridBlock):
     """Scaled ELU with the SELU constants."""
 
     def forward(self, x):
         return _ops.LeakyReLU(x, act_type="selu")
+
+    def _sym_forward(self, F, x):
+        return F.LeakyReLU(x, act_type="selu")
 
 
 class Swish(HybridBlock):
@@ -69,9 +81,15 @@ class Swish(HybridBlock):
     def forward(self, x):
         return x * _ops.sigmoid(_ops._const(self._beta, x) * x)
 
+    def _sym_forward(self, F, x):
+        return x * F.sigmoid(self._beta * x)
+
 
 class GELU(HybridBlock):
     """The exact (erf) GELU."""
 
     def forward(self, x):
         return _ops.LeakyReLU(x, act_type="gelu")
+
+    def _sym_forward(self, F, x):
+        return F.LeakyReLU(x, act_type="gelu")

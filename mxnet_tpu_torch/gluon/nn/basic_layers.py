@@ -4,7 +4,9 @@
 ``Embedding``, ``BatchNorm``, ``InstanceNorm``, ``LayerNorm``,
 ``GroupNorm``, ``Flatten``, ``Lambda``, ``HybridLambda`` and
 ``Activation``, as ``HybridBlock``s (so ``nn.Module``s) whose ``forward``
-takes tensors; a call with NDArrays goes through ``gluon.Block.__call__``.
+takes tensors; a call with NDArrays goes through ``gluon.Block.__call__``,
+and a call with Symbols composes each layer's reference op
+(``_sym_forward``).
 Parameters keep Gluon's leaf names and shapes (``weight`` ``(out, in)``,
 ``bias``, ``gamma``, ``beta``, ``running_mean``, ``running_var``).
 
@@ -119,6 +121,9 @@ class Activation(HybridBlock):
     def forward(self, x):
         return _ops.Activation(x, act_type=self._act_type)
 
+    def _sym_forward(self, F, x):
+        return F.Activation(x, act_type=self._act_type)
+
     def extra_repr(self):
         return self._act_type
 
@@ -180,6 +185,11 @@ class Dense(HybridBlock):
                                   flatten=self._flatten)
         return out if self.act is None else self.act(out)
 
+    def _sym_forward(self, F, x, weight, bias=None):
+        out = F.FullyConnected(x, weight, bias, num_hidden=self._units,
+                               flatten=self._flatten, no_bias=bias is None)
+        return out if self.act is None else self.act(out)
+
 
 class Dropout(HybridBlock):
     """Dropout of ``rate`` (mask size 1 on ``axes``): in training mode the
@@ -194,6 +204,11 @@ class Dropout(HybridBlock):
     def forward(self, x):
         return _ops.Dropout(x, p=self._rate, axes=self._axes,
                             train=self.training)
+
+    def _sym_forward(self, F, x):
+        if self._rate > 0:
+            return F.Dropout(x, p=self._rate, axes=self._axes)
+        return F.identity(x)
 
     def extra_repr(self):
         return "p = {}, axes={}".format(self._rate, self._axes)
@@ -269,6 +284,10 @@ class Embedding(HybridBlock):
         self._ready(x)
         return _Lookup.apply(x.long(), self._parameters["weight"])
 
+    def _sym_forward(self, F, x, weight):
+        return F.Embedding(x, weight, input_dim=self._input_dim,
+                           output_dim=self._output_dim)
+
 
 class LayerNorm(HybridBlock):
     """Layer norm over ``axis`` with ``gamma``/``beta`` of
@@ -294,6 +313,9 @@ class LayerNorm(HybridBlock):
     def forward(self, x):
         return _ops.LayerNorm(x, self.gamma, self.beta, axis=self._axis,
                               eps=self._epsilon)
+
+    def _sym_forward(self, F, x, gamma, beta):
+        return F.LayerNorm(x, gamma, beta, axis=self._axis, eps=self._epsilon)
 
 
 def _scalar(v, like):
@@ -377,6 +399,10 @@ class BatchNorm(HybridBlock):
                 _tape.aux_write(NDArray._bind(run), new)
         return out
 
+    def _sym_forward(self, F, x, gamma, beta, running_mean, running_var):
+        return F.BatchNorm(x, gamma, beta, running_mean, running_var,
+                           **self._kwargs)
+
 
 class InstanceNorm(HybridBlock):
     """Instance normalization (over each sample's and channel's spatial
@@ -409,6 +435,13 @@ class InstanceNorm(HybridBlock):
         return _ops.InstanceNorm(x, g, b, eps=self._epsilon) \
             .transpose(1, self._axis)
 
+    def _sym_forward(self, F, x, gamma, beta):
+        if self._axis != 1:
+            raise NotImplementedError(
+                "InstanceNorm over axis %d has no symbolic form (a Symbol "
+                "has no swapaxes)" % self._axis)
+        return F.InstanceNorm(x, gamma, beta, eps=self._epsilon)
+
 
 class GroupNorm(HybridBlock):
     """Group normalization of ``num_groups`` channel groups."""
@@ -434,12 +467,19 @@ class GroupNorm(HybridBlock):
                               self._parameters["beta"],
                               num_groups=self._num_groups, eps=self._epsilon)
 
+    def _sym_forward(self, F, x, gamma, beta):
+        return F.GroupNorm(x, gamma, beta, num_groups=self._num_groups,
+                           eps=self._epsilon)
+
 
 class Flatten(HybridBlock):
     """Flatten to ``(batch, -1)``."""
 
     def forward(self, x):
         return _core.Flatten.fn(x)
+
+    def _sym_forward(self, F, x):
+        return F.Flatten(x)
 
 
 def _lambda_impl(function):

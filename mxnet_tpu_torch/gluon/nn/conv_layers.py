@@ -5,7 +5,8 @@
 average and global pooling layers in 1-3 dimensions and
 ``ReflectionPad2D``, channels first (``NCW``, ``NCHW``, ``NCDHW``). Each
 is a ``HybridBlock`` whose ``forward`` takes tensors and calls the
-``Convolution``, ``Deconvolution``, ``Pooling`` or ``pad`` op of the port.
+``Convolution``, ``Deconvolution``, ``Pooling`` or ``pad`` op of the port
+(and whose ``_sym_forward`` composes the same op into a Symbol graph).
 Parameters are made as the reference's: ``weight`` ``(channels,
 in_channels / groups, *kernel)`` (a transposed convolution's ``(in_channels,
 channels / groups, *kernel)``) and ``bias`` ``(channels,)`` through
@@ -50,6 +51,7 @@ class _Conv(HybridBlock):
                 "no_bias": not use_bias, "layout": layout}
             if adj is not None:
                 self._kwargs["adj"] = adj
+            self._op_name = op_name
             self._groups = groups
             if op_name == "Convolution":
                 wshape = (channels, in_channels // groups
@@ -81,6 +83,10 @@ class _Conv(HybridBlock):
         self._ready(x)
         out = self._op(x, self._parameters["weight"],
                        self._parameters.get("bias"), **self._kwargs)
+        return out if self.act is None else self.act(out)
+
+    def _sym_forward(self, F, x, weight, bias=None):
+        out = getattr(F, self._op_name)(x, weight, bias, **self._kwargs)
         return out if self.act is None else self.act(out)
 
     def extra_repr(self):
@@ -203,6 +209,9 @@ class _Pooling(HybridBlock):
     def forward(self, x):
         return _ops.Pooling(x, **self._kwargs)
 
+    def _sym_forward(self, F, x):
+        return F.Pooling(x, **self._kwargs)
+
     def extra_repr(self):
         return ", ".join("%s=%s" % kv for kv in self._kwargs.items())
 
@@ -254,3 +263,6 @@ class ReflectionPad2D(HybridBlock):
 
     def forward(self, x):
         return _core.pad.fn(x, mode="reflect", pad_width=self._padding)
+
+    def _sym_forward(self, F, x):
+        return F.pad(x, mode="reflect", pad_width=self._padding)

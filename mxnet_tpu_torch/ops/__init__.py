@@ -1,11 +1,14 @@
 """Operators: plain functions on tensors, the CUDA kernels' wrappers, and
 the op registry that the ``nd`` namespace is generated from. Importing
-this package registers the ops of ``core``, ``nn`` and ``rnn``."""
+this package registers the ops of ``core``, ``nn``, ``loss_ops`` and
+``rnn``."""
 from . import registry
-from . import core, ctc, flash_attention, generation_ops, nn, rnn  # noqa: F401
+from . import (core, ctc, flash_attention, generation_ops, loss_ops,  # noqa: F401
+               nn, rnn)
 from .registry import Op, get_op, invoke, list_ops, register
 
-__all__ = ["ctc", "core", "flash_attention", "generation_ops", "nn", "rnn",
+__all__ = ["ctc", "core", "flash_attention", "generation_ops", "loss_ops",
+           "nn", "rnn",
            "registry", "register", "get_op", "list_ops", "invoke", "Op",
            "populate_namespace"]
 

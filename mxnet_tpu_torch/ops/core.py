@@ -601,3 +601,64 @@ def batch_dot(lhs, rhs, transpose_a=False, transpose_b=False):
 @register("matmul")
 def matmul(lhs, rhs):
     return torch.matmul(lhs, rhs)
+
+
+# ------------------------------------------------------- scalar arithmetic
+# the names ``Symbol`` arithmetic emits (``x + 1.0`` is ``_plus_scalar``),
+# with the reference's CamelCase spellings
+
+
+@register("_plus_scalar", aliases=("_PlusScalar",))
+def _plus_scalar(data, scalar=0.0):
+    return data + scalar
+
+
+@register("_minus_scalar", aliases=("_MinusScalar",))
+def _minus_scalar(data, scalar=0.0):
+    return data - scalar
+
+
+@register("_rminus_scalar", aliases=("_RMinusScalar",))
+def _rminus_scalar(data, scalar=0.0):
+    return scalar - data
+
+
+@register("_mul_scalar", aliases=("_MulScalar",))
+def _mul_scalar(data, scalar=1.0):
+    return data * scalar
+
+
+@register("_div_scalar", aliases=("_DivScalar",))
+def _div_scalar(data, scalar=1.0):
+    return data / scalar
+
+
+@register("_rdiv_scalar", aliases=("_RDivScalar",))
+def _rdiv_scalar(data, scalar=1.0):
+    return scalar / data
+
+
+@register("_power_scalar", aliases=("_PowerScalar",))
+def _power_scalar(data, scalar=1.0):
+    return data ** scalar
+
+
+@register("_rpower_scalar", aliases=("_RPowerScalar",))
+def _rpower_scalar(data, scalar=1.0):
+    return scalar ** data
+
+
+@register("add_n", aliases=("ElementWiseSum", "_element_wise_sum"))
+def add_n(*args):
+    """The sum of every argument, added left to right."""
+    out = args[0]
+    for a in args[1:]:
+        out = out + a
+    return out
+
+
+@register("make_loss", aliases=("MakeLoss",))
+def make_loss(data, grad_scale=1.0, normalization="null", valid_thresh=0.0):
+    """The reference's ``make_loss``: the data, times ``grad_scale`` when
+    that is not 1 (the forward is scaled, so its gradient is too)."""
+    return data * grad_scale if grad_scale != 1.0 else data

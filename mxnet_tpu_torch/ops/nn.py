@@ -59,7 +59,8 @@ from .flash_attention import (_M32, SUPPORTED_DTYPES, SUPPORTED_HEAD_DIMS,
 __all__ = ["FullyConnected", "gelu", "LayerNorm", "log_softmax", "Dropout",
            "dot_product_attention", "Activation", "LeakyReLU", "softmax",
            "Convolution", "Deconvolution", "Pooling", "BatchNorm",
-           "InstanceNorm", "GroupNorm", "sigmoid", "softrelu"]
+           "InstanceNorm", "GroupNorm", "sigmoid", "softrelu",
+           "SoftmaxOutput"]
 
 
 def FullyConnected(data, weight, bias=None, flatten=True):
@@ -692,11 +693,56 @@ def _log_softmax(data, axis=-1, temperature=None, dtype=None,
     return out.to(torch_dtype(dtype)) if dtype else out
 
 
+class _SoftmaxOutput(torch.autograd.Function):
+    """Softmax forward; the loss layer's own backward, whatever gradient
+    reaches it: ``(softmax - one_hot(label)) * grad_scale``, zero where
+    the label is ``ignore_label`` under ``use_ignore``. The label takes
+    no gradient."""
+
+    @staticmethod
+    def forward(ctx, data, label, grad_scale, ignore_label, use_ignore,
+                axis):
+        out = _softmax(data, axis)
+        ctx.save_for_backward(out, label)
+        ctx.args = (grad_scale, ignore_label, use_ignore, axis)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        out, label = ctx.saved_tensors
+        grad_scale, ignore_label, use_ignore, axis = ctx.args
+        depth = out.shape[axis]
+        idx = label.long()
+        # an index outside [0, depth) one-hots to a zero row, as jax's
+        hot = F.one_hot(idx.clamp(0, depth - 1), depth).to(out.dtype) \
+            * ((idx >= 0) & (idx < depth)).unsqueeze(-1).to(out.dtype)
+        grad = (out - hot.movedim(-1, axis)) * grad_scale
+        if use_ignore:
+            keep = (label != ignore_label).to(out.dtype).unsqueeze(axis)
+            grad = grad * keep
+        return grad, None, None, None, None, None
+
+
+def SoftmaxOutput(data, label, grad_scale=1.0, ignore_label=-1.0,
+                  multi_output=False, use_ignore=False, preserve_shape=False,
+                  normalization="null", out_grad=False, smooth_alpha=0.0):
+    """The softmax loss layer (over axis 1 with ``multi_output``, else
+    the last): the forward is ``softmax``, the backward the loss's own
+    gradient (:class:`_SoftmaxOutput`); a ``Module`` scales it by
+    ``1 / batch_size`` through the optimizer's ``rescale_grad``."""
+    return _SoftmaxOutput.apply(data, label, float(grad_scale),
+                                float(ignore_label), bool(use_ignore),
+                                1 if multi_output else -1)
+
+
 def _key_generator(rng_key):
     """A CPU ``torch.Generator`` seeded from the op's two key words: the
-    plain path's dropout draws and the kernel's int32 seed come from it."""
+    plain path's dropout draws and the kernel's int32 seed come from it.
+    Torch's CPU generator keeps only 32 bits of a seed, so both words are
+    mixed into those 32 (a golden-ratio multiply of the last word, xored
+    with the first)."""
     s0, s1 = int(rng_key[0]) & _M32, int(rng_key[-1]) & _M32
-    return torch.Generator().manual_seed((s0 << 32) | s1)
+    return torch.Generator().manual_seed((s0 ^ (s1 * 0x9E3779B9)) & _M32)
 
 
 def _attention_op(query, key, value, mask=None, dropout=0.0, scaled=True,
@@ -720,6 +766,7 @@ register("LeakyReLU", state_binders={"key": bind_key,
 register("gelu", aliases=("LeakyReLU_gelu", "_contrib_gelu"))(gelu)
 register("softmax")(softmax)
 register("log_softmax")(_log_softmax)
+register("SoftmaxOutput", aliases=("softmax_output", "Softmax"))(SoftmaxOutput)
 register("softrelu")(softrelu)
 register("sigmoid")(sigmoid)
 register("softsign")(F.softsign)

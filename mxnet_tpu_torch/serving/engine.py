@@ -14,9 +14,10 @@ must carry the batch on axis 0. (A pad row of BERT has ``valid_len`` 0:
 the flash kernel gives it zeros where the plain path would average V;
 either way it never reaches a reply.)
 
-``load`` (``SymbolBlock`` artifacts, ROADMAP Queue A item 9),
-``export_artifacts``/``load_artifacts``, ``prewarm`` and the warmup
-manifests (AOT artifacts, item 12) are not ported.
+:meth:`InferenceEngine.load` serves ``HybridBlock.export``'s files
+through ``SymbolBlock.imports``. ``export_artifacts``/``load_artifacts``,
+``prewarm`` and the warmup manifests (AOT artifacts, ROADMAP Queue A item
+12) are not ported.
 """
 from __future__ import annotations
 
@@ -78,6 +79,21 @@ class InferenceEngine:
         self._metrics = metrics
         if metrics is not None:
             metrics.set_cache_stats_fn(self.stats)
+
+    @staticmethod
+    def load(path, input_names=("data",), epoch=0, ctx=None, **kwargs):
+        """An engine over ``path-symbol.json`` and ``path-%04d.params``
+        (``HybridBlock.export``'s files, or ``Module.save_checkpoint``'s):
+        the graph as a ``SymbolBlock`` whose parameters lie on ``ctx``
+        (the current context when None: the card unless a CPU scope is
+        open), run there. ``kwargs`` go to the engine."""
+        import os
+        from ..gluon.block import SymbolBlock
+        params_file = "%s-%04d.params" % (path, epoch)
+        block = SymbolBlock.imports(
+            "%s-symbol.json" % path, list(input_names),
+            params_file if os.path.exists(params_file) else None, ctx=ctx)
+        return InferenceEngine(block, ctx=ctx, **kwargs)
 
     @property
     def buckets(self):

@@ -14,6 +14,10 @@
 - Shape arguments (C7): ``squeeze`` of an axis whose size is not 1 raises
   ``ValueError``; ``expand_dims`` and ``softmax`` take tuple axes;
   ``clip`` with no bound returns the input's values.
+- Attention-dropout keys (C9): both key words reach the generator that
+  draws the plain path's dropout mask and the kernels' int32 seed, so
+  two keys that share their last word give different masks and seeds,
+  and one key gives the same ones twice.
 """
 import numpy as np
 import pytest
@@ -214,3 +218,23 @@ def test_bf16_op_gradients_follow_reference(name):
     ref = np.asarray(ref.astype(jnp.float32))
     own = xt.grad.float().numpy()
     assert np.abs(own - ref).max() <= 2e-2 * np.abs(ref).max()
+
+
+def _attention_draws(rng_key):
+    """The plain path's output under dropout 0.5 and the kernels' seed,
+    both drawn from ``rng_key``'s generator."""
+    q = torch.from_numpy(np.random.default_rng(3).standard_normal(
+        (1, 2, 8, 16)).astype("float32"))
+    out = tnn._attention_op(q, q, q, dropout=0.5, rng_key=rng_key,
+                            train=True)
+    seed = tnn._kernel_seed(0.5, tnn._key_generator(rng_key), None)
+    return out, seed
+
+
+def test_attention_dropout_key_mixes_both_words():
+    a, seed_a = _attention_draws((5, 7))
+    b, seed_b = _attention_draws((9, 7))
+    again, seed_again = _attention_draws((5, 7))
+    assert not torch.equal(a, b)
+    assert seed_a != seed_b
+    assert torch.equal(a, again) and seed_a == seed_again
