@@ -42,13 +42,18 @@ What the port carries so far:
   ``module`` (``Module``, ``BucketingModule``, ``SequentialModule``,
   ``PythonModule``), ``model`` (checkpoints, ``FeedForward``),
   ``callback``, ``monitor``, ``viz``, ``gluon.SymbolBlock`` with
-  ``HybridBlock.export``, and ``serving.InferenceEngine.load``.
+  ``HybridBlock.export``, and ``serving.InferenceEngine.load``;
+- the first part of the op corpus: the reference's ``ops/core.py``,
+  ``ops/tensor_extra.py`` and ``ops/random_ops.py`` whole (ordering,
+  ``linalg_*``, the multi-tensor checks, every sampler and density),
+  ``random``'s samplers, ``nd.random``, ``nd.linalg`` and
+  ``test_utils``.
 """
 from . import (autograd, base, callback, config, context, convert, engine,
                gluon, image, initializer, io, lr_scheduler, metric, model,
                models, module, monitor, ndarray, ops, optimizer, parallel,
                random, recordio, rnn, runtime, serving, symbol,
-               visualization)
+               test_utils, visualization)
 from .base import MXNetError
 from .cached_op import CachedOp
 from .context import (Context, cpu, current_context, default_device, gpu,
@@ -67,6 +72,6 @@ __all__ = ["autograd", "base", "callback", "config", "context", "convert",
            "lr_scheduler", "metric", "mod", "model", "models", "module",
            "monitor", "nd", "ndarray", "ops", "optimizer", "parallel",
            "random", "recordio", "rnn", "runtime", "serving", "sym",
-           "symbol", "visualization", "viz", "CachedOp", "Context",
+           "symbol", "test_utils", "visualization", "viz", "CachedOp", "Context",
            "MXNetError", "cpu", "gpu", "current_context", "default_device",
            "num_gpus"]

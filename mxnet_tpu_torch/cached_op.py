@@ -41,9 +41,12 @@ process). What an entry holds:
 A callable that draws from its own ``torch.Generator`` names it in
 ``generators``: each graph registers it before the capture
 (``CUDAGraph.register_generator_state``), so every replay advances it and
-draws new numbers. The side-stream run and the capture advance it too, so
-after a miss a seeded generator is no longer where an eager run would
-have it.
+draws new numbers. The side-stream run and the capture advance it too,
+so after a miss a seeded generator is no longer where an eager run would
+have it. Each graph registers the device's sampler generator too
+(``ops.random_ops.graph_generators``, once a sampler has run there), so
+the registry's samplers inside a captured callable (``_random_*``,
+``_sample_*``) draw new numbers at each replay.
 
 A CachedOp called while another one runs its callable (a hybridized block
 inside a served function) runs its callable inline, as the reference
@@ -66,6 +69,7 @@ import torch
 
 from . import _tape
 from . import config as _config
+from .ops.random_ops import graph_generators
 
 __all__ = ["CachedOp", "cache_stats", "reset_cache_stats", "storage_rebound"]
 
@@ -233,7 +237,7 @@ class CachedOp:
                 if self._pool is None:
                     self._pool = torch.cuda.graph_pool_handle()
                 graph = torch.cuda.CUDAGraph()
-                for gen in self._generators:
+                for gen in self._generators + graph_generators(dev):
                     graph.register_generator_state(gen)
                 # no collection inside the capture: a finalizer of garbage
                 # that owns CUDA resources (an old graph, an event, pinned

@@ -4,7 +4,7 @@
 generated from the registry as the reference generates its namespace."""
 from .. import ops as _ops
 from ..ops.registry import get_op as _get_op
-from . import contrib  # noqa: F401
+from . import contrib, linalg, random  # noqa: F401
 from .ndarray import (NDArray, arange, array, concat, empty, eye, from_dlpack,
                       from_numpy, full, load, ones, save, stack,
                       to_dlpack_for_read, to_dlpack_for_write, waitall, zeros)

@@ -1,14 +1,14 @@
 """Operators: plain functions on tensors, the CUDA kernels' wrappers, and
 the op registry that the ``nd`` namespace is generated from. Importing
-this package registers the ops of ``core``, ``nn``, ``loss_ops`` and
-``rnn``."""
+this package registers the ops of ``core``, ``tensor_extra``,
+``random_ops``, ``nn``, ``loss_ops`` and ``rnn``."""
 from . import registry
 from . import (core, ctc, flash_attention, generation_ops, loss_ops,  # noqa: F401
-               nn, rnn)
+               nn, random_ops, rnn, tensor_extra)
 from .registry import Op, get_op, invoke, list_ops, register
 
 __all__ = ["ctc", "core", "flash_attention", "generation_ops", "loss_ops",
-           "nn", "rnn",
+           "nn", "random_ops", "rnn", "tensor_extra",
            "registry", "register", "get_op", "list_ops", "invoke", "Op",
            "populate_namespace"]
 

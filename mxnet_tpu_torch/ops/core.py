@@ -1,24 +1,32 @@
-"""Core tensor operators: elementwise, broadcast, reduce, shape, indexing.
+"""Core tensor operators: elementwise, broadcast, reduce, shape, indexing,
+ordering and linear algebra.
 
-Counterpart of the part of ``mxnet_tpu/ops/core.py`` that ``NDArray``'s own
-methods dispatch and that Gluon's layers and the two models call through
-``F.``: each op is a short function over torch tensors with the
-reference op's name, aliases, arguments and result dtypes (comparisons
-give 1.0/0.0 in the input's floating type, or float32; ``argmax`` and
-``argmin`` give float32 indices; ``one_hot`` float32), and the sequence
-ops the recurrent cells use (``SequenceMask``, ``SequenceLast``,
-``SequenceReverse``, ``_rnn_param_concat``). The rest of the reference's
-corpus is ROADMAP Queue A item 8.
+Counterpart of ``mxnet_tpu/ops/core.py``, whole: every name it registers,
+and every alias that the reference's other files register onto its
+functions (the ``_npi_``/``_np_``/``_npx_`` spellings of its numpy
+frontends, the CamelCase ``_Plus`` ... ``_Power`` family, ``less``,
+``_linalg_*``, ``SparseEmbedding``). Each op is a short function over
+torch tensors with the reference op's name, arguments and result dtypes
+(comparisons and logical ops give 1.0/0.0 in the input's floating type,
+or float32; ``argmax``/``argsort``/``topk`` float32 indices unless
+``dtype`` says otherwise; ``one_hot`` float32), and the sequence ops the
+recurrent cells use. Where jnp rounds differently from the obvious torch
+call, the function follows jnp: constants rounded to the dtype, XLA's
+``lgamma``/``digamma`` sums, the total order of ``lax.top_k`` and
+``jnp.sort``, and XLA's addition order in ``cumsum``. On the card they
+are stock torch ops (cuBLAS, cuSOLVER for ``linalg_*``), as XLA's were
+in the reference.
 """
 from __future__ import annotations
 
 import builtins
+import functools
 
 import numpy as _np
 import torch
 
 from ..base import torch_dtype
-from .registry import register
+from .registry import register, register_alias
 
 # ---------------------------------------------------------------- arithmetic
 
@@ -662,3 +670,563 @@ def make_loss(data, grad_scale=1.0, normalization="null", valid_thresh=0.0):
     """The reference's ``make_loss``: the data, times ``grad_scale`` when
     that is not 1 (the forward is scaled, so its gradient is too)."""
     return data * grad_scale if grad_scale != 1.0 else data
+
+
+# ----------------------------------------------- more elementwise math
+# jnp rounds a Python constant to the array's dtype before the op; the
+# constants below do the same (``_const``), so bf16 rounds as there.
+
+
+@functools.lru_cache(maxsize=None)
+def _rounded(value, dtype):
+    return torch.tensor(value, dtype=dtype).item()
+
+
+def _const(value, like):
+    """``value`` rounded to ``like``'s dtype, as a Python number: a Python
+    scalar in a jax expression is weakly typed and rounds to the array's
+    dtype before the op, where torch would take it at full precision. A
+    number (not a tensor) keeps the op free of host-to-device copies, as a
+    CUDA graph's capture needs."""
+    return _rounded(float(value), like.dtype)
+
+
+@register("hypot", aliases=("broadcast_hypot", "_hypot", "_Hypot",
+                            "_npi_hypot"))
+def hypot(lhs, rhs):
+    return torch.hypot(*_tensors(lhs, rhs))
+
+
+@register("fmod")
+def fmod(lhs, rhs):
+    """C-style truncated modulo (numpy's ``fmod``)."""
+    return torch.fmod(*_tensors(lhs, rhs))
+
+
+@register("rint", aliases=("_npi_rint",))
+def rint(x):
+    return torch.round(x)
+
+
+@register("fix", aliases=("_npi_fix",))
+def fix(x):
+    return torch.trunc(x)
+
+
+def _cbrt(x):
+    """``jnp.cbrt`` (torch has none): ``|x|^(1/3)`` with the sign of x,
+    computed in float32 at least and rounded once to the dtype."""
+    wide = x if x.dtype == torch.float64 else x.float()
+    out = torch.copysign(torch.pow(wide.abs(), 1.0 / 3.0), wide)
+    return out.to(x.dtype)
+
+
+@register("cbrt", aliases=("_npi_cbrt",))
+def cbrt(x):
+    return _cbrt(x)
+
+
+@register("rcbrt")
+def rcbrt(x):
+    return 1.0 / _cbrt(x)
+
+
+# XLA's Lanczos approximation (g = 7, 8 terms) of lgamma and digamma, op
+# for op in float32, as jax lowers ``gammaln`` and ``digamma``; torch's
+# own lgamma is more accurate and differs from the reference by up to
+# 4e-4 of the value near its roots. bf16 and fp16 compute in float32 and
+# round once; float64 takes torch's.
+_LANCZOS = tuple(float(_np.float32(c)) for c in (
+    676.520368121885098567009190444019, -1259.13921672240287047156078755283,
+    771.3234287776530788486528258894, -176.61502916214059906584551354,
+    12.507343278686904814458936853, -0.13857109526572011689554707,
+    9.984369578019570859563e-6, 1.50563273514931155834e-7))
+_F32 = {name: float(_np.float32(v)) for name, v in (
+    ("pi", _np.pi), ("log_pi", _np.log(_np.pi)),
+    ("log_sqrt_2pi", (_np.log(2) + _np.log(_np.pi)) / 2),
+    ("inv_g_half", 1 / 7.5), ("log_g_half", _np.log(7.5)))}
+
+
+def _f32(value, like):
+    return torch.tensor(value, dtype=torch.float32, device=like.device)
+
+
+def _lanczos_z(x):
+    """``(reflect, z)``: x < 0.5 reflects, z = -x there, else x - 1."""
+    reflect = x < 0.5
+    return reflect, torch.where(reflect, -x, x + -1.0)
+
+
+def _lanczos_log_t(z):
+    return torch.log1p(z * _F32["inv_g_half"]) + _F32["log_g_half"]
+
+
+def _upcast(fn):
+    """``fn`` on float32 for float32/bf16/fp16 input, rounded back."""
+    def run(x, exact64):
+        if x.dtype == torch.float64:
+            return exact64(x)
+        return fn(x.float()).to(x.dtype)
+    return run
+
+
+@_upcast
+def _lgamma(x):
+    reflect, z = _lanczos_z(x)
+    acc = torch.div(_f32(_LANCZOS[0], z), z + 1.0) + 1.0
+    for k, c in enumerate(_LANCZOS[1:], 2):
+        acc = acc + torch.div(_f32(c, z), z + float(k))
+    t = z + 7.5
+    log_t = _lanczos_log_t(z)
+    log_y = ((z + 0.5) - torch.div(t, log_t)) * log_t + \
+        _F32["log_sqrt_2pi"] + torch.log(acc)
+    ax = torch.abs(x)
+    frac = ax - torch.floor(ax)
+    frac = torch.where(0.5 < frac, 1.0 - frac, frac)
+    denom = torch.log(torch.sin(frac * _F32["pi"]))
+    refl = torch.where(torch.isfinite(denom), (_F32["log_pi"] - denom) - log_y,
+                       -denom)
+    out = torch.where(reflect, refl, log_y)
+    return torch.where(ax == float("inf"), float("inf"), out)
+
+
+@_upcast
+def _digamma(x):
+    reflect, z = _lanczos_z(x)
+    num = torch.zeros_like(z)
+    den = torch.ones_like(z)
+    for k, c in enumerate(_LANCZOS, 1):
+        zk = z + float(k)
+        num = num - torch.div(_f32(c, z), zk * zk)
+        den = den + torch.div(_f32(c, z), zk)
+    out = (_lanczos_log_t(z) + torch.div(num, den)) - \
+        torch.div(_f32(7.0, z), z + 7.5)
+    y = (x + torch.abs(torch.floor(x + 0.5))) * _F32["pi"]
+    refl = out - torch.div(torch.cos(y) * _F32["pi"], torch.sin(y))
+    out = torch.where(reflect, refl, out)
+    pole = (x <= 0) & (x == torch.floor(x))
+    return torch.where(pole, float("nan"), out)
+
+
+@register("gamma", aliases=("_npx_gamma",))
+def gamma(x):
+    """``exp(gammaln(x))``, as the reference computes it."""
+    return torch.exp(gammaln.fn(x))
+
+
+class _Gammaln(torch.autograd.Function):
+    """:func:`_lgamma` forward; the gradient is ``digamma``, as jax
+    defines ``lgamma``'s (autograd through the Lanczos sum would be NaN
+    where a ``where`` drops the reflected branch's ``log(0)``)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.save_for_backward(x)
+        return _lgamma(x, torch.lgamma)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, = ctx.saved_tensors
+        return g * _digamma(x, torch.digamma)
+
+
+@register("gammaln")
+def gammaln(x):
+    return _Gammaln.apply(x)
+
+
+@register("erfinv")
+def erfinv(x):
+    return torch.erfinv(x)
+
+
+@register("digamma")
+def digamma(x):
+    return _digamma(x, torch.digamma)
+
+
+for _name, _fn in (("arcsinh", torch.asinh), ("arccosh", torch.acosh),
+                   ("arctanh", torch.atanh)):
+    register(_name, aliases=("_npi_" + _name,))(_fn)
+del _name, _fn
+
+
+@register("degrees", aliases=("_npi_degrees", "_npi_rad2deg"))
+def degrees(x):
+    return x * _const(180.0 / _np.pi, x)
+
+
+@register("radians", aliases=("_npi_radians", "_npi_deg2rad"))
+def radians(x):
+    return x * _const(_np.pi / 180.0, x)
+
+
+# ------------------------------------------------------- logical ops
+
+
+def _logical(name, fn, aliases=()):
+    def op(lhs, rhs):
+        return fn(*_tensors(lhs, rhs)).to(torch.float32)
+    op.__name__ = name
+    register(name, aliases=aliases)(op)
+
+
+for _name, _fn in (("logical_and", torch.logical_and),
+                   ("logical_or", torch.logical_or),
+                   ("logical_xor", torch.logical_xor)):
+    _logical(_name, _fn, ("broadcast_" + _name,))
+del _name, _fn
+
+
+@register("logical_not", aliases=("_npi_logical_not",))
+def logical_not(x):
+    return torch.logical_not(x).to(torch.float32)
+
+
+for _name, _fn in (("isnan", torch.isnan), ("isinf", torch.isinf),
+                   ("isfinite", torch.isfinite)):
+    register(_name)(lambda x, _f=_fn: _f(x).to(torch.float32))
+del _name, _fn
+
+
+# ---------------------------------------------------------------- ordering
+# ``lax.top_k`` orders floats totally, as their bits do: -NaN < -inf < ...
+# < -0.0 < 0.0 < ... < inf < NaN; jnp's sorts the same way but with every
+# NaN last (and equal). The port sorts an integer key with that order
+# (:func:`_order_key`), stably, so ties keep
+# the reference's order on the card too (``torch.topk`` promises none): a
+# descending sort or argsort is the ascending one flipped (ties: the
+# higher index first), ``topk`` a stable descending sort (ties: the lower
+# index first). Values are gathered from the data, so NaN bits and signed
+# zeros come out as they went in.
+
+
+def _order_key(data, nan_last):
+    """An integer tensor that sorts as ``data`` does in total order (with
+    every NaN equal and last when ``nan_last``)."""
+    if not data.is_floating_point():
+        return data
+    if nan_last:
+        data = torch.where(torch.isnan(data), float("nan"), data)
+    ity = {2: torch.int16, 4: torch.int32, 8: torch.int64}[
+        data.element_size()]
+    bits = data.contiguous().view(ity)
+    nbits = 8 * data.element_size()
+    mag = torch.iinfo(ity).max
+    return bits ^ (torch.bitwise_right_shift(bits, nbits - 1) & mag)
+
+
+def _sort_idx(data, axis, descending=False, nan_last=True):
+    return torch.sort(_order_key(data, nan_last), dim=axis,
+                      descending=descending, stable=True).indices
+
+
+@register("argsort")
+def argsort(data, axis=-1, is_ascend=True, dtype="float32"):
+    idx = _sort_idx(data, axis)
+    if not is_ascend:
+        idx = torch.flip(idx, (axis,))
+    return idx.to(torch_dtype(dtype))
+
+
+@register("sort")
+def sort(data, axis=-1, is_ascend=True):
+    out = torch.gather(data, axis, _sort_idx(data, axis))
+    return out if is_ascend else torch.flip(out, (axis,))
+
+
+@register("topk", aliases=("_npx_topk",))
+def topk(data, axis=-1, k=1, ret_typ="indices", is_ascend=False,
+         dtype="float32"):
+    """``lax.top_k`` along ``axis`` (of ``-data`` for ``is_ascend``):
+    ``ret_typ`` ``"value"``, ``"indices"`` (in ``dtype``), ``"both"`` or
+    ``"mask"`` (0/1 over the input's shape in its dtype)."""
+    ax = axis % data.dim()
+    keyed = -data if is_ascend else data
+    idx = _sort_idx(keyed, ax, descending=True,
+                    nan_last=False).narrow(ax, 0, k)
+    vals = torch.gather(data, ax, idx)
+    if ret_typ == "value":
+        return vals
+    if ret_typ == "both":
+        return vals, idx.to(torch_dtype(dtype))
+    if ret_typ == "mask":
+        return torch.zeros_like(data).scatter(ax, idx, 1.0)
+    return idx.to(torch_dtype(dtype))
+
+
+_SCAN_BLOCK = 16
+
+
+def _block_scan(x, axis):
+    """An inclusive prefix sum along ``axis`` whose additions round as
+    XLA's rewrite of ``jnp.cumsum`` (reduce-window with base length 16)
+    rounds them: left to right within blocks of 16, the blocks' totals
+    scanned the same way, each block's exclusive prefix added to it."""
+    x = x.movedim(axis, -1)
+    n = x.shape[-1]
+    if n <= _SCAN_BLOCK:
+        cols = [x[..., 0]]
+        for j in range(1, n):
+            cols.append(cols[-1] + x[..., j])
+        return torch.stack(cols, -1).movedim(-1, axis)
+    nb = -(-n // _SCAN_BLOCK)
+    pad = torch.nn.functional.pad(x, (0, nb * _SCAN_BLOCK - n))
+    inner = _block_scan(pad.reshape(x.shape[:-1] + (nb, _SCAN_BLOCK)), -1)
+    totals = _block_scan(inner[..., -1], -1)
+    excl = torch.nn.functional.pad(totals, (1, 0))[..., :nb]
+    out = torch.cat([inner[..., :1, :], inner[..., 1:, :]
+                     + excl[..., 1:, None]], -2)
+    return out.reshape(x.shape[:-1] + (nb * _SCAN_BLOCK,))[..., :n] \
+        .movedim(-1, axis)
+
+
+@register("cumsum", aliases=("_np_cumsum",))
+def cumsum(data, axis=None, dtype=None):
+    """``jnp.cumsum``: over the flattened data without ``axis``; floats
+    add as XLA orders the additions (:func:`_block_scan`), integers keep
+    their dtype and bool counts in int32. ``torch.cumsum`` would be one
+    launch, but it accumulates bf16 in fp32 where the reference rounds
+    every addition to bf16 (0.125 apart over 300 values), and orders fp32
+    otherwise; the block order keeps both bitwise with the reference."""
+    if axis is None:
+        data, axis = data.reshape(-1), 0
+    if data.is_floating_point():
+        out = _block_scan(data, axis) if data.shape[axis] else data
+    else:
+        res = torch.int32 if data.dtype == torch.bool else data.dtype
+        out = torch.cumsum(data, axis).to(res)
+    return out.to(torch_dtype(dtype)) if dtype else out
+
+
+# ------------------------------------------------------ NaN reductions
+
+
+def _nanreduce(fn, fill, data, axis, keepdims):
+    if data.is_floating_point():
+        data = torch.where(torch.isnan(data), torch.full((), fill,
+                                                         dtype=data.dtype,
+                                                         device=data.device),
+                           data)
+    return fn(data, axis, keepdims)
+
+
+@register("nansum")
+def nansum(data, axis=None, keepdims=False):
+    return _nanreduce(sum.fn, 0, data, axis, keepdims)
+
+
+@register("nanprod")
+def nanprod(data, axis=None, keepdims=False):
+    return _nanreduce(prod.fn, 1, data, axis, keepdims)
+
+
+# ------------------------------------------------------ shape and indexing
+
+
+@register("roll", aliases=("_np_roll",))
+def roll(data, shift=0, axis=None):
+    if axis is None:
+        return torch.roll(data, shift)
+    return torch.roll(data, shift, axis)
+
+
+@register("depth_to_space")
+def depth_to_space(data, block_size=1):
+    b, c, h, w = data.shape
+    bs = block_size
+    x = data.reshape(b, bs, bs, c // (bs * bs), h, w)
+    x = x.permute(0, 3, 4, 1, 5, 2)
+    return x.reshape(b, c // (bs * bs), h * bs, w * bs)
+
+
+@register("space_to_depth")
+def space_to_depth(data, block_size=1):
+    b, c, h, w = data.shape
+    bs = block_size
+    x = data.reshape(b, c, h // bs, bs, w // bs, bs)
+    x = x.permute(0, 3, 5, 1, 2, 4)
+    return x.reshape(b, c * bs * bs, h // bs, w // bs)
+
+
+@register("scatter_nd")
+def scatter_nd(data, indices, shape=None):
+    """``data`` written into zeros of ``shape`` at ``gather_nd``-style
+    ``indices`` (M, N) (duplicates: one of the writes)."""
+    out = torch.zeros(tuple(shape), dtype=data.dtype, device=data.device)
+    return out.index_put(tuple(indices.long()), data)
+
+
+@register("shape_array", differentiable=False)
+def shape_array(data):
+    return torch.tensor(tuple(data.shape), dtype=torch.int64,
+                        device=data.device)
+
+
+@register("size_array", differentiable=False)
+def size_array(data):
+    return torch.tensor([data.numel()], dtype=torch.int64,
+                        device=data.device)
+
+
+@register("diag")
+def diag(data, k=0):
+    if data.dim() == 1:
+        return torch.diag(data, k)
+    return torch.diagonal(data, offset=k, dim1=-2, dim2=-1)
+
+
+@register("khatri_rao")
+def khatri_rao(*args):
+    """The column-wise Kronecker product of (rows_i, cols) matrices."""
+    out = args[0]
+    for m in args[1:]:
+        out = torch.einsum("i...,j...->ij...", out, m).reshape(
+            (-1,) + tuple(out.shape[1:]))
+    return out
+
+
+# ------------------------------------------------------------- AMP casts
+
+
+@register("amp_cast")
+def amp_cast(data, dtype="float32"):
+    return data.to(torch_dtype(dtype))
+
+
+@register("amp_multicast", n_out=0)
+def amp_multicast(*data, num_outputs=1, cast_narrow=False):
+    """Every input cast to their promoted dtype (to the first input's
+    with ``cast_narrow``, as the reference does)."""
+    target = data[0].dtype
+    if not cast_narrow:
+        for d in data[1:]:
+            target = torch.promote_types(target, d.dtype)
+    return tuple(d.to(target) for d in data)
+
+
+# ---------------------------------------------------------------- linalg
+# on the card these run on cuBLAS/cuSOLVER; callers keep TF32 off, as
+# every phase of the smoke script does
+
+
+def _mT(x):
+    return x.transpose(-1, -2)
+
+
+@register("linalg_gemm2", aliases=("_linalg_gemm2",))
+def linalg_gemm2(A, B, transpose_a=False, transpose_b=False, alpha=1.0,
+                 axis=-3):
+    a = _mT(A) if transpose_a else A
+    b = _mT(B) if transpose_b else B
+    return alpha * torch.matmul(a, b)
+
+
+@register("linalg_gemm", aliases=("_linalg_gemm",))
+def linalg_gemm(A, B, C, transpose_a=False, transpose_b=False, alpha=1.0,
+                beta=1.0, axis=-3):
+    return linalg_gemm2.fn(A, B, transpose_a, transpose_b, alpha) + \
+        beta * C
+
+
+@register("linalg_potrf", aliases=("_linalg_potrf", "_npi_cholesky"))
+def linalg_potrf(A):
+    return torch.linalg.cholesky(A)
+
+
+@register("linalg_syrk", aliases=("_linalg_syrk",))
+def linalg_syrk(A, transpose=False, alpha=1.0):
+    if transpose:
+        return alpha * torch.matmul(_mT(A), A)
+    return alpha * torch.matmul(A, _mT(A))
+
+
+@register("linalg_trsm", aliases=("_linalg_trsm",))
+def linalg_trsm(A, B, transpose=False, rightside=False, lower=True,
+                alpha=1.0):
+    """Solve ``op(A) X = alpha B`` (``X op(A) = alpha B`` with
+    ``rightside``) for triangular A, as the reference's
+    ``solve_triangular`` calls read it."""
+    a = _mT(A) if transpose else A
+    if rightside:
+        x = torch.linalg.solve_triangular(_mT(a), _mT(alpha * B),
+                                          upper=lower)
+        return _mT(x)
+    return torch.linalg.solve_triangular(a, alpha * B, upper=not lower)
+
+
+@register("linalg_sumlogdiag", aliases=("_linalg_sumlogdiag",))
+def linalg_sumlogdiag(A):
+    return torch.sum(torch.log(torch.diagonal(A, dim1=-2, dim2=-1)), -1)
+
+
+@register("linalg_extractdiag", aliases=("_linalg_extractdiag",))
+def linalg_extractdiag(A, offset=0):
+    return torch.diagonal(A, offset=offset, dim1=-2, dim2=-1)
+
+
+# --------------------------------------------------------------- aliases
+# the reference's other spellings of ops above: the ``_npi_``/``_np_``/
+# ``_npx_`` names of its numpy frontends, the legacy CamelCase binary
+# ops, ``less``/``less_equal`` and the contrib embedding
+
+
+for _op, _names in (
+        ("add", ("_npi_add", "_Plus", "_grad_add")),
+        ("subtract", ("_npi_subtract", "_Minus")),
+        ("multiply", ("_npi_multiply", "_Mul")),
+        ("divide", ("_npi_true_divide", "_Div")),
+        ("mod", ("_npi_mod", "_mod", "_Mod")),
+        ("power", ("_npi_power", "_Power")),
+        ("maximum", ("_npi_maximum", "_Maximum")),
+        ("minimum", ("_npi_minimum", "_Minimum")),
+        ("equal", ("_Equal",)), ("not_equal", ("_Not_Equal",)),
+        ("greater", ("_Greater",)), ("greater_equal", ("_Greater_Equal",)),
+        ("lesser", ("_Lesser", "less")),
+        ("lesser_equal", ("_Lesser_Equal", "less_equal")),
+        ("_plus_scalar", ("_npi_add_scalar",)),
+        ("_minus_scalar", ("_npi_subtract_scalar",)),
+        ("_rminus_scalar", ("_npi_rsubtract_scalar",)),
+        ("_mul_scalar", ("_npi_multiply_scalar",)),
+        ("_div_scalar", ("_npi_true_divide_scalar",)),
+        ("_rdiv_scalar", ("_npi_rtrue_divide_scalar",)),
+        ("_power_scalar", ("_npi_power_scalar",)),
+        ("_rpower_scalar", ("_npi_rpower_scalar",)),
+        ("abs", ("_npi_abs", "_npi_absolute")),
+        ("arccos", ("_npi_arccos",)), ("arcsin", ("_npi_arcsin",)),
+        ("arctan", ("_npi_arctan",)), ("cos", ("_npi_cos",)),
+        ("cosh", ("_npi_cosh",)), ("sin", ("_npi_sin",)),
+        ("sinh", ("_npi_sinh",)), ("tan", ("_npi_tan",)),
+        ("tanh", ("_npi_tanh",)), ("exp", ("_npi_exp",)),
+        ("expm1", ("_npi_expm1",)), ("log", ("_npi_log",)),
+        ("log10", ("_npi_log10",)), ("log1p", ("_npi_log1p",)),
+        ("log2", ("_npi_log2",)), ("sqrt", ("_npi_sqrt",)),
+        ("square", ("_npi_square",)), ("ceil", ("_npi_ceil",)),
+        ("floor", ("_npi_floor",)), ("trunc", ("_npi_trunc",)),
+        ("sign", ("_npi_sign",)), ("negative", ("_npi_negative",)),
+        ("reciprocal", ("_npi_reciprocal",)),
+        ("argmax", ("_npi_argmax",)), ("argmin", ("_npi_argmin",)),
+        ("cast", ("_npi_cast", "_npx_cast")), ("clip", ("_npi_clip",)),
+        ("concat", ("_npi_concatenate",)), ("gather_nd", ("_npi_gather_nd",)),
+        ("expand_dims", ("_npi_expand_dims",)), ("flip", ("_npi_flip",)),
+        ("mean", ("_npi_mean",)), ("max", ("_np_max",)),
+        ("min", ("_np_min",)), ("sum", ("_np_sum",)),
+        ("prod", ("_np_prod",)), ("broadcast_to", ("_np_broadcast_to",)),
+        ("identity", ("_np_copy", "BlockGrad_identity")),
+        ("ones_like", ("_np_ones_like",)), ("zeros_like", ("_np_zeros_like",)),
+        ("squeeze", ("_np_squeeze",)), ("repeat", ("_np_repeat",)),
+        ("dot", ("_np_dot",)),
+        ("reshape", ("_npi_reshape", "_np_reshape", "_npx_reshape")),
+        ("transpose", ("_np_transpose",)), ("swapaxes", ("_npi_swapaxes",)),
+        ("take", ("_npi_take",)), ("tile", ("_npi_tile",)),
+        ("stack", ("_npi_stack",)), ("split", ("_npi_split",)),
+        ("slice", ("_npi_slice", "_npx_slice")),
+        ("batch_dot", ("_npx_batch_dot",)),
+        ("Flatten", ("_npx_batch_flatten",)),
+        ("embedding", ("_npx_embedding", "_contrib_SparseEmbedding",
+                       "SparseEmbedding")),
+        ("one_hot", ("_npx_one_hot",)),
+        ("pick", ("_npx_pick", "choose_element_0index")),
+        ("_arange", ("_npi_arange",))):
+    register_alias(_op, *_names)
+del _op, _names

@@ -41,7 +41,6 @@ card in both layouts.
 """
 from __future__ import annotations
 
-import functools
 import math
 import os
 
@@ -51,6 +50,7 @@ import torch.nn.functional as F
 
 from .. import config as _config
 from .. import random as _random
+from .core import _const
 from .registry import bind_key, bind_train, register
 from .flash_attention import (_M32, SUPPORTED_DTYPES, SUPPORTED_HEAD_DIMS,
                               _mul32, _threshold, flash_attention,
@@ -69,20 +69,6 @@ def FullyConnected(data, weight, bias=None, flatten=True):
     if flatten and data.dim() > 2:
         data = data.reshape(data.shape[0], -1)
     return F.linear(data, weight, bias)
-
-
-@functools.lru_cache(maxsize=None)
-def _rounded(value, dtype):
-    return torch.tensor(value, dtype=dtype).item()
-
-
-def _const(value, like):
-    """``value`` rounded to ``like``'s dtype, as a Python number: a Python
-    scalar in a jax expression is weakly typed and rounds to the array's
-    dtype before the op, where torch would take it at full precision. A
-    number (not a tensor) keeps the op free of host-to-device copies, as a
-    CUDA graph's capture needs."""
-    return _rounded(float(value), like.dtype)
 
 
 # dtypes in which the reference's rounding after every op shows: there the

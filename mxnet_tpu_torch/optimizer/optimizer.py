@@ -25,18 +25,21 @@ Threefry is not ported, so ``_sgld`` draws its noise from a
 ``Generator.get_state`` gives it); ``noise=`` takes the standard-normal
 draw from outside instead.
 
-An ``Updater``'s pickled states hold torch tensors. The optimizer pickles
-without its ``param_dict`` (as upstream MXNet's ``Optimizer.__getstate__``
-does); ``gluon.Trainer.load_states`` attaches it again.
+An ``Updater``'s ``get_states`` writes the JAX package's ``.states``
+format and ``set_states`` reads it (and the port's older pickles of torch
+tensors): a run moves between the packages mid-training
+(:mod:`.states`). The optimizer goes without its ``param_dict`` (as
+upstream MXNet's ``Optimizer.__getstate__`` leaves it);
+``gluon.Trainer.load_states`` attaches it again.
 """
 from __future__ import annotations
 
 import math
-import pickle
 
 import torch
 
 from .. import random as _random
+from . import states as _states
 
 __all__ = ["Optimizer", "register", "create", "SGD", "Signum", "FTML",
            "LARS", "LBSGD", "DCASGD", "NAG", "SGLD", "Adam", "AdaGrad",
@@ -839,16 +842,28 @@ class Updater:
             self.states[index] = \
                 self.optimizer.create_state_multi_precision(index, weight)
             self.states_synced[index] = True
+        elif not self.states_synced.get(index, True):
+            self.states[index] = self.sync_state_context(
+                self.states[index], weight.device)
+            self.states_synced[index] = True
         self.optimizer.update_multi_precision(index, weight, grad,
                                               self.states[index])
 
     def sync_state_context(self, state, context):
+        """``state`` (a tensor, or a tuple or list of them) on the device
+        ``context``: loaded states are on the CPU until their weight's
+        first update."""
+        if isinstance(state, torch.Tensor):
+            return state.to(context)
+        if isinstance(state, (tuple, list)):
+            return type(state)(self.sync_state_context(s, context)
+                               for s in state)
         return state
 
     def set_states(self, states):
-        """Load :meth:`get_states`' bytes (written by this package: they
-        are unpickled)."""
-        states = pickle.loads(states)
+        """Load a ``.states`` file's bytes: this package's or the JAX
+        package's (:mod:`.states`)."""
+        states = _states.loads(states)
         if isinstance(states, tuple) and len(states) == 2:
             self.states, self.optimizer = states
         else:
@@ -856,8 +871,10 @@ class Updater:
         self.states_synced = dict.fromkeys(self.states.keys(), False)
 
     def get_states(self, dump_optimizer=False):
-        return pickle.dumps((self.states, self.optimizer)
-                            if dump_optimizer else self.states)
+        """The states (and the optimizer) in the JAX package's ``.states``
+        format, which both packages read (:mod:`.states`)."""
+        return _states.dumps(self.states, self.optimizer
+                             if dump_optimizer else None)
 
 
 def get_updater(optimizer):
