@@ -356,6 +356,43 @@ Builds the package's CUDA kernels from the sources in this checkout
     beside its name and power limit. No flash kernel may launch in parts
     a-f on the plain path; the flash resume's launches (48 of each BSHD
     kernel) are listed apart, as ``ops_resume``.
+16. **np phase: the numpy frontends and the second part of the op
+    corpus.** (a) Every name the slice registers (``NP_NEW_NAMES``, 184:
+    the reference's ``ops/numpy_ops.py``, ``optim_ops.py``,
+    ``linalg_extra.py`` and ``image_ops.py``, the rest of ``nn.py`` and
+    the aliases) through ``nd.<name>`` on ``gpu(0)`` against the port's
+    CPU result on the same inputs, computed once a primary op: logits
+    (32, 32000) for the elementwise, ``numpy_ops`` and update ops (mp in
+    bf16), BERT-base's (768, 3072) weight for ``_npi_svd``, SPD (64, 768,
+    768) for ``potri``, ``inverse``, ``det``, ``slogdet``, ``trmm`` and
+    ``syevd``, (64, 128, 768) for ``gelqf`` (the CPU recomputes the first
+    ``NP_CPU_SLICE`` matrices of those batches), the images' shapes for
+    ``image_ops``; bitwise where exact, else the ops phase's tolerances
+    (updates ``NP_UPDATE_TOL``, bf16 one ulp; factors by reconstruction
+    and vectors up to sign within ``NP_VECTOR_TOL``; uint8 resize within
+    one level, the count printed); the samplers and random image ops on
+    the card, in the CPU's dtype and shape, repeated by their key. (b)
+    Every public callable of ``mx.np``, ``np.linalg``, ``np.random`` and
+    ``mx.npx`` on ``gpu(0)`` against the CPU (the cases of the CPU tests,
+    ``np_cases``, at ``NP_SIZES["card"]``): dtypes equal, values within
+    ``NP_TOL``. (c) BERT-base's MLM loss through ``mx.np`` (hidden (1280,
+    768), ``np.dot`` with the (30522, 768) embedding's transpose,
+    ``npx.log_softmax``, ``npx.pick``, ``np.mean``) and its backward:
+    bitwise to the ``nd`` expression on the card, within ``NP_MLM_TOL``
+    of the CPU. (d) The update ops over BERT-base's parameters from
+    ``Xavier()`` (~110M values): ``sgd_mom_update``, ``adam_update``,
+    ``adamw_update`` per array, ``multi_sgd_mom_update``,
+    ``multi_mp_sgd_mom_update`` and ``preloaded_multi_sgd_mom_update`` in
+    one call each, ``multi_lars`` over ``multi_sum_sq``, each held to the
+    CPU and timed (CUDA events) beside ``optimizer.Adam`` through
+    ``gluon.Trainer``, with Adam's bytes bound. (e) 32 seeded uint8 images
+    of 256^2 x 3: ``_image_resize`` to 224, ``_image_to_tensor``,
+    ``_image_normalize`` (ImageNet mean and std) on the card (ms printed)
+    and on the CPU, both batches through one bf16 ``resnet50_v1()``
+    (``Xavier()``): logits within ``NP_LOGIT_TOL``; the random image ops
+    at that shape, repeated by a seed. (f) ``np.random``'s samplers at
+    (32, 3, 224, 224): moments within bounds, repeated by a seed. No
+    flash kernel may launch.
 
 The predict phase's bf16 pass (8.) holds the kernel path to the plain
 path by ``PREDICT_BF16_FACTOR``, each path's distance from the fp32 path:
@@ -373,13 +410,14 @@ phase) and one fp32 ``Module`` step (symbol phase) are run, under
 share, its kernel count and its top kernels.
 
 Prints the serving, serving v2, training, BERT, surface, predict,
-autograd, registry-op, vision, data, rnn, symbol and ops numbers, one
+autograd, registry-op, vision, data, rnn, symbol, ops and np numbers, one
 ``{"kernels": [...]}`` line with an
 entry per TPU kernel (the three (B, S, H, D) ones with the numbers of the
 training shape in fp32, under ``*_bf16`` keys in bf16, and under ``bert``
 those of the BERT shape; the three (B, H, S, D) ones with the numbers of
 the registry op's shape; every kernel's launches also under ``vision``,
-``data``, ``rnn`` and ``ops``, where none runs, and ``symbol``), the
+``data``, ``rnn``, ``ops`` and ``np``, where none runs, and ``symbol``),
+the
 card's name
 and power limit,
 and last ``{"ok": true, "device": {...}}``.
@@ -4852,8 +4890,1530 @@ def print_ops(ops, card):
                   ", ".join("%.4f" % v for v in r["losses"])), flush=True)
 
 
+# ---- np phase: the numpy frontends and the second part of the op corpus --
+
+NP_SIZES = {"small": {"rows": 3, "cols": 4, "depth": 2, "n": 6, "knots": 5,
+                      "m": 3},
+            # the card phase's (b): every function at a few hundred KB
+            "card": {"rows": 48, "cols": 64, "depth": 8, "n": 512,
+                     "knots": 64, "m": 64}}
+
+
+def np_host(size="small", seed=7):
+    """The ``mx.np`` cases' inputs (numpy, made from ``seed``): name ->
+    (array, dtype or None)."""
+    z = NP_SIZES[size]
+    rng = np.random.default_rng(seed)
+    f32 = np.float32
+    rows, cols, n = z["rows"], z["cols"], z["n"]
+    a = rng.standard_normal((z["m"], z["m"])).astype(f32)
+    nan = rng.standard_normal(n).astype(f32)
+    nan[2::7] = np.nan
+    ints = np.array([3, 0, 2, 2, 5, 1] * (n // 6 + 1), np.int32)[:n]
+    return {
+        "x": (rng.standard_normal((rows, cols)).astype(f32), None),
+        "y": (rng.standard_normal((rows, cols)).astype(f32), None),
+        "v": (rng.standard_normal(n).astype(f32), None),
+        "w": (rng.uniform(0.5, 2.0, n).astype(f32), None),
+        "u": (rng.uniform(-0.9, 0.9, n).astype(f32), None),
+        "i": (ints, "int32"),
+        "j": (np.array([1, 4, 2, 3, 1, 2] * (n // 6 + 1),
+                       np.int32)[:n], "int32"),
+        "b": (np.array([True, False, True, True, False, True] *
+                       (n // 6 + 1))[:n], "bool"),
+        "s": (np.sort(rng.standard_normal(z["knots"])).astype(f32), None),
+        "m": ((a @ a.T / z["m"] + 3 * np.eye(z["m"])).astype(f32), None),
+        "t": (rng.standard_normal((z["depth"], rows, cols)).astype(f32),
+              None),
+        "n": (nan, None),
+        "p": (np.array([0.2, 0.5, 0.3], f32), None),
+    }
+
+
+def np_arrays(npmod, host):
+    """``host``'s arrays as ``npmod.array``s (the CPU or the card: the
+    caller's context)."""
+    return {k: npmod.array(v, dtype=d) for k, (v, d) in host.items()}
+
+
+NP_UNARY = {  # the generated families' unary functions: the input each takes
+    "abs": "x", "absolute": "x", "sign": "x", "sqrt": "w", "cbrt": "x",
+    "square": "x", "exp": "u", "expm1": "u", "log": "w", "log2": "w",
+    "log10": "w", "log1p": "w", "sin": "x", "cos": "x", "tan": "u",
+    "arcsin": "u", "arccos": "u", "arctan": "x", "sinh": "u", "cosh": "u",
+    "tanh": "x", "arcsinh": "x", "arccosh": "w1", "arctanh": "u",
+    "floor": "x", "ceil": "x", "trunc": "x", "rint": "x", "fix": "x",
+    "negative": "x", "reciprocal": "w", "degrees": "x", "radians": "x",
+    "deg2rad": "x", "rad2deg": "x", "isnan": "n", "isinf": "n",
+    "isfinite": "n", "logical_not": "b", "sort": "x", "argsort": "i",
+    "copy": "x", "conj": "x", "real": "x", "imag": "x", "angle": "x",
+    "exp2": "u", "positive": "x", "invert": "i", "signbit": "x",
+    "sinc": "x", "i0": "x", "isposinf": "n", "isneginf": "n",
+    "iscomplex": "x", "isreal": "x", "bitwise_not": "i", "conjugate": "x",
+    "fabs": "x", "spacing": "x", "argwhere": "i", "flatnonzero": "i",
+    "ravel": "t", "flipud": "x", "fliplr": "x", "atleast_1d": "v",
+    "atleast_2d": "v", "atleast_3d": "x", "nonzero": "i",
+    "count_nonzero": "i", "trim_zeros": "i0", "ediff1d": "i",
+    "transpose": "t", "squeeze": "x1", "flatten": "t", "unique": "i",
+    "ptp": "x", "gradient": "v", "cov": "x", "corrcoef": "x", "unwrap": "v",
+    "median": "x", "nanmedian": "n", "nanmean": "n", "nansum": "n",
+    "nanstd": "n", "nanvar": "n", "nanmin": "n", "nanmax": "n",
+    "nanargmin": "n", "nanargmax": "n", "nanprod": "n", "nancumsum": "n",
+    "nancumprod": "n", "average": "x", "histogram_bin_edges": "v",
+    "histogram": "v", "bincount": "i", "sum": "t", "mean": "t", "std": "t",
+    "var": "t", "prod": "x", "max": "t", "min": "t", "amax": "x",
+    "amin": "x", "argmax": "x", "argmin": "x", "cumsum": "x",
+    "cumprod": "x", "all": "b", "any": "b", "diagonal": "x", "diag": "v",
+    "tril": "x", "triu": "x", "trace": "x", "around": "x", "round": "x",
+    "nan_to_num": "n", "rot90": "x", "flip": "t",
+}
+
+
+def np_unary_input(a, key):
+    if key == "w1":
+        return a["w"] + 1
+    if key == "i0":
+        return a["i"] * (a["i"] != 5)
+    if key == "x1":
+        return a["x"].reshape((1,) + a["x"].shape)
+    return a[key]
+
+
+NP_BINARY = {  # the binary functions: their two inputs
+    "add": "xy", "subtract": "xy", "multiply": "xy", "divide": "xy",
+    "true_divide": "xy", "mod": "ij", "remainder": "xy", "power": "wv",
+    "float_power": "wv", "maximum": "xy", "minimum": "xy", "hypot": "xy",
+    "arctan2": "xy", "logaddexp": "xy", "copysign": "xy", "fmod": "xy",
+    "fmax": "xy", "fmin": "xy", "equal": "ij", "not_equal": "ij",
+    "greater": "xy", "greater_equal": "xy", "less": "xy",
+    "less_equal": "xy", "logical_and": "bi", "logical_or": "bi",
+    "logical_xor": "bi", "bitwise_and": "ij", "bitwise_or": "ij",
+    "bitwise_xor": "ij", "left_shift": "ij", "right_shift": "ij",
+    "gcd": "ij", "lcm": "ij", "heaviside": "xy", "ldexp": "vi",
+    "floor_divide": "xy", "nextafter": "xy", "logaddexp2": "xy",
+    "isclose": "xy", "outer": "vi", "inner": "vv", "kron": "vi",
+    "vdot": "vw", "polyval": "sv", "convolve": "vs", "correlate": "vs",
+    "isin": "ij", "in1d": "ij", "intersect1d": "ij", "union1d": "ij",
+    "setdiff1d": "ij", "setxor1d": "ij", "append": "iv",
+}
+
+
+def np_cases():
+    """Every public function of ``mx.np`` and ``mx.np.linalg`` bar
+    creation, utilities and the factor functions: ``name -> (function of
+    (np module, arrays), kind)``, the arrays those of :func:`np_host`, at
+    any of its sizes (the CPU tests' and the card phase's). ``kind``
+    ``"loose"`` marks products of several float32 roundings."""
+    cases = {}
+    for name, key in NP_UNARY.items():
+        cases[name] = (lambda np, a, n=name, k=key:
+                       getattr(np, n)(np_unary_input(a, k)), None)
+    for name, (k1, k2) in NP_BINARY.items():
+        cases[name] = (lambda np, a, n=name, p=k1, q=k2:
+                       getattr(np, n)(a[p], a[q]), None)
+    cases.update({
+        "matmul": (lambda np, a: np.matmul(a["x"], a["y"].T), None),
+        "dot": (lambda np, a: np.dot(a["t"], a["y"].T), None),
+        "cross": (lambda np, a: np.cross(a["x"][:, :3], a["y"][:, :3]),
+                  None),
+        "take_along_axis": (lambda np, a: np.take_along_axis(
+            a["x"], (a["i"][:a["x"].shape[1]] % a["x"].shape[0]).reshape(
+                1, -1).astype("int64"), 0), None),
+        "polyval": (lambda np, a: np.polyval(a["s"][:5], a["v"]), "loose"),
+        "sort_axis": (lambda np, a: np.sort(a["x"], 0), None),
+        "argsort_float": (lambda np, a: np.argsort(a["x"], axis=1), None),
+        "sum_axis": (lambda np, a: np.sum(a["t"], axis=(0, 2),
+                                          keepdims=True), None),
+        "mean_axis": (lambda np, a: np.mean(a["t"], 1), None),
+        "std_ddof": (lambda np, a: np.std(a["t"], axis=2, ddof=1), None),
+        "var_axis": (lambda np, a: np.var(a["x"], axis=0), None),
+        "max_axis": (lambda np, a: np.max(a["t"], axis=2), None),
+        "argmax_axis": (lambda np, a: np.argmax(a["t"], axis=1), None),
+        "cumsum_axis": (lambda np, a: np.cumsum(a["t"], axis=2), None),
+        "quantile": (lambda np, a: np.quantile(a["x"], 0.3, axis=1), None),
+        "percentile": (lambda np, a: np.percentile(a["v"], 75), None),
+        "nanquantile": (lambda np, a: np.nanquantile(a["n"], 0.3), None),
+        "nanpercentile": (lambda np, a: np.nanpercentile(a["n"], 40),
+                          None),
+        "median_axis": (lambda np, a: np.median(a["t"], axis=(0, 2)), None),
+        "expand_dims": (lambda np, a: np.expand_dims(a["x"], 1), None),
+        "roll": (lambda np, a: np.roll(a["x"], 2, 1), None),
+        "roll_flat": (lambda np, a: np.roll(a["x"], 5), None),
+        "tile": (lambda np, a: np.tile(a["v"], (2, 2)), None),
+        "repeat": (lambda np, a: np.repeat(a["x"], 2, axis=0), None),
+        "unique_all": (lambda np, a: np.unique(a["i"], True, True, True),
+                       None),
+        "diff": (lambda np, a: np.diff(a["x"], 2, axis=1), None),
+        "clip": (lambda np, a: np.clip(a["x"], -0.5, 0.5), None),
+        "clip_int": (lambda np, a: np.clip(a["i"], 1, 3), None),
+        "around_dec": (lambda np, a: np.around(a["x"], 2), None),
+        "reshape": (lambda np, a: np.reshape(a["t"], (-1, 2 * a["t"].shape[
+            -1])), None),
+        "swapaxes": (lambda np, a: np.swapaxes(a["t"], 0, 2), None),
+        "moveaxis": (lambda np, a: np.moveaxis(a["t"], 0, -1), None),
+        "rollaxis": (lambda np, a: np.rollaxis(a["t"], 2), None),
+        "broadcast_to": (lambda np, a: np.broadcast_to(
+            a["v"], (2,) + a["v"].shape), None),
+        "trace_off": (lambda np, a: np.trace(a["x"], 1), None),
+        "diagonal_off": (lambda np, a: np.diagonal(a["t"], 1, 1, 2), None),
+        "diag_k": (lambda np, a: np.diag(a["x"], -1), None),
+        "tril_k": (lambda np, a: np.tril(a["x"], 1), None),
+        "searchsorted": (lambda np, a: np.searchsorted(a["s"], a["v"]),
+                         None),
+        "searchsorted_right": (lambda np, a: np.searchsorted(
+            a["s"], a["v"], side="right"), None),
+        "partition": (lambda np, a: np.partition(a["v"], 2), None),
+        "argpartition": (lambda np, a: np.argpartition(a["v"], 2), None),
+        "pad": (lambda np, a: np.pad(a["x"], 1), None),
+        "pad_reflect": (lambda np, a: np.pad(a["x"], ((1, 2), (3, 0)),
+                                             mode="reflect"), None),
+        "pad_edge": (lambda np, a: np.pad(a["v"], 2, mode="edge"), None),
+        "pad_value": (lambda np, a: np.pad(a["v"], (1, 2),
+                                           constant_values=7), None),
+        "average_w": (lambda np, a: np.average(a["x"], 1, a["w"][
+            :a["x"].shape[1]]), None),
+        "take": (lambda np, a: np.take(a["x"], a["i"]), None),
+        "take_axis": (lambda np, a: np.take(a["x"], a["j"] % 4, axis=1),
+                      None),
+        "compress": (lambda np, a: np.compress(a["b"][:3], a["x"], 0),
+                     None),
+        "delete": (lambda np, a: np.delete(a["v"], 2), None),
+        "delete_axis": (lambda np, a: np.delete(a["x"], 2, 1), None),
+        "delete_many": (lambda np, a: np.delete(a["v"], a["j"][:2]), None),
+        "insert": (lambda np, a: np.insert(a["i"], 1, 9), None),
+        "insert_axis": (lambda np, a: np.insert(a["x"], 2, 5.0, axis=1),
+                        None),
+        "append_axis": (lambda np, a: np.append(a["x"], a["y"], 0), None),
+        "resize": (lambda np, a: np.resize(a["i"], (3, 3)), None),
+        "digitize": (lambda np, a: np.digitize(a["v"], a["s"]), None),
+        "digitize_right": (lambda np, a: np.digitize(a["v"], a["s"], True),
+                           None),
+        "histogram_range": (lambda np, a: np.histogram(a["v"], 4,
+                                                       (-1.0, 1.0)), None),
+        "cov_rows": (lambda np, a: np.cov(a["x"]), "loose"),
+        "corrcoef_rows": (lambda np, a: np.corrcoef(a["x"]), "loose"),
+        "gradient_2d": (lambda np, a: np.gradient(a["x"]), None),
+        "unravel_index": (lambda np, a: np.unravel_index(a["i"], (2, 3)),
+                          None),
+        "nan_to_num_args": (lambda np, a: np.nan_to_num(a["n"], nan=-1.0),
+                            None),
+        "concatenate": (lambda np, a: np.concatenate([a["x"], a["y"]], 1),
+                        None),
+        "concatenate_none": (lambda np, a: np.concatenate(
+            [a["x"], a["v"]], axis=None), None),
+        "stack": (lambda np, a: np.stack([a["x"], a["y"]], 2), None),
+        "vstack": (lambda np, a: np.vstack([a["x"], a["y"]]), None),
+        "hstack": (lambda np, a: np.hstack([a["x"], a["y"]]), None),
+        "dstack": (lambda np, a: np.dstack([a["x"], a["y"]]), None),
+        "column_stack": (lambda np, a: np.column_stack([a["v"], a["w"]]),
+                         None),
+        "split": (lambda np, a: np.split(a["t"], 2, axis=2), None),
+        "split_idx": (lambda np, a: np.split(a["v"], [1, 4]), None),
+        "array_split": (lambda np, a: np.array_split(a["v"], 4), None),
+        "hsplit": (lambda np, a: np.hsplit(a["x"], 2), None),
+        "vsplit": (lambda np, a: np.vsplit(a["x"], [1]), None),
+        "dsplit": (lambda np, a: np.dsplit(a["t"], 2), None),
+        "where": (lambda np, a: np.where(a["b"], a["v"], a["w"]), None),
+        "where_scalar": (lambda np, a: np.where(a["b"], a["i"], 1.5), None),
+        "where_one": (lambda np, a: np.where(a["i"]), None),
+        "einsum": (lambda np, a: np.einsum("ij,kj->ik", a["x"], a["y"]),
+                   None),
+        "tensordot": (lambda np, a: np.tensordot(a["t"], a["x"],
+                                                 ([1, 2], [0, 1])), None),
+        "meshgrid": (lambda np, a: np.meshgrid(a["v"], a["s"]), None),
+        "broadcast_arrays": (lambda np, a: np.broadcast_arrays(
+            a["x"], a["v"][:a["x"].shape[1]]), None),
+        "zeros_like": (lambda np, a: np.zeros_like(a["i"]), None),
+        "ones_like": (lambda np, a: np.ones_like(a["x"], dtype="float16"),
+                      None),
+        "full_like": (lambda np, a: np.full_like(a["x"], 2.5), None),
+        "tril_indices": (lambda np, a: np.tril_indices(4, 1), None),
+        "triu_indices": (lambda np, a: np.triu_indices(3, 0, 4), None),
+        "diag_indices": (lambda np, a: np.diag_indices(3), None),
+        "vander": (lambda np, a: np.vander(a["v"], 4), "loose"),
+        "vander_inc": (lambda np, a: np.vander(a["i"][:6], increasing=True),
+                       None),
+        "divmod": (lambda np, a: np.divmod(a["i"], a["j"]), None),
+        "modf": (lambda np, a: np.modf(a["x"]), None),
+        "frexp": (lambda np, a: np.frexp(a["x"]), None),
+        "flatten": (lambda np, a: np.flatten(a["t"]), None),
+        "kaiser": (lambda np, a: np.kaiser(7, 3.0), "loose"),
+        "isin_invert": (lambda np, a: np.isin(a["i"], a["j"], invert=True),
+                        None),
+        "intersect_idx": (lambda np, a: np.intersect1d(
+            a["i"], a["j"], return_indices=True), None),
+        "linalg.norm": (lambda np, a: np.linalg.norm(a["x"]), None),
+        "linalg.norm_ord": (lambda np, a: np.linalg.norm(a["x"], 1, 1),
+                            None),
+        "linalg.norm_fro": (lambda np, a: np.linalg.norm(a["x"], "fro"),
+                            None),
+        "linalg.inv": (lambda np, a: np.linalg.inv(a["m"]), "loose"),
+        "linalg.pinv": (lambda np, a: np.linalg.pinv(a["x"]), "loose"),
+        "linalg.det": (lambda np, a: np.linalg.det(a["m"]), "loose"),
+        "linalg.slogdet": (lambda np, a: np.linalg.slogdet(a["m"]),
+                           "loose"),
+        "linalg.solve": (lambda np, a: np.linalg.solve(a["m"], a["m"][:, :2]
+                                                       + 1), "loose"),
+        "linalg.lstsq": (lambda np, a: np.linalg.lstsq(
+            a["x"].T, a["v"][:a["x"].shape[1]]), "loose"),
+        "linalg.matrix_rank": (lambda np, a: np.linalg.matrix_rank(a["x"]),
+                               None),
+        "linalg.matrix_power": (lambda np, a: np.linalg.matrix_power(
+            a["m"], 3), "loose"),
+        "linalg.eigvalsh": (lambda np, a: np.linalg.eigvalsh(a["m"]),
+                            "loose"),
+        "interp": (lambda np, a: np.interp(a["v"], a["s"], a["w"][
+            :a["s"].shape[0]]), None),
+        "linalg.tensorinv": (lambda np, a: np.linalg.tensorinv(a["m"], 1),
+                             "loose"),
+        "linalg.tensorsolve": (lambda np, a: np.linalg.tensorsolve(
+            a["m"], a["v"][:a["m"].shape[0]]), "loose"),
+    })
+    return cases
+
+
+# every name the reference's ops/numpy_ops.py, ops/optim_ops.py,
+# ops/linalg_extra.py and ops/image_ops.py register, the rest of its
+# ops/nn.py, and numpy_ops.py's aliases onto the port's other ops
+NP_NEW_NAMES = """
+    Convolution_v1 L2Normalization LRN Pooling_v1 SoftmaxActivation
+    UpSampling _adamw_update _image_adjust_lighting _image_crop
+    _image_flip_left_right _image_flip_top_bottom _image_normalize
+    _image_random_brightness _image_random_color_jitter
+    _image_random_contrast _image_random_flip_left_right
+    _image_random_flip_top_bottom _image_random_hue _image_random_lighting
+    _image_random_saturation _image_resize _image_to_tensor _linalg_det
+    _linalg_extracttrian _linalg_gelqf _linalg_inverse _linalg_makediag
+    _linalg_maketrian _linalg_potri _linalg_slogdet _linalg_syevd
+    _linalg_trmm _mp_adamw_update _multi_adamw_update
+    _multi_mp_adamw_update _np_moveaxis _np_trace _npi_arctan2
+    _npi_arctan2_scalar _npi_around _npi_bernoulli _npi_blackman
+    _npi_boolean_mask_assign_scalar _npi_boolean_mask_assign_tensor
+    _npi_choice _npi_column_stack _npi_copysign _npi_copysign_scalar
+    _npi_diff _npi_dstack _npi_einsum _npi_hamming _npi_hanning _npi_hsplit
+    _npi_identity _npi_indices _npi_inv _npi_lcm _npi_lcm_scalar _npi_ldexp
+    _npi_ldexp_scalar _npi_logspace _npi_multinomial _npi_nan_to_num
+    _npi_nonzero _npi_rarctan2_scalar _npi_rcopysign_scalar
+    _npi_rldexp_scalar _npi_rot90 _npi_share_memory _npi_std _npi_svd
+    _npi_tensordot _npi_tensordot_int_axes _npi_tril _npi_unique _npi_var
+    _npi_vstack _npx__image_adjust_lighting _npx__image_crop
+    _npx__image_flip_left_right _npx__image_flip_top_bottom
+    _npx__image_normalize _npx__image_random_brightness
+    _npx__image_random_color_jitter _npx__image_random_contrast
+    _npx__image_random_flip_left_right _npx__image_random_flip_top_bottom
+    _npx__image_random_hue _npx__image_random_lighting
+    _npx__image_random_saturation _npx__image_resize _npx__image_to_tensor
+    _npx_activation _npx_batch_norm _npx_convolution _npx_deconvolution
+    _npx_dropout _npx_fully_connected _npx_layer_norm _npx_leaky_relu
+    _npx_log_softmax _npx_nonzero _npx_pooling _npx_relu _npx_sigmoid
+    _npx_softmax _sparse_adagrad_update adagrad_update adam_update
+    adamw_update arctan2 around batch_take blackman column_stack copysign
+    det diff dstack einsum ftml_update ftrl_update hamming hanning
+    hard_sigmoid image_crop image_flip_left_right image_flip_top_bottom
+    image_normalize image_resize image_to_tensor indices inverse lcm ldexp
+    linalg_det linalg_extracttrian linalg_gelqf linalg_inverse
+    linalg_makediag linalg_maketrian linalg_potri linalg_slogdet
+    linalg_syevd linalg_trmm logspace moveaxis mp_adamw_update
+    mp_nag_mom_update mp_sgd_mom_update mp_sgd_update multi_adamw_update
+    multi_lars multi_mp_adamw_update multi_mp_sgd_mom_update
+    multi_mp_sgd_update multi_sgd_mom_update multi_sgd_update
+    nag_mom_update nan_to_num nonzero preloaded_multi_mp_sgd_mom_update
+    preloaded_multi_mp_sgd_update preloaded_multi_sgd_mom_update
+    preloaded_multi_sgd_update rmsprop_update rmspropalex_update rot90
+    sgd_mom_update sgd_update share_memory signsgd_update signum_update
+    softmax_cross_entropy softmin std svd tensordot trace tril unique var
+    vstack
+""".split()
+NP_LOGITS = (32, 32000)           # transformer_lm_base's vocabulary
+NP_SVD = ((768, 768), (768, 3072))  # BERT-base's weights
+NP_SPD = (64, 768, 768)
+NP_LQ = (64, 128, 768)
+# the CPU recomputes the first NP_CPU_SLICE matrices of the SPD and LQ
+# batches (the card runs all 64): the CPU's LAPACK takes seconds a batch
+NP_CPU_SLICE = 4
+NP_IMAGES = (32, 256, 256, 3)     # uint8, resized to NP_CROP
+NP_CROP = 224
+NP_MEAN = (0.485, 0.456, 0.406)
+NP_STD = (0.229, 0.224, 0.225)
+NP_MLM_ROWS = BERT_BATCH * BERT_MASKS      # 1280 masked positions
+NP_DRAWS = (32, 3, 224, 224)
+NP_TOL = (1e-5, 1e-5)             # (b): rtol, atol of the output's max
+NP_MLM_TOL = 1e-4                 # (c): the card against the CPU, of max
+NP_UPDATE_TOL = (1e-6, 1e-7)      # (a), (d): fp32 updates, rtol, atol
+NP_LOGIT_TOL = 2e-2               # (e): logits of the two batches, of max
+# a singular or eigen vector of a float32 factorization is as accurate as
+# eps / (the gap to its neighbours): those with a gap of NP_GAP of the
+# largest value are held to |<u, u_cpu>| = 1 within NP_VECTOR_TOL
+NP_VECTOR_TOL = 1e-3
+NP_GAP = 1e-3          # a vector is compared where its value's gap is this
+NP_FACTOR_TOL = 1e-5   # a factorization's values, of the largest
+NP_UPDATE_ITERS = 5
+NP_ADAM = {"lr": 1e-4, "beta1": 0.9, "beta2": 0.999, "epsilon": 1e-8,
+           "wd": 0.01}
+
+
+def _np_arrays(seed):
+    """Part (a)'s inputs (numpy, made from ``seed``), by key."""
+    import torch
+    rng = np.random.default_rng(seed + 61)
+    f32 = np.float32
+
+    def normal(shape, scale=1.0):
+        return (scale * rng.standard_normal(shape, dtype=f32)).astype(f32)
+    L = normal(NP_LOGITS, 3.0)
+    nan = L.copy()
+    nan.reshape(-1)[::9973] = np.nan
+    nan.reshape(-1)[5::9973] = np.inf
+    nan.reshape(-1)[7::9973] = -np.inf
+    m = torch.from_numpy(normal(NP_SPD)) / NP_SPD[-1] ** 0.5
+    spd = (m @ m.transpose(-1, -2) + torch.eye(NP_SPD[-1])).numpy()
+    lower = torch.linalg.cholesky(torch.from_numpy(spd)).numpy()
+    # det overflows float32 at 768 (eigenvalues 1..5): each matrix scaled
+    # to determinant ~1 for it
+    logdet = torch.linalg.slogdet(torch.from_numpy(spd).double())[1]
+    unit = (spd / torch.exp(logdet / NP_SPD[-1]).numpy()[:, None, None]) \
+        .astype(f32)
+    n_tri = NP_SPD[-1] * (NP_SPD[-1] + 1) // 2
+    return {
+        "L": L, "L2": normal(NP_LOGITS), "N": nan,
+        "P": rng.uniform(0.5, 2.0, NP_LOGITS).astype(f32),
+        "U": rng.uniform(-0.9, 0.9, NP_LOGITS).astype(f32),
+        "I": rng.integers(1, 13, NP_LOGITS).astype(np.int32),
+        "J": rng.integers(1, 13, NP_LOGITS).astype(np.int32),
+        "E": rng.integers(-8, 9, NP_LOGITS).astype(np.int32),
+        "M": rng.integers(0, 2, NP_LOGITS).astype(f32),
+        "lab": rng.integers(-1, NP_LOGITS[1], NP_LOGITS[0]).astype(f32),
+        "W768": normal(NP_SVD[0], 0.02), "W3072": normal(NP_SVD[1], 0.02),
+        "S": spd, "SD": unit, "Lo": lower,
+        "R": normal(NP_SPD[:2] + (64,)),
+        "Q": normal(NP_LQ), "D": normal(NP_SPD[:2]),
+        "T": normal((NP_SPD[0], n_tri)),
+        "X": normal((32, 64, 56, 56)),
+        "IMG": rng.integers(0, 256, NP_IMAGES).astype(np.uint8),
+        "CHW": rng.uniform(0, 1, (NP_IMAGES[0], 3, NP_CROP, NP_CROP))
+        .astype(f32),
+        "V3": normal((NP_LOGITS[0], 4096)),
+        "lrs": np.array([0.1, 0.05, 0.2], f32),
+        "wds": np.array([0.0, 0.01, 0.02], f32),
+        "scale": np.array(0.5, f32),
+    }
+
+
+def _np_op_cases():
+    """Each deterministic primary op of part (a): (args, kwargs, family);
+    ``"@K"`` is array ``K`` (``"@K:bf16"`` in bf16, ``"@K:cpu4"`` the
+    first NP_CPU_SLICE matrices on the CPU side), ``"@upd3"`` three
+    (weight, grad, ...) groups of the logits' shape."""
+    hyper = {"lr": 0.1, "wd": 0.01, "rescale_grad": 0.5,
+             "clip_gradient": 0.3}
+    mom = dict(hyper, momentum=0.9)
+    multi = {"lrs": [0.1, 0.05, 0.2], "wds": [0.0, 0.01, 0.02],
+             "rescale_grad": 0.5, "clip_gradient": 0.3, "num_weights": 3}
+    pre = {"rescale_grad": 0.5, "clip_gradient": 0.3, "num_weights": 3}
+    c = {
+        # ops/numpy_ops.py at the logits' shape
+        "around": (["@L"], {"decimals": 2}, "exact"),
+        "rot90": (["@L"], {"k": 3}, "exact"),
+        "std": (["@L"], {"axis": 1, "ddof": 1}, "reduce"),
+        "var": (["@L"], {"axis": 1}, "reduce"),
+        "einsum": (["@L", "@L2"], {"subscripts": "ij,ij->i"}, "linalg"),
+        "tensordot": (["@L", "@L2"], {"a_axes_summed": (1,),
+                                      "b_axes_summed": (1,)}, "linalg"),
+        "_npi_tensordot_int_axes": (["@L", "@L2"], {"axes": 2}, "reduce"),
+        "diff": (["@L"], {"n": 2, "axis": 1}, "exact"),
+        "copysign": (["@L", "@L2"], {}, "exact"),
+        "_npi_copysign_scalar": (["@L"], {"scalar": -1.0}, "exact"),
+        "_npi_rcopysign_scalar": (["@L"], {"scalar": 2.5}, "exact"),
+        "lcm": (["@I", "@J"], {}, "exact"),
+        "_npi_lcm_scalar": (["@I"], {"scalar": 6}, "exact"),
+        "ldexp": (["@L", "@E"], {}, "float"),
+        "_npi_ldexp_scalar": (["@L"], {"scalar": 3}, "float"),
+        "_npi_rldexp_scalar": (["@E"], {"scalar": 1.5}, "float"),
+        "arctan2": (["@L", "@L2"], {}, "float"),
+        "_npi_arctan2_scalar": (["@L"], {"scalar": 0.5}, "float"),
+        "_npi_rarctan2_scalar": (["@L"], {"scalar": -0.5}, "float"),
+        "nan_to_num": (["@N"], {"nan": 1.0}, "exact"),
+        "_npi_indices": ([], {"dimensions": (32, 32, 32)}, "exact"),
+        "logspace": ([], {"start": -2.0, "stop": 2.0, "num": 32000},
+                     "float"),
+        "_npi_blackman": ([], {"M": 32000}, "float"),
+        "_npi_hamming": ([], {"M": 32000}, "float"),
+        "_npi_hanning": ([], {"M": 32000}, "float"),
+        "column_stack": (["@L", "@L2"], {}, "exact"),
+        "dstack": (["@L", "@L2"], {}, "exact"),
+        "vstack": (["@L", "@L2"], {}, "exact"),
+        "_npi_hsplit": (["@L"], {"sections": 4}, "exact"),
+        "tril": (["@W768"], {"k": -1}, "exact"),
+        "moveaxis": (["@X"], {"source": 1, "destination": 3}, "exact"),
+        "trace": (["@X"], {"axis1": 2, "axis2": 3}, "reduce"),
+        "_npi_identity": ([], {"n": 768}, "exact"),
+        "share_memory": (["@L", "@L2"], {}, "exact"),
+        "_npi_boolean_mask_assign_scalar": (["@L", "@M"], {"value": 0.5},
+                                            "exact"),
+        "_npi_boolean_mask_assign_tensor": (["@L", "@M", "@L2"], {},
+                                            "exact"),
+        "nonzero": (["@M"], {}, "exact"),
+        "unique": (["@I"], {"return_index": True, "return_inverse": True,
+                            "return_counts": True}, "exact"),
+        # the rest of nn.py
+        "hard_sigmoid": (["@L"], {}, "exact"),
+        "softmin": (["@L"], {}, "reduce"),
+        "SoftmaxActivation": (["@X"], {"mode": "channel"}, "float"),
+        "softmax_cross_entropy": (["@L", "@lab"], {}, "reduce"),
+        "L2Normalization": (["@X"], {}, "float"),
+        "LRN": (["@X"], {"nsize": 5}, "float"),
+        "batch_take": (["@L", "@lab"], {}, "exact"),
+        "UpSampling": (["@X"], {"scale": 2, "sample_type": "bilinear"},
+                       "linalg"),
+        "Convolution": (["@X", "@X:w", "@X:b"], {"kernel": (3, 3),
+                                                 "num_filter": 64,
+                                                 "pad": (1, 1)}, "linalg"),
+        "Pooling": (["@X"], {"kernel": (3, 3), "stride": (2, 2),
+                             "pool_type": "max"}, "exact"),
+        "Activation": (["@L"], {"act_type": "relu"}, "exact"),
+        "BatchNorm": (["@X", "@X:g", "@X:b", "@X:b", "@X:g"], {},
+                      "float"),
+        "Deconvolution": (["@X", "@X:w", "@X:b"], {"kernel": (3, 3),
+                                                   "num_filter": 64},
+                          "linalg"),
+        "Dropout": (["@L"], {}, "exact"),
+        "FullyConnected": (["@L", "@L:fw", "@L:fb"], {"num_hidden": 64},
+                           "linalg"),
+        "LayerNorm": (["@L", "@L:g", "@L:fb0"], {}, "float"),
+        "LeakyReLU": (["@L"], {}, "exact"),
+        "log_softmax": (["@L"], {}, "reduce"),
+        "relu": (["@L"], {}, "exact"),
+        "sigmoid": (["@L"], {}, "float"),
+        "softmax": (["@L"], {}, "reduce"),
+        # ops/linalg_extra.py at BERT-base's shapes
+        "_npi_svd": (["@W3072"], {}, "factors"),
+        "linalg_det": (["@SD:cpu4"], {}, "linalg"),
+        "linalg_slogdet": (["@S:cpu4"], {}, "linalg"),
+        "linalg_inverse": (["@S:cpu4"], {}, "linalg"),
+        "linalg_potri": (["@Lo:cpu4"], {}, "linalg"),
+        "linalg_trmm": (["@Lo:cpu4", "@R:cpu4"], {"alpha": 0.5}, "linalg"),
+        "linalg_gelqf": (["@Q:cpu4"], {}, "factors"),
+        "linalg_syevd": (["@S:cpu4"], {}, "factors"),
+        "linalg_makediag": (["@D"], {"offset": 1}, "exact"),
+        "linalg_maketrian": (["@T"], {}, "exact"),
+        "linalg_extracttrian": (["@S"], {"lower": False}, "exact"),
+        # ops/image_ops.py at the preprocessing shapes
+        "_image_to_tensor": (["@IMG"], {}, "exact"),
+        "_image_normalize": (["@CHW"], {"mean": NP_MEAN, "std": NP_STD},
+                             "exact"),
+        "_image_crop": (["@IMG"], {"x": 16, "y": 16, "width": NP_CROP,
+                                   "height": NP_CROP}, "exact"),
+        "_image_resize": (["@IMG"], {"size": NP_CROP}, "resize"),
+        "_image_flip_left_right": (["@IMG"], {}, "exact"),
+        "_image_flip_top_bottom": (["@IMG"], {}, "exact"),
+        "_image_adjust_lighting": (["@IMG"], {"alpha": (0.3, -0.2, 0.1)},
+                                   "exact"),
+        # ops/optim_ops.py at the logits' shape (fp32; mp in bf16)
+        "sgd_update": (["@L", "@L2"], hyper, "update"),
+        "sgd_mom_update": (["@L", "@L2", "@U"], mom, "update"),
+        "mp_sgd_update": (["@L:bf16", "@L2:bf16", "@L"], hyper, "update"),
+        "mp_sgd_mom_update": (["@L:bf16", "@L2:bf16", "@U", "@L"], mom,
+                              "update"),
+        "nag_mom_update": (["@L", "@L2", "@U"], mom, "update"),
+        "mp_nag_mom_update": (["@L:bf16", "@L2:bf16", "@U", "@L"], mom,
+                              "update"),
+        "adam_update": (["@L", "@L2", "@U", "@P"], hyper, "update"),
+        "_adamw_update": (["@L", "@L2", "@U", "@P", "@scale"],
+                          {"lr": 0.01, "wd": 0.1, "clip_gradient": 0.3},
+                          "update"),
+        "_mp_adamw_update": (["@L:bf16", "@L2:bf16", "@U", "@P", "@L",
+                              "@scale"], {"lr": 0.01, "wd": 0.1},
+                             "update"),
+        "ftml_update": (["@L", "@L2", "@U", "@P", "@P"], dict(hyper, t=3),
+                        "update"),
+        # sqrt(n + g^2) - sqrt(n) cancels: an ulp of sqrt(n) is up to ~1e5
+        # of the difference, so FTRL is held within 1e-5 of each max
+        "ftrl_update": (["@L", "@L2", "@U", "@P"], hyper, "reduce"),
+        "rmsprop_update": (["@L", "@L2", "@P"], hyper, "update"),
+        "rmspropalex_update": (["@L", "@L2", "@P", "@U", "@U"], hyper,
+                               "update"),
+        "signsgd_update": (["@L", "@L2"], hyper, "update"),
+        "signum_update": (["@L", "@L2", "@U"], mom, "update"),
+        "_sparse_adagrad_update": (["@L", "@L2", "@P"], hyper, "update"),
+        "multi_lars": (["@lrs", "@lrs:sq", "@wds:sq", "@wds"],
+                       {"eta": 0.01}, "update"),
+        "multi_sgd_update": (["@upd2"], multi, "update"),
+        "multi_sgd_mom_update": (["@upd3"], dict(multi, momentum=0.9),
+                                 "update"),
+        "multi_mp_sgd_update": (["@upd3mp"], multi, "update"),
+        "multi_mp_sgd_mom_update": (["@upd4mp"], dict(multi, momentum=0.9),
+                                    "update"),
+        "_multi_adamw_update": (["@upd4", "@scale"],
+                                {"lrs": multi["lrs"], "wds": multi["wds"],
+                                 "num_weights": 3}, "update"),
+        "_multi_mp_adamw_update": (["@upd5mp", "@scale"],
+                                   {"lrs": multi["lrs"],
+                                    "wds": multi["wds"], "num_weights": 3},
+                                   "update"),
+        "preloaded_multi_sgd_update": (["@upd2", "@lrs", "@wds"], pre,
+                                       "update"),
+        "preloaded_multi_sgd_mom_update": (["@upd3", "@lrs", "@wds"], pre,
+                                           "update"),
+        "preloaded_multi_mp_sgd_update": (["@upd3mp", "@lrs", "@wds"], pre,
+                                          "update"),
+        "preloaded_multi_mp_sgd_mom_update": (["@upd4mp", "@lrs", "@wds"],
+                                              pre, "update"),
+    }
+    return c
+
+
+# the random ops of part (a): a draw on the card, its dtype and shape
+# those of the CPU's draw, the same key words the same draw
+NP_RANDOM_OPS = {
+    "_npi_bernoulli": ([], {"prob": 0.3, "size": NP_LOGITS}),
+    "_npi_choice": ([], {"a": 32000, "size": NP_LOGITS}),
+    "_npi_multinomial": ([], {"n": 20, "pvals": (0.2, 0.3, 0.5),
+                              "size": (4096,)}),
+    "_image_random_flip_left_right": (["@IMG"], {}),
+    "_image_random_flip_top_bottom": (["@IMG"], {}),
+    "_image_random_brightness": (["@IMG"], {"min_factor": 0.6,
+                                            "max_factor": 1.4}),
+    "_image_random_contrast": (["@IMG"], {"min_factor": 0.6,
+                                          "max_factor": 1.4}),
+    "_image_random_saturation": (["@IMG"], {"min_factor": 0.6,
+                                            "max_factor": 1.4}),
+    "_image_random_hue": (["@IMG"], {"min_factor": -0.2, "max_factor": 0.2}),
+    "_image_random_lighting": (["@IMG"], {"alpha_std": 0.1}),
+    "_image_random_color_jitter": (["@IMG"], {"brightness": 0.4,
+                                              "contrast": 0.4,
+                                              "saturation": 0.4,
+                                              "hue": 0.1}),
+}
+
+
+def _np_operand(arrays, key):
+    """``"@K[:form]"`` as numpy (a list for the update groups, a
+    ``("bf16", a)`` pair for bf16)."""
+    name, _, form = key[1:].partition(":")
+    if name.startswith("upd"):
+        k = int(name[3])
+        mp = name.endswith("mp")
+        base = [arrays[n] for n in ("L", "L2", "U", "P", "L")]
+        out = []
+        for g in range(3):
+            rows = slice(g * 8, g * 8 + 8)
+            grp = [b[rows] for b in base[:k]]
+            if mp:
+                grp = [("bf16", grp[0]), ("bf16", grp[1])] + grp[2:-1] + \
+                    [np.ascontiguousarray(grp[0])]
+            out += [g_ if isinstance(g_, tuple) else np.ascontiguousarray(g_)
+                    for g_ in grp]
+        return out
+    a = arrays[name]
+    if form == "bf16":
+        return ("bf16", a)
+    if form == "sq":
+        return (a * a + 1).astype(np.float32)
+    if form == "w":
+        return (0.05 * np.ones((64, a.shape[1], 3, 3), np.float32))
+    if form == "b":
+        return np.zeros(a.shape[1], np.float32)
+    if form == "g":
+        return np.ones(a.shape[1], np.float32)
+    if form == "fw":
+        return (np.resize(a, (64, a.shape[1])) * 0.01).astype(np.float32)
+    if form == "fb":
+        return np.zeros(64, np.float32)
+    if form == "fb0":
+        return np.zeros(a.shape[1], np.float32)
+    return a
+
+
+def _np_to(torch, value, dev):
+    """A numpy operand as NDArray(s) on ``dev``."""
+    from mxnet_tpu_torch import nd
+    if isinstance(value, list):
+        return [_np_to(torch, v, dev) for v in value]
+    if isinstance(value, tuple) and value[0] == "bf16":
+        return nd.NDArray(torch.from_numpy(value[1]).to(dev).bfloat16())
+    t = torch.from_numpy(np.ascontiguousarray(value)).to(dev)
+    return nd.NDArray(t)
+
+
+def _np_compare(torch, family, own, ref, what, dev):
+    """(a)'s card outputs against the CPU's: ``_ops_compare``'s families,
+    ``update`` (fp32 rtol/atol NP_UPDATE_TOL, bf16 one ulp) and
+    ``resize`` (uint8 within one level; the count of differing values is
+    returned)."""
+    own = own if isinstance(own, (list, tuple)) else [own]
+    ref = ref if isinstance(ref, (list, tuple)) else [ref]
+    if len(own) != len(ref):
+        raise _OpsMismatch("np %s: %d outputs on the card, %d on the CPU"
+                           % (what, len(own), len(ref)))
+    if family == "update":
+        for i, (o, r) in enumerate(zip(own, ref)):
+            o, r = o._data, r._data
+            if o.device.type != dev.type or o.dtype != r.dtype or \
+                    o.shape != r.shape:
+                raise _OpsMismatch("np %s: output %d is %s %s on %s, "
+                                   "%s %s on the CPU" % (
+                                       what, i, o.dtype, tuple(o.shape),
+                                       o.device, r.dtype, tuple(r.shape)))
+            of, rf = o.cpu().double(), r.double()
+            if o.dtype == torch.bfloat16:
+                ulp = torch.exp2(torch.floor(torch.log2(
+                    rf.abs().clamp(min=2.0 ** -126))) - 7)
+                bad = (of - rf).abs() > ulp
+            else:
+                rtol, atol = NP_UPDATE_TOL
+                bad = (of - rf).abs() > atol + rtol * rf.abs()
+            if bool(bad.any()):
+                raise _OpsMismatch("np %s: output %d has %d values "
+                                   "outside rtol %g atol %g of the CPU's"
+                                   % (what, i, int(bad.sum()),
+                                      *NP_UPDATE_TOL))
+        return 0
+    if family == "resize":
+        o, r = own[0]._data, ref[0]._data
+        if o.dtype != r.dtype or o.shape != r.shape or \
+                o.device.type != dev.type:
+            raise _OpsMismatch("np %s: %s %s on %s vs %s %s" % (
+                what, o.dtype, tuple(o.shape), o.device, r.dtype,
+                tuple(r.shape)))
+        d = (o.cpu().int() - r.int()).abs()
+        if int(d.max()) > 1:
+            raise _OpsMismatch("np %s: %d levels from the CPU's"
+                               % (what, int(d.max())))
+        return int((d > 0).sum())
+    _ops_compare(torch, family, own, ref, "np " + what, dev)
+    return 0
+
+
+def _np_factors(torch, name, own, ref, what):
+    """(a)'s factor ops: values to the CPU's (NP_FACTOR_TOL of max), and
+    each vector whose value stands apart from its neighbours (a gap of at
+    least NP_GAP of the largest value: a float32 vector is as accurate as
+    eps over its gap) against the CPU's up to its sign (|<u, u_cpu>| = 1
+    within NP_VECTOR_TOL); the CPU holds the first NP_CPU_SLICE matrices
+    of a batch. Returns the card's reconstruction and the count of
+    vectors compared."""
+    o = [x._data.double() for x in own]
+    r = [x._data.double() for x in ref]
+    if name == "_npi_svd":
+        (u, s, vh), (ru, rs, rvh) = o, r
+        vals, vecs, ref_vecs, ref_vals = s, u.transpose(-1, -2), \
+            ru.transpose(-1, -2), rs
+        recon = (u * s.unsqueeze(-2)) @ vh
+    elif name == "linalg_gelqf":
+        (lo, q), (rl, rq) = o, r
+        vals, vecs, ref_vecs = lo.diagonal(dim1=-2, dim2=-1).abs(), q, rq
+        ref_vals = rl.diagonal(dim1=-2, dim2=-1).abs()
+        recon = lo @ q
+    else:
+        (uu, w), (ru, rw) = o, r
+        vals, vecs, ref_vecs, ref_vals = w, uu, ru, rw
+        recon = uu.transpose(-1, -2) @ (w.unsqueeze(-1) * uu)
+    n = ref_vals.shape[0]
+    if vals.dim() > 1:
+        vals, vecs = vals[:n], vecs[:n]
+    scale = ref_vals.abs().max().item()
+    err = (vals.cpu() - ref_vals).abs().max().item() / scale
+    if err > NP_FACTOR_TOL:
+        raise _OpsMismatch("np (a) %s: values %.3g of max from the CPU's "
+                           "(tol %g)" % (what, err, NP_FACTOR_TOL))
+    if name == "linalg_gelqf":
+        keep = torch.ones(ref_vals.shape, dtype=torch.bool)
+    else:
+        srt = ref_vals.sort(-1).values
+        gaps = torch.diff(srt, dim=-1).abs()
+        lo = torch.cat([gaps[..., :1] * 0 + float("inf"), gaps], -1)
+        hi = torch.cat([gaps, gaps[..., :1] * 0 + float("inf")], -1)
+        gap_sorted = torch.minimum(lo, hi)
+        order = ref_vals.argsort(-1)
+        gap = torch.empty_like(gap_sorted).scatter_(-1, order, gap_sorted)
+        keep = gap >= NP_GAP * scale
+    dots = (vecs.cpu() * ref_vecs).sum(-1).abs()
+    worst = (dots - 1).abs()[keep].max().item() if bool(keep.any()) else 0.0
+    if worst > NP_VECTOR_TOL:
+        raise _OpsMismatch("np (a) %s: %d separated vectors, the worst "
+                           "%.3g from the CPU's up to sign (tol %g)"
+                           % (what, int(keep.sum()), worst, NP_VECTOR_TOL))
+    return recon, int(keep.sum())
+
+
+def _np_part_a(args, torch, mx, nd, dev, cpu):
+    """(a) every new registry name through ``nd.<name>`` on ``gpu(0)``
+    against the port's CPU result on the same inputs (computed once a
+    primary and input)."""
+    from mxnet_tpu_torch.ops.registry import get_op
+    arrays = _np_arrays(args.seed)
+    cases = _np_op_cases()
+    cache, ref_cache, mismatches, vectors = {}, {}, [], {}
+    resize_diff = 0
+
+    def operand(key, device):
+        if not isinstance(key, str) or not key.startswith("@"):
+            return key
+        base, _, form = key.partition(":")
+        cpu4 = form == "cpu4"
+        ck = (key, device.type)
+        if ck not in cache:
+            v = _np_operand(arrays, base if cpu4 else key)
+            if cpu4 and device.type == "cpu":
+                v = v[:NP_CPU_SLICE]
+            cache[ck] = _np_to(torch, v, device)
+        return cache[ck]
+
+    def call(name, args_, kw, device):
+        ctx = mx.gpu(0) if device.type == "cuda" else mx.cpu()
+        vals = []
+        for a in args_:
+            v = operand(a, device)
+            vals.extend(v if isinstance(v, list) else [v])
+        with ctx:
+            return getattr(nd, name)(*vals, **dict(kw))
+
+    run = []
+    for name in NP_NEW_NAMES:
+        primary = get_op(name).name
+        if primary in NP_RANDOM_OPS:
+            continue
+        if primary not in cases:
+            mismatches.append("np (a) %s: no case" % name)
+            continue
+        args_, kw, family = cases[primary]
+        try:
+            own = call(name, args_, kw, dev)
+            if primary not in ref_cache:
+                ref_cache[primary] = call(name, args_, kw, cpu)
+            ref = ref_cache[primary]
+            if family == "factors":
+                recon, n_vec = _np_factors(torch, primary, own, ref, name)
+                vectors[name] = n_vec
+                inp = operand(args_[0], dev)._data.double()
+                if (recon - inp).abs().max().item() > \
+                        1e-5 * inp.abs().max().item():
+                    raise _OpsMismatch("np (a) %s: the factors do not "
+                                       "reconstruct the input" % name)
+            else:
+                if args_ and str(args_[0]).endswith(":cpu4"):
+                    own = [nd.NDArray(o._data[:NP_CPU_SLICE]) for o in
+                           (own if isinstance(own, (list, tuple))
+                            else [own])]
+                resize_diff += _np_compare(torch, family, own, ref,
+                                           "(a) " + name, dev)
+        except _OpsMismatch as e:
+            mismatches.append(str(e))
+        run.append(name)
+    # the random ops: on the card, the CPU's dtype and shape, keyed
+    for name in NP_NEW_NAMES:
+        primary = get_op(name).name
+        if primary not in NP_RANDOM_OPS:
+            continue
+        args_, kw = NP_RANDOM_OPS[primary]
+        kw = dict(kw, key=(args.seed, 17))
+        a = call(name, args_, kw, dev)
+        b = call(name, args_, kw, dev)
+        c = call(name, args_, kw, cpu)
+        a, b, c = a._data, b._data, c._data
+        if a.device.type != dev.type or a.dtype != c.dtype or \
+                a.shape != c.shape or not torch.equal(a, b):
+            mismatches.append("np (a) %s: %s %s on %s (CPU %s %s), repeat "
+                              "%s" % (name, a.dtype, tuple(a.shape),
+                                      a.device, c.dtype, tuple(c.shape),
+                                      torch.equal(a, b)))
+        run.append(name)
+    del cache, ref_cache
+    return {"names": len(run), "resize_pixels_off_by_one": resize_diff,
+            "vectors_compared": vectors,
+            "resize_values": int(np.prod((NP_IMAGES[0], NP_CROP, NP_CROP,
+                                          3)))}, mismatches
+
+
+def _np_factor_fns(torch, npm, host):
+    """(b)'s factor functions, each checked on its own device: values
+    returned for the CPU comparison, the factors by reconstruction."""
+    m, x = npm.array(host["m"][0]), npm.array(host["x"][0])
+    out = {}
+    u, s, vh = npm.linalg.svd(x)
+    out["linalg.svd"] = (s, (u._data * s._data.unsqueeze(-2)) @ vh._data,
+                         x._data)
+    w, v = npm.linalg.eigh(m)
+    out["linalg.eigh"] = (w, (v._data * w._data.unsqueeze(-2))
+                          @ v._data.T, m._data)
+    q, r = npm.linalg.qr(x)
+    out["linalg.qr"] = (npm.abs(npm.diagonal(r)), q._data @ r._data,
+                        x._data)
+    c = npm.linalg.cholesky(m)
+    out["linalg.cholesky"] = (c, c._data @ c._data.T, m._data)
+    lam, vec = npm.linalg.eig(m)
+    out["linalg.eig"] = (None, ((vec._data * lam._data.unsqueeze(-2))
+                                @ torch.linalg.inv(vec._data)).real,
+                         m._data)
+    ev = npm.linalg.eigvals(m)
+    if ev._data.dtype != torch.complex64:
+        fail("np (b) linalg.eigvals gives %s" % ev._data.dtype)
+    return out
+
+
+def _np_part_b(args, torch, mx, dev, cpu):
+    """(b) every public function of ``mx.np``, ``np.linalg``,
+    ``np.random`` and ``mx.npx`` on ``gpu(0)`` against the CPU (the
+    inputs of ``np_host("card")``); the dtypes must be equal."""
+    import inspect
+    from mxnet_tpu_torch import numpy as npm
+    from mxnet_tpu_torch import numpy_extension as npx
+    host = np_host("card", args.seed + 71)
+    cases = np_cases()
+    mismatches = []
+    rtol, atol = NP_TOL
+
+    def values(out):
+        if isinstance(out, (tuple, list)):
+            return [v for o in out for v in values(o)]
+        return [out]
+
+    with mx.cpu():
+        cpu_arrays = np_arrays(npm, host)
+    with mx.gpu(0):
+        gpu_arrays = np_arrays(npm, host)
+    for name in sorted(cases):
+        fn, kind = cases[name]
+        with mx.gpu(0):
+            own = values(fn(npm, gpu_arrays))
+        with mx.cpu():
+            ref = values(fn(npm, cpu_arrays))
+        for k, (o, r) in enumerate(zip(own, ref)):
+            if not hasattr(r, "_data"):
+                if not (o == r or (isinstance(r, float) and
+                                   abs(o - r) <= 1e-5 * abs(r))):
+                    mismatches.append("np (b) %s[%d]: %r vs %r"
+                                      % (name, k, o, r))
+                continue
+            ot, rt = o._data, r._data
+            if ot.device.type != dev.type or ot.dtype != rt.dtype or \
+                    ot.shape != rt.shape:
+                mismatches.append("np (b) %s[%d]: %s %s on %s, CPU %s %s"
+                                  % (name, k, ot.dtype, tuple(ot.shape),
+                                     ot.device, rt.dtype, tuple(rt.shape)))
+                continue
+            oc = ot.cpu()
+            if not rt.is_floating_point() and not rt.is_complex():
+                if not torch.equal(oc, rt):
+                    mismatches.append("np (b) %s[%d]: differs (exact)"
+                                      % (name, k))
+                continue
+            of, rf = oc.double(), rt.double()
+            scale = rf[torch.isfinite(rf)].abs().max().item() \
+                if bool(torch.isfinite(rf).any()) else 1.0
+            tol = (1e-4 if kind == "loose" else rtol)
+            bad = ~(((of - rf).abs() <= atol * scale + tol * rf.abs())
+                    | (torch.isnan(of) & torch.isnan(rf))
+                    | (of == rf))
+            if bool(bad.any()):
+                mismatches.append("np (b) %s[%d]: %d values off (rtol %g, "
+                                  "atol %g of max)" % (name, k,
+                                                       int(bad.sum()), tol,
+                                                       atol))
+    # the factor functions: reconstruction on the card, values to the CPU
+    with mx.gpu(0):
+        own = _np_factor_fns(torch, npm, host)
+    with mx.cpu():
+        ref = _np_factor_fns(torch, npm, host)
+    for name, (vals, recon, inp) in own.items():
+        if recon is not None and (recon - inp).abs().max().item() > \
+                1e-4 * inp.abs().max().item():
+            mismatches.append("np (b) %s: the factors do not reconstruct "
+                              "the input" % name)
+        rv = ref[name][0]
+        if vals is not None and not torch.allclose(
+                vals._data.cpu().double(), rv._data.double(), rtol=1e-4,
+                atol=1e-5 * rv._data.abs().max().item()):
+            mismatches.append("np (b) %s: values differ from the CPU's"
+                              % name)
+    factor_names = {"svd", "eigh", "qr", "cholesky", "eig", "eigvals",
+                    "multi_dot"}
+    with mx.gpu(0):
+        md = npm.linalg.multi_dot([gpu_arrays["m"], gpu_arrays["m"],
+                                   gpu_arrays["v"][:host["m"][0].shape[0]]])
+    with mx.cpu():
+        mdc = npm.linalg.multi_dot([cpu_arrays["m"], cpu_arrays["m"],
+                                    cpu_arrays["v"][:host["m"][0].shape[0]]])
+    if not torch.allclose(md._data.cpu(), mdc._data, rtol=1e-4, atol=1e-4):
+        mismatches.append("np (b) linalg.multi_dot differs")
+    # creation and the utilities on the card
+    extra = _np_creation_and_utilities(torch, mx, npm, dev)
+    mismatches += extra["mismatches"]
+    random_out = _np_random_functions(args, torch, mx, npm, dev)
+    mismatches += random_out["mismatches"]
+    npx_out = _np_npx_functions(torch, mx, npm, npx, dev, cpu_arrays,
+                                gpu_arrays)
+    mismatches += npx_out["mismatches"]
+    # every public callable of the four modules ran
+    covered = set(cases) | {c.rsplit("_", 1)[0] for c in cases} | \
+        set(extra["names"]) | {"linalg." + n for n in factor_names}
+    public = {}
+    for mod, prefix in ((npm, ""), (npm.linalg, "linalg."),
+                        (npm.random, "random."), (npx, "npx.")):
+        public.update({prefix + n: mod for n in dir(mod)
+                       if not n.startswith("_") and
+                       callable(getattr(mod, n)) and
+                       not inspect.ismodule(getattr(mod, n)) and
+                       not inspect.isclass(getattr(mod, n))})
+    covered |= {"random." + n for n in random_out["names"]} | \
+        {"npx." + n for n in npx_out["names"]}
+    missing = sorted(set(public) - covered)
+    if missing:
+        mismatches.append("np (b): not run on the card: %s" % missing)
+    return {"functions": len(public), "cases": len(cases) + len(own),
+            "np_dtypes_equal": True}, mismatches
+
+
+def _np_creation_and_utilities(torch, mx, npm, dev):
+    """The creation functions' defaults on the card (dtype and values
+    equal to the CPU's) and the utilities."""
+    calls = {
+        "ones": lambda: npm.ones(3), "zeros": lambda: npm.zeros((2,)),
+        "empty": lambda: npm.empty(4), "full": lambda: npm.full(2, 1.5),
+        "arange": lambda: npm.arange(0, 1, 0.125),
+        "linspace": lambda: npm.linspace(0, 1, 5),
+        "logspace": lambda: npm.logspace(0, 1, 5),
+        "eye": lambda: npm.eye(3, 4, 1), "identity": lambda: npm.identity(2),
+        "tri": lambda: npm.tri(3), "indices": lambda: npm.indices((2, 3)),
+        "array": lambda: npm.array([1, 2]),
+        "asarray": lambda: npm.asarray([1.5, 2.5]),
+        "ascontiguousarray": lambda: npm.ascontiguousarray([1.5]),
+        "hanning": lambda: npm.hanning(5), "hamming": lambda: npm.hamming(5),
+        "blackman": lambda: npm.blackman(5),
+        "bartlett": lambda: npm.bartlett(5),
+        "kaiser": lambda: npm.kaiser(5, 2.0),
+        "zeros_like": lambda: npm.zeros_like(npm.arange(3)),
+        "ones_like": lambda: npm.ones_like(npm.arange(3)),
+        "full_like": lambda: npm.full_like(npm.arange(3), 2.5),
+        "fromfunction": lambda: npm.fromfunction(lambda i, j: i + j, (2, 2)),
+        "frombuffer": lambda: npm.frombuffer(b"\x01\x02", dtype=np.uint8),
+        "tril_indices": lambda: npm.tril_indices(3)[0],
+        "triu_indices": lambda: npm.triu_indices(3)[1],
+        "diag_indices": lambda: npm.diag_indices(3)[0],
+    }
+    mismatches = []
+    for name, call in calls.items():
+        with mx.gpu(0):
+            o = call()
+        with mx.cpu():
+            r = call()
+        if o._data.device.type != dev.type or o._data.dtype != \
+                r._data.dtype or not torch.allclose(
+                    o._data.cpu().double(), r._data.double()):
+            mismatches.append("np (b) %s: %s on %s, CPU %s" % (
+                name, o._data.dtype, o._data.device, r._data.dtype))
+    with mx.gpu(0):
+        a = npm.array(np.arange(6, dtype=np.float32).reshape(2, 3))
+        d = npm.zeros((2, 3), dtype="float32")
+        npm.copyto(d, a)
+        p = npm.zeros((2, 3), dtype="float32")
+        npm.put_along_axis(p, npm.array(np.array([[0], [2]]), dtype="int64"),
+                           npm.array(np.ones((2, 1), np.float32)), 1)
+        ok = (npm.ndim(a) == 2 and npm.shape(a) == (2, 3) and
+              npm.size(a) == 6 and npm.isscalar(1.0) and
+              npm.allclose(a, d) and npm.array_equal(a, d) and
+              not npm.may_share_memory(a, d) and
+              not npm.shares_memory(a, d) and
+              npm.result_type(a, d) == np.float32 and
+              float(p.sum()) == 2.0 and
+              d._data.device.type == dev.type and
+              (npm.asnumpy(a) == np.arange(6).reshape(2, 3)).all())
+        npm.set_printoptions(precision=4)
+        g = npm.genfromtxt(__import__("io").StringIO("1 2\n3 4"))
+        ok = ok and g._data.device.type == dev.type
+    if not ok:
+        mismatches.append("np (b): the utilities failed on the card")
+    names = list(calls) + ["copyto", "put_along_axis", "ndim", "shape",
+                           "size", "isscalar", "allclose", "array_equal",
+                           "may_share_memory", "shares_memory",
+                           "result_type", "asnumpy", "set_printoptions",
+                           "genfromtxt", "current_context", "dtype_np"]
+    return {"names": names, "mismatches": mismatches}
+
+
+def _np_random_functions(args, torch, mx, npm, dev):
+    """``np.random``'s functions on the card: the CPU draw's dtype and
+    shape, and a seed repeats the card's draw (the moments are (f)'s)."""
+    calls = {
+        "uniform": lambda r: r.uniform(size=(64,)),
+        "normal": lambda r: r.normal(size=(64,)),
+        "randn": lambda r: r.randn(64), "rand": lambda r: r.rand(64),
+        "randint": lambda r: r.randint(3, 9, size=(64,)),
+        "choice": lambda r: r.choice(10, size=(64,)),
+        "permutation": lambda r: r.permutation(64),
+        "gamma": lambda r: r.gamma(2.0, size=(64,)),
+        "beta": lambda r: r.beta(2.0, 3.0, size=(64,)),
+        "exponential": lambda r: r.exponential(size=(64,)),
+        "poisson": lambda r: r.poisson(3.0, size=(64,)),
+        "multinomial": lambda r: r.multinomial(10, [0.5, 0.5], size=(8,)),
+        "logistic": lambda r: r.logistic(size=(64,)),
+        "gumbel": lambda r: r.gumbel(size=(64,)),
+        "lognormal": lambda r: r.lognormal(size=(64,)),
+    }
+    mismatches = []
+    for name, call in calls.items():
+        with mx.gpu(0):
+            npm.random.seed(args.seed)
+            a = call(npm.random)
+            npm.random.seed(args.seed)
+            b = call(npm.random)
+        with mx.cpu():
+            c = call(npm.random)
+        if a._data.device.type != dev.type or a._data.dtype != \
+                c._data.dtype or a.shape != c.shape or \
+                not torch.equal(a._data, b._data):
+            mismatches.append("np (b) random.%s: %s on %s (CPU %s), seed "
+                              "repeats %s" % (name, a._data.dtype,
+                                              a._data.device, c._data.dtype,
+                                              torch.equal(a._data,
+                                                          b._data)))
+    with mx.gpu(0):
+        x = npm.arange(64)
+        before = x._data
+        npm.random.shuffle(x)
+        if x._data is before or x._data.device.type != dev.type or \
+                sorted(x.asnumpy().tolist()) != list(range(64)):
+            mismatches.append("np (b) random.shuffle is not an in-place "
+                              "permutation on the card")
+    return {"names": list(calls) + ["seed", "shuffle", "dtype_np"],
+            "mismatches": mismatches}
+
+
+def _np_npx_functions(torch, mx, npm, npx, dev, cpu_arrays, gpu_arrays):
+    """``mx.npx``'s functions on the card against the CPU (results are
+    ``mx.np`` arrays of the CPU's dtype)."""
+    import tempfile
+    img = np.random.default_rng(5).standard_normal((2, 4, 8, 8)) \
+        .astype(np.float32)
+
+    def run(a):
+        x = a["x"]
+        im = npm.array(img)
+        w = npm.array(np.full((3, 4, 3, 3), 0.1, np.float32))
+        ch = npm.array(np.ones(4, np.float32))
+        z = npm.array(np.zeros(4, np.float32))
+        return {
+            "softmax": npx.softmax(x), "log_softmax": npx.log_softmax(x),
+            "relu": npx.relu(x), "sigmoid": npx.sigmoid(x),
+            "batch_norm": npx.batch_norm(im, ch, z, z, ch),
+            "convolution": npx.convolution(im, w, None, kernel=(3, 3),
+                                           num_filter=3, no_bias=True),
+            "fully_connected": npx.fully_connected(x, a["y"], None,
+                                                   num_hidden=x.shape[0],
+                                                   no_bias=True),
+            "pooling": npx.pooling(im, kernel=(2, 2), stride=(2, 2)),
+            "one_hot": npx.one_hot(a["i"], 6),
+            "pick": npx.pick(x, a["i"][:x.shape[0]] % x.shape[1]),
+            "reshape_like": npx.reshape_like(a["t"], a["t"].T),
+            "topk": npx.topk(x, k=3),
+            "bernoulli": npx.bernoulli(prob=0.5, size=(4,)).shape,
+            "_npx_relu": npx._npx_relu(x),
+        }
+    mismatches = []
+    with mx.gpu(0):
+        own = run(gpu_arrays)
+    with mx.cpu():
+        ref = run(cpu_arrays)
+    for name, o in own.items():
+        r = ref[name]
+        if isinstance(r, tuple):
+            if o != r:
+                mismatches.append("npx.%s shape %s vs %s" % (name, o, r))
+            continue
+        if not isinstance(o, npm.ndarray) or o._data.device.type != \
+                dev.type or o._data.dtype != r._data.dtype or \
+                not torch.allclose(o._data.cpu().double(),
+                                   r._data.double(), rtol=1e-5, atol=1e-5):
+            mismatches.append("np (b) npx.%s differs from the CPU's" % name)
+    with mx.gpu(0), tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "np.params")
+        npx.save(path, {"x": gpu_arrays["x"]})
+        back = npx.load(path)["x"]
+        npx.waitall()
+        if not isinstance(back, npm.ndarray) or \
+                back._data.device.type != dev.type or \
+                not torch.equal(back._data, gpu_arrays["x"]._data):
+            mismatches.append("np (b) npx.save/load did not round-trip on "
+                              "the card")
+        npx.seed(3)
+        npx.set_np()
+        flags = npx.is_np_array() and npx.is_np_shape()
+        npx.reset_np()
+        flags = flags and not npx.is_np_array() and \
+            npx.use_np(len) is len and npx.use_np_shape(len) is len and \
+            npx.use_np_array(len) is len
+        if not flags:
+            mismatches.append("np (b) npx flags")
+    return {"names": list(own) + ["save", "load", "waitall", "seed",
+                                  "set_np", "reset_np", "is_np_array",
+                                  "is_np_shape", "use_np", "use_np_shape",
+                                  "use_np_array"],
+            "mismatches": mismatches}
+
+
+def _np_mlm(torch, mx, npm, npx, nd, autograd, dev, seed):
+    """(c) The MLM loss of BERT-base's pretraining head at full width:
+    hidden (1280, 768) = 64 x 20 masked positions, ``np.dot`` with the
+    (30522, 768) embedding's transpose, ``npx.log_softmax``, ``npx.pick``
+    of the labels and ``np.mean``, backward under ``autograd.record``;
+    held bitwise to the same expression in ``nd`` ops on the card, and to
+    the CPU within NP_MLM_TOL of each output's max."""
+    rng = np.random.default_rng(seed + 81)
+    h = rng.standard_normal((NP_MLM_ROWS, 768)).astype(np.float32)
+    emb = (0.02 * rng.standard_normal((BERT_VOCAB, 768))).astype(np.float32)
+    lab = rng.integers(0, BERT_VOCAB, NP_MLM_ROWS).astype(np.float32)
+
+    def run(mod, ctx, use_np):
+        with ctx:
+            hh, ee, ll = mod.array(h), mod.array(emb), mod.array(lab)
+            hh.attach_grad()
+            ee.attach_grad()
+            with autograd.record():
+                if use_np:
+                    logp = npx.log_softmax(npm.dot(hh, ee.T))
+                    loss = -npm.mean(npx.pick(logp, ll))
+                else:
+                    logp = nd.log_softmax(nd.dot(hh, ee, transpose_b=True))
+                    loss = -nd.mean(nd.pick(logp, ll))
+            loss.backward()
+            return [loss._data.detach(), hh.grad._data, ee.grad._data]
+    card_np = run(npm, mx.gpu(0), True)
+    card_nd = run(nd, mx.gpu(0), False)
+    bitwise = all(torch.equal(a, b) for a, b in zip(card_np, card_nd))
+    if not bitwise:
+        fail("np (c): the mx.np MLM loss or gradients differ from nd's on "
+             "the card")
+    cpu_np = run(npm, mx.cpu(), True)
+    errs = [rel_to_max(a.cpu(), b) for a, b in zip(card_np, cpu_np)]
+    if not max(errs) <= NP_MLM_TOL:
+        fail("np (c): the card's MLM loss/gradients are %s of max from the "
+             "CPU's (tolerance %g)" % (errs, NP_MLM_TOL))
+    if card_np[0].device.type != dev.type:
+        fail("np (c): the loss is not on the card")
+    return {"loss": float(card_np[0]), "np_equals_nd_bitwise": bitwise,
+            "card_vs_cpu_rel_to_max": errs}
+
+
+def _np_updates(args, torch, mx, nd, dev):
+    """(d) The update ops over BERT-base's parameters (from ``Xavier()``
+    as the ops phase's (f) builds them; seeded gradients and states):
+    ``sgd_mom_update``, ``adam_update`` and ``adamw_update`` once per
+    array; ``multi_sgd_mom_update``, ``multi_mp_sgd_mom_update`` (bf16
+    weights, fp32 masters) and ``preloaded_multi_sgd_mom_update`` in one
+    call each; ``multi_lars`` over ``multi_sum_sq``. Each is held to the
+    CPU; each pass is timed with CUDA events beside ``optimizer.Adam``
+    through ``gluon.Trainer`` on the same parameters."""
+    from mxnet_tpu_torch import gluon, initializer
+    from mxnet_tpu_torch import random as trandom
+    from mxnet_tpu_torch.gluon import collect_params
+    from mxnet_tpu_torch.models import bert_base
+    model = bert_base(vocab_size=BERT_VOCAB, max_length=BERT_SEQ,
+                      device=dev)
+    params = collect_params(model)
+    trandom.seed(args.seed)
+    params.initialize(initializer.Xavier())
+    plist = [params[k] for k in sorted(params)]
+    ws = [p.tensor() for p in plist]
+    n_values = sum(w.numel() for w in ws)
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 91)
+    gs = [torch.randn(w.shape, generator=gen, device=dev) * 1e-3
+          for w in ws]
+    ms = [torch.randn(w.shape, generator=gen, device=dev) * 1e-4
+          for w in ws]
+    vs = [torch.rand(w.shape, generator=gen, device=dev) * 1e-6
+          for w in ws]
+    W = [nd.NDArray(w.detach()) for w in ws]
+    G, M, V = ([nd.NDArray(t) for t in ts] for ts in (gs, ms, vs))
+    cpu = mx.cpu()
+    Wc, Gc, Mc, Vc = ([x.as_in_context(cpu) for x in xs]
+                      for xs in (W, G, M, V))
+    scale = nd.array(np.array(1.0, np.float32), ctx=mx.gpu(0))
+    hyper = dict(NP_ADAM)
+    mism, ms_out = [], {}
+
+    def check(what, own, ref):
+        try:
+            _np_compare(torch, "update", own, ref, what, dev)
+        except _OpsMismatch as e:
+            mism.append(str(e))
+
+    def per_array(fn, arrays, **kw):
+        return [fn(*a, **kw) for a in zip(*arrays)]
+    sgd_kw = {"lr": 0.01, "momentum": 0.9, "wd": 0.01}
+    passes = {
+        "sgd_mom_update": (nd.sgd_mom_update, (W, G, M), (Wc, Gc, Mc),
+                           sgd_kw),
+        "adam_update": (nd.adam_update, (W, G, M, V), (Wc, Gc, Mc, Vc),
+                        hyper),
+        "adamw_update": (nd.adamw_update, (W, G, M, V, [scale] * len(W)),
+                         (Wc, Gc, Mc, Vc, [scale.as_in_context(cpu)]
+                          * len(W)), {"lr": 1e-4, "wd": 0.01}),
+    }
+    for name, (fn, own_in, cpu_in, kw) in passes.items():
+        own = per_array(fn, own_in, **kw)
+        ref = per_array(fn, cpu_in, **kw)
+        for i in range(len(own)):
+            check("(d) %s[%d]" % (name, i), own[i], ref[i])
+        del own, ref
+        ms_out[name] = time_ms(torch, lambda: per_array(fn, own_in, **kw),
+                               NP_UPDATE_ITERS)
+    flat = [x for grp in zip(W, G, M) for x in grp]
+    flat_c = [x for grp in zip(Wc, Gc, Mc) for x in grp]
+    lrs = [0.01] * len(W)
+    wds = [0.01] * len(W)
+    kw = {"lrs": lrs, "wds": wds, "momentum": 0.9, "num_weights": len(W)}
+    own = nd.multi_sgd_mom_update(*flat, **kw)
+    ref = nd.multi_sgd_mom_update(*flat_c, **kw)
+    check("(d) multi_sgd_mom_update", own, ref)
+    ms_out["multi_sgd_mom_update"] = time_ms(
+        torch, lambda: nd.multi_sgd_mom_update(*flat, **kw),
+        NP_UPDATE_ITERS)
+    del own, ref
+    Wb = [nd.NDArray(w._data.bfloat16()) for w in W]
+    Gb = [nd.NDArray(g._data.bfloat16()) for g in G]
+    W32 = [nd.NDArray(w._data.clone()) for w in W]
+    flat_mp = [x for grp in zip(Wb, Gb, M, W32) for x in grp]
+    flat_mpc = [x.as_in_context(cpu) for x in flat_mp]
+    own = nd.multi_mp_sgd_mom_update(*flat_mp, **kw)
+    ref = nd.multi_mp_sgd_mom_update(*flat_mpc, **kw)
+    check("(d) multi_mp_sgd_mom_update", own, ref)
+    ms_out["multi_mp_sgd_mom_update"] = time_ms(
+        torch, lambda: nd.multi_mp_sgd_mom_update(*flat_mp, **kw),
+        NP_UPDATE_ITERS)
+    del own, ref, flat_mpc
+    lr_t = nd.array(np.full(len(W), 0.01, np.float32), ctx=mx.gpu(0))
+    wd_t = nd.array(np.full(len(W), 0.01, np.float32), ctx=mx.gpu(0))
+    pre_kw = {"num_weights": len(W)}
+    own = nd.preloaded_multi_sgd_mom_update(*flat, lr_t, wd_t, **pre_kw)
+    ref = nd.preloaded_multi_sgd_mom_update(
+        *flat_c, lr_t.as_in_context(cpu), wd_t.as_in_context(cpu), **pre_kw)
+    check("(d) preloaded_multi_sgd_mom_update", own, ref)
+    ms_out["preloaded_multi_sgd_mom_update"] = time_ms(
+        torch, lambda: nd.preloaded_multi_sgd_mom_update(
+            *flat, lr_t, wd_t, **pre_kw), NP_UPDATE_ITERS)
+    del own, ref
+    wsq = nd.stack(*nd.multi_sum_sq(*W, num_arrays=len(W)))
+    gsq = nd.stack(*nd.multi_sum_sq(*G, num_arrays=len(G)))
+    lars = nd.multi_lars(lr_t, wsq, gsq, wd_t, eta=0.001)
+    lars_c = nd.multi_lars(lr_t.as_in_context(cpu), wsq.as_in_context(cpu),
+                           gsq.as_in_context(cpu), wd_t.as_in_context(cpu),
+                           eta=0.001)
+    check("(d) multi_lars", lars, lars_c)
+    del flat, flat_c, Wc, Gc, Mc, Vc
+    # gluon.Trainer's Adam on the same parameters
+    for p, g in zip(plist, gs):
+        p.tensor().grad = g.clone()
+    tr = gluon.Trainer(params, "adam", {"learning_rate": 1e-4, "wd": 0.01})
+    tr.step(1)
+    ms_out["trainer_adam"] = time_ms(torch, lambda: tr.step(1),
+                                     NP_UPDATE_ITERS)
+    adam_bytes = 7 * 4 * n_values          # w, g, m, v read; w, m, v written
+    del model, params, plist, tr, W, G, M, V, Wb, Gb, W32
+    torch.cuda.empty_cache()
+    if mism:
+        fail("np (d): %s" % "; ".join(mism))
+    return {"arrays": len(ws), "values": n_values, "ms": ms_out,
+            "adam_bound_ms": adam_bytes / PEAK_BYTES * 1e3,
+            "adam_bytes": adam_bytes}
+
+
+def _np_preprocess(nd, x, ctx):
+    """ImageNet preprocessing: resize to NP_CROP, to_tensor, normalize."""
+    with ctx:
+        r = nd._image_resize(x, size=NP_CROP)
+        return r, nd._image_normalize(nd._image_to_tensor(r), mean=NP_MEAN,
+                                      std=NP_STD)
+
+
+def _np_images(args, torch, mx, nd, dev):
+    """(e) 32 seeded uint8 images of 256 x 256 x 3 resized, made tensors
+    and normalized on the card and on the CPU, then fed through one
+    ``resnet50_v1()`` (``Xavier()``, bf16, as the vision phase builds it)
+    on the card: logits held to the CPU-preprocessed batch's within
+    NP_LOGIT_TOL of their max; the random image ops at that shape, which a
+    seed repeats."""
+    from mxnet_tpu_torch import autograd
+    from mxnet_tpu_torch import random as trandom
+    imgs = np.random.default_rng(args.seed + 101).integers(
+        0, 256, NP_IMAGES).astype(np.uint8)
+    xg = nd.array(imgs, ctx=mx.gpu(0), dtype="uint8")
+    xc = nd.array(imgs, ctx=mx.cpu(), dtype="uint8")
+    rg, ng = _np_preprocess(nd, xg, mx.gpu(0))
+    rc, nc = _np_preprocess(nd, xc, mx.cpu())
+    if ng._data.device.type != dev.type or ng.shape != (
+            NP_IMAGES[0], 3, NP_CROP, NP_CROP):
+        fail("np (e): the preprocessed batch is %s on %s" % (
+            ng.shape, ng._data.device))
+    diff = (rg._data.cpu().int() - rc._data.int()).abs()
+    if int(diff.max()) > 1:
+        fail("np (e): the card's resize is %d levels from the CPU's"
+             % int(diff.max()))
+    pre_ms = time_ms(torch, lambda: _np_preprocess(nd, xg, mx.gpu(0)), 10)
+    net = _resnet50(torch, trandom, args.seed)
+    net.cast("bfloat16")
+    with autograd.predict_mode(), torch.no_grad():
+        lg = net(nd.NDArray(ng._data.bfloat16()))._data.float()
+        lc = net(nd.NDArray(nc._data.to(dev).bfloat16()))._data.float()
+    err = rel_to_max(lg, lc)
+    if not (err <= NP_LOGIT_TOL and bool(torch.isfinite(lg).all())):
+        fail("np (e): logits of the card-preprocessed batch %.3g of max "
+             "from the CPU-preprocessed one's (tolerance %g)"
+             % (err, NP_LOGIT_TOL))
+    rand = {}
+    for name in ("_image_random_flip_left_right",
+                 "_image_random_flip_top_bottom", "_image_random_brightness",
+                 "_image_random_contrast", "_image_random_saturation",
+                 "_image_random_hue", "_image_random_lighting",
+                 "_image_random_color_jitter"):
+        kw = NP_RANDOM_OPS[name][1]
+        outs = []
+        for _ in range(2):
+            mx.random.seed(args.seed)
+            with mx.gpu(0):
+                outs.append(getattr(nd, name)(xg, **kw)._data)
+        if outs[0].device.type != dev.type or \
+                not torch.equal(outs[0], outs[1]):
+            fail("np (e) %s: a seed does not repeat it on the card" % name)
+        rand[name] = str(outs[0].dtype).replace("torch.", "")
+    del net, xg, rg, ng, lg, lc
+    torch.cuda.empty_cache()
+    return {"preprocess_ms": pre_ms, "logits_rel_to_max": err,
+            "resize_pixels_off_by_one": int((diff > 0).sum()),
+            "resize_values": int(diff.numel()), "random_ops": rand}
+
+
+def _np_samplers(args, torch, mx, npm, dev):
+    """(f) ``np.random``'s samplers at NP_DRAWS on the card: mean and
+    variance within bounds of the theory (``tests/test_random_stats.py``'s
+    kind), and a seed repeats the draw."""
+    draws = {
+        "uniform": (lambda r: r.uniform(-2.0, 4.0, size=NP_DRAWS), 1.0, 3.0,
+                    (0.02, 0.05)),
+        "normal": (lambda r: r.normal(1.5, 2.0, size=NP_DRAWS), 1.5, 4.0,
+                   (0.02, 0.08)),
+        "randn": (lambda r: r.randn(*NP_DRAWS), 0.0, 1.0, (0.02, 0.02)),
+        "randint": (lambda r: r.randint(3, 9, size=NP_DRAWS), 5.5, 35 / 12,
+                    (0.02, 0.05)),
+        "gamma": (lambda r: r.gamma(3.0, 2.0, size=NP_DRAWS), 6.0, 12.0,
+                  (0.06, 0.4)),
+        "beta": (lambda r: r.beta(2.0, 3.0, size=NP_DRAWS), 0.4, 0.04,
+                 (0.005, 0.002)),
+        "exponential": (lambda r: r.exponential(2.5, size=NP_DRAWS), 2.5,
+                        6.25, (0.03, 0.15)),
+        "poisson": (lambda r: r.poisson(4.0, size=NP_DRAWS), 4.0, 4.0,
+                    (0.04, 0.15)),
+        "logistic": (lambda r: r.logistic(1.0, 2.0, size=NP_DRAWS), 1.0,
+                     4 * np.pi ** 2 / 3, (0.04, 0.4)),
+        "gumbel": (lambda r: r.gumbel(0.5, 1.0, size=NP_DRAWS),
+                   0.5 + np.euler_gamma, np.pi ** 2 / 6, (0.02, 0.05)),
+        "lognormal": (lambda r: r.lognormal(0.0, 0.5, size=NP_DRAWS),
+                      np.exp(0.125), (np.exp(0.25) - 1) * np.exp(0.25),
+                      (0.01, 0.02)),
+        "choice": (lambda r: r.choice(10, size=NP_DRAWS), 4.5, 8.25,
+                   (0.03, 0.1)),
+    }
+    out = {}
+    with mx.gpu(0):
+        for name, (draw, mean, var, (bm, bv)) in draws.items():
+            npm.random.seed(args.seed)
+            got = draw(npm.random)
+            if got._data.device.type != dev.type:
+                fail("np (f) %s drew on %s" % (name, got._data.device))
+            a = got._data.double()
+            m, v = a.mean().item(), a.var(unbiased=False).item()
+            if not (abs(m - mean) < bm and abs(v - var) < bv):
+                fail("np (f) %s: mean %g var %g, theory %g %g (bounds %g "
+                     "%g)" % (name, m, v, mean, var, bm, bv))
+            npm.random.seed(args.seed)
+            if not torch.equal(draw(npm.random)._data, got._data):
+                fail("np (f) %s: a seed does not repeat the draw" % name)
+            out[name] = (m, v)
+            del got, a
+    return out
+
+
+def np_phase(args, torch):
+    """The numpy frontends and the second part of the op corpus on the
+    card, parts (a)-(f) (see the module docstring)."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import autograd, nd
+    from mxnet_tpu_torch import numpy as npm
+    from mxnet_tpu_torch import numpy_extension as npx
+    t0 = time.perf_counter()
+    fa0 = kernel_launches()
+    dev, cpu = torch.device("cuda"), torch.device("cpu")
+    out, mismatches = {}, []
+    ta = time.perf_counter()
+    out["a"], mism = _np_part_a(args, torch, mx, nd, dev, cpu)
+    mismatches += mism
+    out["a"]["wall_s"] = time.perf_counter() - ta
+    tb = time.perf_counter()
+    out["b"], mism = _np_part_b(args, torch, mx, dev, cpu)
+    mismatches += mism
+    out["b"]["wall_s"] = time.perf_counter() - tb
+    torch.cuda.empty_cache()
+    if mismatches:
+        fail("np: %d cases differ from the CPU: %s"
+             % (len(mismatches), "; ".join(mismatches)))
+    out["c"] = _np_mlm(torch, mx, npm, npx, nd, autograd, dev, args.seed)
+    torch.cuda.empty_cache()
+    out["d"] = _np_updates(args, torch, mx, nd, dev)
+    out["e"] = _np_images(args, torch, mx, nd, dev)
+    out["f"] = _np_samplers(args, torch, mx, npm, dev)
+    out["launches"] = {k: v - fa0[k] for k, v in kernel_launches().items()}
+    if any(out["launches"].values()):
+        fail("np: a flash kernel launched %s" % out["launches"])
+    out["wall_s"] = time.perf_counter() - t0
+    return out
+
+
+def print_np(res, card):
+    """The np phase's lines of the output."""
+    a, b, c, d, e = res["a"], res["b"], res["c"], res["d"], res["e"]
+    print("np (a): %d new registry names through nd.<name> on gpu(0) == the "
+          "CPU (exact, or the ops phase's tolerances; updates rtol %g atol "
+          "%g, bf16 one ulp; factors by reconstruction and vectors within "
+          "%g where the gap is %g of max: %s; SPD and LQ batches of 64, "
+          "the CPU's first %d); resize uint8 %d of %d values one level "
+          "off; %.1f s"
+          % (a["names"], NP_UPDATE_TOL[0], NP_UPDATE_TOL[1], NP_VECTOR_TOL,
+             NP_GAP, a["vectors_compared"], NP_CPU_SLICE,
+             a["resize_pixels_off_by_one"], a["resize_values"],
+             a["wall_s"]), flush=True)
+    print("np (b): %d public callables of mx.np, np.linalg, np.random and "
+          "mx.npx on gpu(0), dtypes equal to the CPU's, values within rtol "
+          "%g atol %g of max (1e-4 where loose); %.1f s"
+          % (b["functions"], NP_TOL[0], NP_TOL[1], b["wall_s"]), flush=True)
+    print("np (c): BERT-base MLM loss (%d x 768 hidden, vocab %d) through "
+          "mx.np under autograd.record: loss %.5f, == nd ops bitwise, card "
+          "vs CPU %s of max (tol %g)"
+          % (NP_MLM_ROWS, BERT_VOCAB, c["loss"], ", ".join(
+              "%.2g" % v for v in c["card_vs_cpu_rel_to_max"]), NP_MLM_TOL),
+          flush=True)
+    print("np (d): update ops over BERT-base (%d arrays, %d values), held "
+          "to the CPU; ms a pass: %s; gluon.Trainer Adam %.3f ms; Adam's "
+          "bytes bound %.3f ms (%d bytes at 3.35 TB/s) [%s]"
+          % (d["arrays"], d["values"], ", ".join(
+              "%s %.3f" % kv for kv in d["ms"].items()
+              if kv[0] != "trainer_adam"), d["ms"]["trainer_adam"],
+             d["adam_bound_ms"], d["adam_bytes"], card), flush=True)
+    print("np (e): %s uint8 -> resize %d, to_tensor, normalize on gpu(0) "
+          "%.3f ms; resize %d of %d values one level off the CPU's; "
+          "resnet50_v1 bf16 logits vs the CPU-preprocessed batch %.3g of "
+          "max (tol %g); random image ops repeat under a seed %s [%s]"
+          % ("x".join(map(str, NP_IMAGES)), NP_CROP, e["preprocess_ms"],
+             e["resize_pixels_off_by_one"],
+             e["resize_values"], e["logits_rel_to_max"], NP_LOGIT_TOL,
+             e["random_ops"], card), flush=True)
+    print("np (f): np.random at %s on gpu(0), moments within bounds and "
+          "seeded: %s; flash launches %s; %.1f s"
+          % ("x".join(map(str, NP_DRAWS)), ", ".join(
+              "%s %.4g/%.4g" % (k, m, v) for k, (m, v) in res["f"].items()),
+             res["launches"], res["wall_s"]), flush=True)
+
+
 def kernel_entries(serving, v2, training, bert, surface, core, vision,
-                   data, rnn, symbol, ops, fwd_cases, bwd_cases):
+                   data, rnn, symbol, ops, np_res, fwd_cases, bwd_cases):
     """The ``{"kernels": [...]}`` entries, one per TPU kernel. The three
     ``(B, S, H, D)`` ones: numbers of the main path's training shape (B 32,
     S 512, H 12, D 64, causal) in fp32, and under ``*_bf16`` keys in bf16;
@@ -4862,9 +6422,9 @@ def kernel_entries(serving, v2, training, bert, surface, core, vision,
     at the registry op's shape (B 8, S 512, H 12, D 64, causal, key mask).
     ``core`` holds the predict, autograd and registry-op phases' launch
     counts; the backward kernels serve both layouts, so their launches are
-    split by the phase's layout. The vision, data, rnn and ops phases'
-    launches (none: no attention on those paths) are listed under their
-    names, the ops phase's ``.states`` resume on the flash path under
+    split by the phase's layout. The vision, data, rnn, ops and np
+    phases' launches (none: no attention on those paths) are listed under
+    their names, the ops phase's ``.states`` resume on the flash path under
     ``ops_resume`` (BSHD), and the symbol phase's (its attention op
     through an Executor: BHSD)."""
     def pick(cases, dtype="float32", B=TRAIN_BATCH, layout="BSHD"):
@@ -4918,7 +6478,8 @@ def kernel_entries(serving, v2, training, bert, surface, core, vision,
              "rnn": rnn["launches"]["flash_attn_fwd"],
              "symbol": symbol["launches"]["flash_attn_fwd"],
              "ops": ops["launches"]["flash_attn_fwd"],
-             "ops_resume": ops["resume_launches"]["flash_attn_fwd"]}
+             "ops_resume": ops["resume_launches"]["flash_attn_fwd"],
+             "np": np_res["launches"]["flash_attn_fwd"]}
     train_timed = "B=%d S=%d H=12 D=64 BSHD causal, float32 (*_bf16: " \
         "bfloat16)" % (TRAIN_BATCH, TRAIN_SEQ)
     reg_timed = "B=8 S=512 H=12 D=64 BHSD causal with a key mask, float32 " \
@@ -4944,7 +6505,8 @@ def kernel_entries(serving, v2, training, bert, surface, core, vision,
                           "rnn": rnn["launches"]["flash_attn_fwd_bhsd"],
                           "symbol":
                               symbol["launches"]["flash_attn_fwd_bhsd"],
-                          "ops": ops["launches"]["flash_attn_fwd_bhsd"]},
+                          "ops": ops["launches"]["flash_attn_fwd_bhsd"],
+                          "np": np_res["launches"]["flash_attn_fwd_bhsd"]},
         **timed(pick(fwd_cases, B=8, layout="BHSD"),
                 pick(fwd_cases, "bfloat16", B=8, layout="BHSD"))))
     for name, part, line, line_bhsd in (
@@ -4960,7 +6522,8 @@ def kernel_entries(serving, v2, training, bert, surface, core, vision,
               "data": data["launches"][name],
               "rnn": rnn["launches"][name],
               "symbol": 0, "ops": ops["launches"][name],
-              "ops_resume": ops["resume_launches"][name]}
+              "ops_resume": ops["resume_launches"][name],
+              "np": np_res["launches"][name]}
         for layout, ln in (("BSHD", line), ("BHSD", line_bhsd)):
             errs = [c["max_abs_err"][n] for c in bwd_cases
                     if c["layout"] == layout
@@ -4980,7 +6543,8 @@ def kernel_entries(serving, v2, training, bert, surface, core, vision,
                                            "rnn": rnn["launches"][name],
                                            "symbol":
                                                symbol["launches"][name],
-                                           "ops": ops["launches"][name]},
+                                           "ops": ops["launches"][name],
+                                           "np": np_res["launches"][name]},
                          **timed(pick(bwd_cases, B=8, layout="BHSD"),
                                  pick(bwd_cases, "bfloat16", B=8,
                                       layout="BHSD"), part))
@@ -5355,6 +6919,8 @@ def main():
     print_symbol(symbol, vision, card)
     ops = ops_phase(args, torch)
     print_ops(ops, card)
+    np_res = np_phase(args, torch)
+    print_np(np_res, card)
 
     for tag, prof in (("serving burst", serving["profile"]),
                       ("2 fp32 training steps",
@@ -5409,8 +6975,8 @@ def main():
                  ",".join("%.2g" % v for v in
                           c["max_err_rel_to_max"].values())))
     entries = kernel_entries(serving, v2, training, bert, surface, core,
-                             vision, data, rnn, symbol, ops, fwd_cases,
-                             bwd_cases)
+                             vision, data, rnn, symbol, ops, np_res,
+                             fwd_cases, bwd_cases)
     if args.out:
         with open(args.out, "w") as f:
             json.dump({"serving": serving, "serving_v2": v2,
@@ -5419,7 +6985,8 @@ def main():
                        "predict": predict, "autograd": core_ag,
                        "registry_op": registry, "vision": vision,
                        "data": data, "rnn": rnn, "symbol": symbol,
-                       "ops": ops, "kernels": entries, "card": card,
+                       "ops": ops, "np": np_res, "kernels": entries,
+                       "card": card,
                        "build_s": build_s}, f, indent=1)
     print(json.dumps({"kernels": [{k: v for k, v in e.items()
                                    if k != "cases"} for e in entries]}))

@@ -47,13 +47,18 @@ What the port carries so far:
   ``ops/tensor_extra.py`` and ``ops/random_ops.py`` whole (ordering,
   ``linalg_*``, the multi-tensor checks, every sampler and density),
   ``random``'s samplers, ``nd.random``, ``nd.linalg`` and
-  ``test_utils``.
+  ``test_utils``;
+- the numpy frontends: ``np`` (``numpy``: ``ndarray`` and the functions,
+  in the reference's dtypes; ``np.linalg``, ``np.random``) and ``npx``
+  (``numpy_extension``), over the second part of the op corpus
+  (``ops/numpy_ops.py``, the rest of ``ops/nn.py``, ``optim_ops``,
+  ``linalg_extra``, ``image_ops``).
 """
 from . import (autograd, base, callback, config, context, convert, engine,
                gluon, image, initializer, io, lr_scheduler, metric, model,
-               models, module, monitor, ndarray, ops, optimizer, parallel,
-               random, recordio, rnn, runtime, serving, symbol,
-               test_utils, visualization)
+               models, module, monitor, ndarray, numpy, numpy_extension,
+               ops, optimizer, parallel, random, recordio, rnn, runtime,
+               serving, symbol, test_utils, visualization)
 from .base import MXNetError
 from .cached_op import CachedOp
 from .context import (Context, cpu, current_context, default_device, gpu,
@@ -64,13 +69,16 @@ init = initializer
 sym = symbol
 mod = module
 viz = visualization
+np = numpy
+npx = numpy_extension
 
 __version__ = "0.3.0"
 
 __all__ = ["autograd", "base", "callback", "config", "context", "convert",
            "engine", "gluon", "image", "initializer", "init", "io",
            "lr_scheduler", "metric", "mod", "model", "models", "module",
-           "monitor", "nd", "ndarray", "ops", "optimizer", "parallel",
+           "monitor", "nd", "ndarray", "np", "npx", "numpy",
+           "numpy_extension", "ops", "optimizer", "parallel",
            "random", "recordio", "rnn", "runtime", "serving", "sym",
            "symbol", "test_utils", "visualization", "viz", "CachedOp", "Context",
            "MXNetError", "cpu", "gpu", "current_context", "default_device",

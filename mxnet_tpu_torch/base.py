@@ -36,8 +36,10 @@ _DTYPE_ALIASES = {
 _TORCH = {
     "float32": torch.float32, "float64": torch.float64,
     "float16": torch.float16, "bfloat16": torch.bfloat16,
-    "uint8": torch.uint8, "int8": torch.int8, "int16": torch.int16,
+    "uint8": torch.uint8, "uint16": torch.uint16, "uint32": torch.uint32,
+    "uint64": torch.uint64, "int8": torch.int8, "int16": torch.int16,
     "int32": torch.int32, "int64": torch.int64, "bool": torch.bool,
+    "complex64": torch.complex64, "complex128": torch.complex128,
 }
 _NAME = {v: k for k, v in _TORCH.items()}
 

@@ -539,6 +539,12 @@ class NDArray:
     def as_nd_ndarray(self):
         return self
 
+    def as_np_ndarray(self):
+        """An ``mx.np.ndarray`` over the same tensor (the autograd link
+        survives)."""
+        from ..numpy import _as_np
+        return _as_np(self)
+
     def __repr__(self):
         return "\n%s\n<NDArray %s @%s>" % (
             self.asnumpy(), "x".join(map(str, self.shape)), self.ctx)

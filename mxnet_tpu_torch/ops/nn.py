@@ -6,7 +6,11 @@ lowbias32 counter-hash mask) and ``dot_product_attention`` (the
 ``_contrib_dot_product_attention`` op) with its key-mask reduction and
 kernel dispatch, which the transformer LM and BERT call; and the vision
 ops: ``Convolution``, ``Deconvolution``, ``Pooling``, ``BatchNorm``,
-``InstanceNorm`` and ``GroupNorm``. Plain functions on tensors.
+``InstanceNorm`` and ``GroupNorm``; and the rest of the reference's file:
+``hard_sigmoid``, ``softmin``, ``SoftmaxActivation``,
+``softmax_cross_entropy``, ``L2Normalization``, ``LRN``, ``batch_take``
+(jnp's fill for an out-of-range index), ``UpSampling`` and the
+``Convolution_v1``/``Pooling_v1`` aliases. Plain functions on tensors.
 
 The vision ops are XLA's in the reference (``lax.conv_general_dilated``,
 ``lax.reduce_window``, fused elementwise chains), so they run on torch's
@@ -51,7 +55,7 @@ import torch.nn.functional as F
 from .. import config as _config
 from .. import random as _random
 from .core import _const
-from .registry import bind_key, bind_train, register
+from .registry import bind_key, bind_train, register, register_alias
 from .flash_attention import (_M32, SUPPORTED_DTYPES, SUPPORTED_HEAD_DIMS,
                               _mul32, _threshold, flash_attention,
                               flash_attention_bshd, lowbias32)
@@ -60,7 +64,9 @@ __all__ = ["FullyConnected", "gelu", "LayerNorm", "log_softmax", "Dropout",
            "dot_product_attention", "Activation", "LeakyReLU", "softmax",
            "Convolution", "Deconvolution", "Pooling", "BatchNorm",
            "InstanceNorm", "GroupNorm", "sigmoid", "softrelu",
-           "SoftmaxOutput"]
+           "SoftmaxOutput", "hard_sigmoid", "softmin", "SoftmaxActivation",
+           "softmax_cross_entropy", "L2Normalization", "LRN", "batch_take",
+           "UpSampling"]
 
 
 def FullyConnected(data, weight, bias=None, flatten=True):
@@ -766,3 +772,91 @@ register("BatchNorm", aliases=("batch_norm", "BatchNorm_v1"),
          state_binders={"train": bind_train})(BatchNorm)
 register("InstanceNorm")(InstanceNorm)
 register("GroupNorm")(GroupNorm)
+register_alias("Convolution", "Convolution_v1")
+register_alias("Pooling", "Pooling_v1")
+
+
+# ---- the rest of the reference's nn.py: small functions -------------------
+
+
+@register("hard_sigmoid")
+def hard_sigmoid(data, alpha=0.2, beta=0.5):
+    return torch.clamp(_const(alpha, data) * data + _const(beta, data),
+                       0.0, 1.0)
+
+
+@register("softmin")
+def softmin(data, axis=-1, temperature=None, dtype=None):
+    return softmax(-data, axis=axis, temperature=temperature, dtype=dtype)
+
+
+@register("SoftmaxActivation")
+def SoftmaxActivation(data, mode="instance"):
+    """Softmax over the channel axis (``mode="channel"``) or over each
+    instance's flattened values."""
+    if mode == "channel":
+        return _softmax(data, 1)
+    return _softmax(data.reshape(data.shape[0], -1), -1).reshape(data.shape)
+
+
+@register("softmax_cross_entropy")
+def softmax_cross_entropy(data, label):
+    """The summed negative log-likelihood of the labels; a label below 0
+    adds nothing (the native RecordIO reader marks a corrupt record -1)."""
+    from . import _jnp
+    logp = log_softmax(data, -1)
+    idx = _jnp.astype(label, torch.int32)
+    nll = -_jnp.take_fill(logp, idx.clamp(min=0)[:, None], -1)
+    return torch.where(idx[:, None] >= 0, nll,
+                       torch.zeros((), dtype=nll.dtype,
+                                   device=nll.device)).sum()
+
+
+@register("L2Normalization")
+def L2Normalization(data, eps=1e-10, mode="instance"):
+    if mode == "instance":
+        axes = tuple(range(1, data.dim()))
+    elif mode == "channel":
+        axes = (1,)
+    else:
+        axes = tuple(range(2, data.dim()))
+    return data / torch.sqrt(torch.square(data).sum(axes, keepdim=True)
+                             + _const(eps, data))
+
+
+@register("LRN")
+def LRN(data, alpha=1e-4, beta=0.75, knorm=2.0, nsize=5):
+    """Local response normalization across channels: the window's squares
+    summed one shifted slice at a time, as the reference sums them."""
+    sq = torch.square(data)
+    half = nsize // 2
+    padded = F.pad(sq, (0, 0, 0, 0, half, half))
+    acc = torch.zeros_like(data)
+    for i in range(nsize):
+        acc = acc + padded[:, i:i + data.shape[1]]
+    return data / torch.pow(_const(knorm, data)
+                            + _const(alpha / nsize, data) * acc,
+                            _const(beta, data))
+
+
+@register("batch_take")
+def batch_take(a, indices):
+    """``a[i, indices[i]]`` for each row; an index in ``[-n, 0)`` wraps and
+    one outside ``[-n, n)`` gives ``jnp.take``'s fill value."""
+    from . import _jnp
+    idx = _jnp.astype(indices, torch.int32).reshape(-1, 1)
+    return _jnp.take_fill(a, idx, 1).reshape(-1)
+
+
+@register("UpSampling")
+def UpSampling(*data, scale=1, sample_type="nearest", num_args=1,
+               num_filter=0, multi_input_mode="concat", workspace=None):
+    """Nearest (repeat) or bilinear (``jax.image.resize``'s weights, as
+    ``_image_resize``) upsampling of NCHW data by ``scale``."""
+    x = data[0]
+    s = int(scale)
+    if sample_type == "nearest":
+        return x.repeat_interleave(s, dim=2).repeat_interleave(s, dim=3)
+    from .image_ops import resize_linear
+    b, c, h, w = x.shape
+    return resize_linear(x, (b, c, h * s, w * s))
