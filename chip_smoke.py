@@ -393,6 +393,28 @@ Builds the package's CUDA kernels from the sources in this checkout
     at that shape, repeated by a seed. (f) ``np.random``'s samplers at
     (32, 3, 224, 224): moments within bounds, repeated by a seed. No
     flash kernel may launch.
+17. **Detection phase: the contrib, control-flow, spatial and detection
+    families (item 8 steps 1-4).** (a) Every name the slice registers
+    (``DET_NEW_NAMES``, 130) through ``nd.<name>`` on ``gpu(0)`` against
+    the CPU on the same seeded inputs, at the widths of (b) and (c) (the
+    generation ops at ``transformer_lm_base``'s logits and arena, the
+    interleaved matmuls at BERT-base's): exact families bitwise, float ops
+    within ``DET_TOL`` of max. ``box_nms`` and the RPN's NMS on the same
+    rows bitwise; rows kept on one side only by ``MultiBoxDetection`` or
+    ``Proposal`` (a decoded box an ``exp`` ulp apart) are counted. The
+    control-flow trio, and ``nd.contrib.foreach`` over an LSTM cell at the
+    LSTM LM's width (b128, 35 steps, 1500 hidden) forward and backward,
+    its first rows against the CPU. (b) SSD300 on VOC at b32: anchors
+    from ``MultiBoxPrior`` over the six maps of MXNet 1.6's
+    VGG16-reduced 300 network (8732), ``MultiBoxTarget`` with up to 20
+    boxes an image and negative mining ratio 3, the softmax CE plus
+    ``smooth_l1`` loss over (32, 21, 8732) / (32, 34928) predictions and
+    its gradient, ``MultiBoxDetection`` (NMS 0.45, top 400), each timed
+    with the peak memory. (c) Faster R-CNN C4 at 600x1000 (a 38x63 map):
+    ``Proposal`` at its defaults, ``ROIAlign`` of its 300 rois over 1024
+    channels (14x14, forward and backward), R-FCN's ``PSROIPooling`` (21 x
+    7 x 7) and a 3x3 ``DeformableConvolution`` (dilation 2, 512
+    channels), each timed. No flash kernel may launch.
 
 The predict phase's bf16 pass (8.) holds the kernel path to the plain
 path by ``PREDICT_BF16_FACTOR``, each path's distance from the fp32 path:
@@ -410,13 +432,15 @@ phase) and one fp32 ``Module`` step (symbol phase) are run, under
 share, its kernel count and its top kernels.
 
 Prints the serving, serving v2, training, BERT, surface, predict,
-autograd, registry-op, vision, data, rnn, symbol, ops and np numbers, one
+autograd, registry-op, vision, data, rnn, symbol, ops, np and detection
+numbers, one
 ``{"kernels": [...]}`` line with an
 entry per TPU kernel (the three (B, S, H, D) ones with the numbers of the
 training shape in fp32, under ``*_bf16`` keys in bf16, and under ``bert``
 those of the BERT shape; the three (B, H, S, D) ones with the numbers of
 the registry op's shape; every kernel's launches also under ``vision``,
-``data``, ``rnn``, ``ops`` and ``np``, where none runs, and ``symbol``),
+``data``, ``rnn``, ``ops``, ``np`` and ``detection``, where none runs,
+and ``symbol``),
 the
 card's name
 and power limit,
@@ -6412,8 +6436,773 @@ def print_np(res, card):
              res["launches"], res["wall_s"]), flush=True)
 
 
+
+# ---- the detection phase: item 8 steps 1-4 on the card ---------------------
+# (b) SSD300 (MXNet 1.6's example/ssd, VGG16-reduced 300 on VOC): the six
+# maps, their sizes, ratios and steps (symbol/symbol_factory.py), 4, 6, 6,
+# 6, 4, 4 anchors a position: 8732; up to 20 ground-truth boxes an image
+DET_SSD_MAPS = (38, 19, 10, 5, 3, 1)
+DET_SSD_SIZES = ((0.1, 0.141), (0.2, 0.272), (0.37, 0.447), (0.54, 0.619),
+                 (0.71, 0.79), (0.88, 0.961))
+DET_SSD_RATIOS = ((1, 2, 0.5), (1, 2, 0.5, 3, 1.0 / 3),
+                  (1, 2, 0.5, 3, 1.0 / 3), (1, 2, 0.5, 3, 1.0 / 3),
+                  (1, 2, 0.5), (1, 2, 0.5))
+DET_SSD_STEPS = tuple(x / 300.0 for x in (8, 16, 32, 64, 100, 300))
+DET_BATCH, DET_CLASSES, DET_GT, DET_ANCHORS = 32, 21, 20, 8732
+DET_NMS, DET_TOPK, DET_NEG_RATIO = 0.45, 400, 3.0
+# (c) Faster R-CNN C4 at 600x1000: stride 16, a 38x63 map; Proposal at the
+# op's defaults (12 anchors, pre-NMS 6000, post-NMS 300, threshold 0.7);
+# ROIAlign 14x14 over 1024 channels; R-FCN's PSROIPooling (21 x 7 x 7 =
+# 1029 channels); one 3x3 DeformableConvolution, dilation 2, 512 channels
+DET_IMAGE, DET_STRIDE, DET_MAP = (600, 1000), 16, (38, 63)
+DET_C4, DET_POOL, DET_PS, DET_DCN = 1024, 14, (21, 7), 512
+# (a) the control flow: foreach over an LSTM cell at the LSTM LM's width;
+# the CPU recomputes the first DET_CPU_ROWS rows (rows are independent)
+DET_LSTM = (35, 128, 1500)
+DET_CPU_ROWS = 8
+DET_TOL = 1e-5             # float ops: of the output's largest |value|
+DET_CALLS = 10             # calls timed a side
+DET_NEW_NAMES = """
+AdaptiveAvgPooling2D BilinearResize2D BilinearSampler CTCLoss CTCLoss_op
+Correlation Crop DeformableConvolution DeformablePSROIPooling GridGenerator
+IdentityAttachKLSparseReg ModulatedDeformableConvolution MultiBoxDetection
+MultiBoxPrior MultiBoxTarget MultiProposal PSROIPooling Proposal ROIAlign
+ROIPooling RROIAlign SVMOutput SpatialTransformer SyncBatchNorm _cond
+_contrib_AdaptiveAvgPooling2D _contrib_BilinearResize2D _contrib_CTCLoss
+_contrib_DeformableConvolution _contrib_DeformablePSROIPooling
+_contrib_ModulatedDeformableConvolution _contrib_MultiBoxDetection
+_contrib_MultiBoxPrior _contrib_MultiBoxTarget _contrib_MultiProposal
+_contrib_PSROIPooling _contrib_Proposal _contrib_ROIAlign _contrib_RROIAlign
+_contrib_SyncBatchNorm _contrib_allclose _contrib_arange_like
+_contrib_arena_slice _contrib_arena_update _contrib_bipartite_matching
+_contrib_boolean_mask _contrib_box_decode _contrib_box_encode
+_contrib_box_iou _contrib_box_nms _contrib_box_non_maximum_suppression
+_contrib_count_sketch _contrib_ctc_loss _contrib_div_sqrt_dim _contrib_fft
+_contrib_generation_sample _contrib_gradientmultiplier
+_contrib_group_adagrad_update _contrib_hawkesll _contrib_ifft
+_contrib_index_array _contrib_index_copy
+_contrib_interleaved_matmul_encdec_qk
+_contrib_interleaved_matmul_encdec_valatt
+_contrib_interleaved_matmul_selfatt_qk
+_contrib_interleaved_matmul_selfatt_valatt _contrib_kv_cache_update
+_contrib_moe_ffn _contrib_mrcnn_mask_target _contrib_quadratic
+_contrib_round_ste _contrib_sample_greedy _contrib_sample_temperature
+_contrib_sample_top_k _contrib_sign_ste _ctc_loss _foreach _npi_boolean_mask
+_npx_multibox_detection _npx_multibox_prior _npx_multibox_target
+_npx_roi_pooling _npx_smooth_l1 _scatter_elemwise_div _scatter_minus_scalar
+_scatter_plus_scalar _while_loop adaptive_avg_pool2d allclose arena_slice
+arena_update bilinear_resize_2d bilinear_sampler bipartite_matching
+boolean_mask box_decode box_encode box_iou box_nms correlation count_sketch
+crop_v1 ctc_loss fft generation_sample gradientmultiplier grid_generator
+group_adagrad_update hawkesll ifft index_array index_copy
+interleaved_matmul_encdec_qk interleaved_matmul_encdec_valatt
+interleaved_matmul_selfatt_qk interleaved_matmul_selfatt_valatt
+kv_cache_update moe_ffn mrcnn_mask_target multibox_prior quadratic roi_align
+round_ste sample_greedy sample_temperature sample_top_k sign_ste smooth_l1
+spatial_transformer svm_output
+""".split()
+
+
+def _det_softmax(z, axis):
+    e = np.exp(z - z.max(axis, keepdims=True))
+    return (e / e.sum(axis, keepdims=True)).astype(np.float32)
+
+
+def _det_gt(rng, n_img):
+    """Up to DET_GT ground-truth rows ``[cls, x1, y1, x2, y2]`` an image
+    (the rest -1), classes 0..19, boxes in the unit square."""
+    lab = np.full((n_img, DET_GT, 5), -1.0, np.float32)
+    for b in range(n_img):
+        k = int(rng.integers(1, DET_GT + 1))
+        c = rng.uniform(0.1, 0.9, (k, 2))
+        wh = rng.uniform(0.05, 0.5, (k, 2))
+        lab[b, :k, 0] = rng.integers(0, DET_CLASSES - 1, k)
+        lab[b, :k, 1:3] = np.clip(c - wh / 2, 0, 1)
+        lab[b, :k, 3:5] = np.clip(c + wh / 2, 0, 1)
+    return lab
+
+
+def _det_arrays(seed):
+    """The phase's inputs (numpy, from ``seed``), at the widths of (b) and
+    (c); the rois and anchors come from the card's own ops (see
+    :func:`_det_derived`)."""
+    rng = np.random.default_rng(seed + 16)
+
+    def f(*shape, scale=1.0):
+        return (scale * rng.standard_normal(shape)).astype(np.float32)
+
+    H, W = DET_MAP
+    a = {"cls_preds": f(DET_BATCH, DET_CLASSES, DET_ANCHORS),
+         "loc_preds": f(DET_BATCH, DET_ANCHORS * 4, scale=0.5),
+         "labels": _det_gt(rng, DET_BATCH),
+         "rpn_prob": rng.uniform(0, 1, (1, 24, H, W)).astype(np.float32),
+         "rpn_deltas": f(1, 48, H, W, scale=0.2),
+         "im_info": np.array([[DET_IMAGE[0], DET_IMAGE[1], 1.0]],
+                             np.float32),
+         "c4": f(1, DET_C4, H, W),
+         "ps": f(1, DET_PS[0] * DET_PS[1] ** 2, H, W),
+         "dcn": f(1, DET_DCN, H, W),
+         "dcn_off": f(1, 18, H, W),
+         "dcn_w": f(DET_DCN, DET_DCN, 3, 3, scale=0.02),
+         "dcn_b": f(DET_DCN, scale=0.1),
+         "mdcn_mask": rng.uniform(0, 1, (1, 9, H, W)).astype(np.float32),
+         "ps_trans": f(300, 2, DET_PS[1], DET_PS[1], scale=0.1),
+         "masks": (rng.uniform(0, 1, (1, DET_GT, 150, 250)) > 0.5).astype(
+             np.float32),
+         "matches": rng.integers(0, DET_GT, (1, 300)).astype(np.float32),
+         "mask_cls": rng.integers(0, DET_CLASSES, (1, 300)).astype(
+             np.float32),
+         "images": f(DET_BATCH, 3, 300, 300),
+         "theta": (np.tile(np.array([1, 0, 0, 0, 1, 0], np.float32),
+                           (DET_BATCH, 1)) + f(DET_BATCH, 6, scale=0.1)),
+         "flow": f(DET_BATCH, 2, 38, 38, scale=2.0),
+         "corr": f(2, 1, 256, H, W),
+         "signal": f(DET_BATCH, 1024),
+         "sketch_h": rng.integers(0, 256, 1024).astype(np.float32),
+         "sketch_s": np.sign(f(1024)).astype(np.float32),
+         "bn": f(DET_BATCH, 256, 38, 38, scale=2.0),
+         "bn_params": f(4, 256),
+         "logits": f(DET_BATCH, 32000),
+         "arena": f(2, 8, 128, 12, 64),
+         "block": f(2, 1, 16, 12, 64),
+         "qkv": f(128, DET_BATCH, 3 * 768),
+         "att": _det_softmax(f(DET_BATCH * 12, 128, 128), -1),
+         "ctc": f(35, DET_BATCH, DET_CLASSES),
+         "ctc_labels": rng.integers(0, DET_CLASSES - 1, (DET_BATCH, 10))
+         .astype(np.float32),
+         "hawkes_lags": rng.uniform(0.1, 1.0, (DET_BATCH, 35)).astype(
+             np.float32),
+         "hawkes_marks": rng.integers(0, 4, (DET_BATCH, 35)).astype(
+             np.float32),
+         "moe": f(2, 128, 768),
+         "moe_gate": f(768, 4, scale=0.05),
+         "moe_w1": f(4, 768, 3072, scale=0.02),
+         "moe_w2": f(4, 3072, 768, scale=0.02),
+         "lstm_x": f(*DET_LSTM),
+         "lstm_wi": f(4 * DET_LSTM[2], DET_LSTM[2], scale=0.02),
+         "lstm_wh": f(4 * DET_LSTM[2], DET_LSTM[2], scale=0.02),
+         "lstm_b": f(4 * DET_LSTM[2], scale=0.02)}
+    a["cls_prob"] = _det_softmax(a["cls_preds"], 1)
+    a["svm_labels"] = rng.integers(0, DET_CLASSES, DET_BATCH * 64).astype(
+        np.float32)
+    return a
+
+
+def _det_anchors(nd, dev):
+    """SSD300's anchors: MultiBoxPrior over the six maps, concatenated."""
+    parts = []
+    for s, sizes, ratios, step in zip(DET_SSD_MAPS, DET_SSD_SIZES,
+                                      DET_SSD_RATIOS, DET_SSD_STEPS):
+        feat = nd.NDArray(_det_zeros(dev, (1, 1, s, s)))
+        parts.append(nd.MultiBoxPrior(feat, sizes=sizes, ratios=ratios,
+                                      steps=(step, step)))
+    return nd.concat(*parts, dim=1)
+
+
+def _det_zeros(dev, shape):
+    import torch
+    return torch.zeros(shape, device=dev)
+
+
+def _det_cases(a):
+    """``{canonical op: (args, kwargs, family)}``; an ``args`` entry is a
+    key of the arrays (``"@key"``) or a Python value. Families: ``exact``
+    (bitwise, NaN as NaN), ``float`` (DET_TOL of max), ``draw`` (a
+    sampler: dtype, shape and range), ``mbt`` (float, the class targets
+    exact), ``nms`` (rows kept on both sides within DET_TOL; rows kept on
+    one side only are counted: the decode differs by an ulp, see
+    :func:`_det_nms_explained`)."""
+    s16 = 1.0 / DET_STRIDE
+    ssd = {"sizes": DET_SSD_SIZES[0], "ratios": DET_SSD_RATIOS[0],
+           "steps": (DET_SSD_STEPS[0],) * 2}
+    return {
+        "_contrib_sample_greedy": (["@logits"], {}, "exact"),
+        "_contrib_sample_temperature": (["@logits", (3, 5)],
+                                        {"temperature": 0.8}, "draw"),
+        "_contrib_sample_top_k": (["@logits", (3, 5)], {"k": 1}, "exact"),
+        "_contrib_generation_sample": (["@logits", (3, 5), "@zeros32"],
+                                       {"k": 40}, "exact"),
+        "_contrib_kv_cache_update": (["@arena0", "@block0", "@positions"],
+                                     {}, "exact"),
+        "_contrib_arena_slice": (["@arena", 40], {"size": 16, "axis": 2},
+                                 "exact"),
+        "_contrib_arena_update": (["@arena", "@block", 40], {"axis": 2},
+                                  "exact"),
+        "_ctc_loss": (["@ctc", "@ctc_labels"], {}, "float"),
+        "_contrib_interleaved_matmul_selfatt_qk": (["@qkv"], {"heads": 12},
+                                                   "float"),
+        "_contrib_interleaved_matmul_selfatt_valatt": (
+            ["@qkv", "@att"], {"heads": 12}, "float"),
+        "_contrib_interleaved_matmul_encdec_qk": (
+            ["@q", "@kv"], {"heads": 12}, "float"),
+        "_contrib_interleaved_matmul_encdec_valatt": (
+            ["@kv", "@att"], {"heads": 12}, "float"),
+        "_contrib_arange_like": (["@cls_preds"], {"start": 1.0, "step": 0.5,
+                                                  "axis": 2}, "exact"),
+        "_contrib_div_sqrt_dim": (["@qkv"], {}, "float"),
+        "smooth_l1": (["@loc_preds"], {"scalar": 1.0}, "float"),
+        "_contrib_quadratic": (["@loc_preds"], {"a": 0.5, "b": -1.0,
+                                                "c": 0.25}, "float"),
+        "_contrib_index_copy": (["@c4_rows", "@row_index", "@c4_new"], {},
+                                "exact"),
+        "_contrib_index_array": (["@cls_preds"], {"axes": (0, 2)}, "exact"),
+        "_contrib_group_adagrad_update": (["@dcn_w2", "@dcn_g2", "@hist"],
+                                          {"lr": 0.01, "clip_gradient": 1.0},
+                                          "float"),
+        "_contrib_hawkesll": (["@hawkes_lda", "@hawkes_alpha",
+                               "@hawkes_beta", "@hawkes_state",
+                               "@hawkes_lags", "@hawkes_marks",
+                               "@hawkes_valid", "@hawkes_time"], {},
+                              "float"),
+        "_contrib_moe_ffn": (["@moe", "@moe_gate", "@moe_w1", "@moe_w2"],
+                             {}, "float"),
+        "_contrib_round_ste": (["@loc_preds"], {}, "exact"),
+        "_contrib_sign_ste": (["@loc_preds"], {}, "exact"),
+        "_contrib_gradientmultiplier": (["@loc_preds"], {"scalar": -0.1},
+                                        "exact"),
+        "_scatter_plus_scalar": (["@loc_preds"], {"scalar": 0.5}, "exact"),
+        "_scatter_minus_scalar": (["@loc_preds"], {"scalar": 0.5}, "exact"),
+        "_scatter_elemwise_div": (["@loc_preds", "@loc_pos"], {}, "exact"),
+        "ROIPooling": (["@c4", "@rois32"], {"pooled_size": (7, 7),
+                                          "spatial_scale": s16}, "exact"),
+        "IdentityAttachKLSparseReg": (["@c4"], {}, "exact"),
+        "GridGenerator": (["@theta"], {"transform_type": "affine",
+                                       "target_shape": (300, 300)}, "float"),
+        "GridGenerator/warp": (["@flow"], {"transform_type": "warp"},
+                               "float"),
+        "BilinearSampler": (["@images", "@grid"], {}, "float"),
+        "SpatialTransformer": (["@images", "@theta"],
+                               {"target_shape": (300, 300)}, "float"),
+        "Crop": (["@c4", "@crop_like"], {"offset": (2, 5)}, "exact"),
+        "SVMOutput": (["@svm_scores", "@svm_labels"], {}, "exact"),
+        "Correlation": (["@corr1", "@corr2"], {"max_displacement": 4,
+                                               "pad_size": 4}, "float"),
+        "_contrib_fft": (["@signal"], {}, "float"),
+        "_contrib_ifft": (["@spectrum"], {}, "float"),
+        "_contrib_count_sketch": (["@signal", "@sketch_h", "@sketch_s"],
+                                  {"out_dim": 256}, "float"),
+        "_contrib_SyncBatchNorm": (["@bn", "@bn_g", "@bn_b", "@bn_m",
+                                    "@bn_v"], {"fix_gamma": False,
+                                               "output_mean_var": True},
+                                   "float"),
+        "_contrib_box_iou": (["@anchors2d", "@gt2d"], {}, "exact"),
+        "_contrib_box_nms": (["@det"], {"overlap_thresh": DET_NMS,
+                                        "valid_thresh": 0.01,
+                                        "topk": DET_TOPK, "id_index": 0,
+                                        "background_id": -1}, "exact"),
+        "_contrib_bipartite_matching": (["@gt_iou"], {"threshold": 0.5},
+                                        "exact"),
+        "_contrib_box_encode": (["@samples", "@matches_enc", "@anchors_b",
+                                 "@refs"], {}, "float"),
+        "_contrib_box_decode": (["@loc_b", "@anchors_b"], {}, "float"),
+        "_contrib_MultiBoxPrior": (["@map38"], ssd, "exact"),
+        "_contrib_ROIAlign": (["@c4", "@rois"],
+                              {"pooled_size": (DET_POOL, DET_POOL),
+                               "spatial_scale": s16, "sample_ratio": 2},
+                              "float"),
+        "_contrib_BilinearResize2D": (["@c4"], {"height": 76, "width": 126},
+                                      "float"),
+        "_contrib_AdaptiveAvgPooling2D": (["@c4"], {"output_size": (7, 7)},
+                                          "float"),
+        "_contrib_boolean_mask": (["@c4_rows", "@row_mask"], {}, "exact"),
+        "_contrib_allclose": (["@loc_preds", "@loc_preds"], {}, "exact"),
+        "_contrib_MultiBoxTarget": (["@anchors", "@labels", "@cls_preds"],
+                                    {"negative_mining_ratio": DET_NEG_RATIO,
+                                     "negative_mining_thresh": 0.5}, "mbt"),
+        "_contrib_MultiBoxDetection": (["@cls_prob", "@loc_preds",
+                                        "@anchors"],
+                                       {"nms_threshold": DET_NMS,
+                                        "nms_topk": DET_TOPK}, "nms"),
+        "_contrib_Proposal": (["@rpn_prob", "@rpn_deltas", "@im_info"],
+                              {"output_score": True}, "nms"),
+        "_contrib_MultiProposal": (["@rpn_prob", "@rpn_deltas", "@im_info"],
+                                   {}, "nms"),
+        "_contrib_PSROIPooling": (["@ps", "@rois"],
+                                  {"spatial_scale": s16,
+                                   "output_dim": DET_PS[0],
+                                   "pooled_size": DET_PS[1]}, "float"),
+        "_contrib_RROIAlign": (["@c4", "@rrois"],
+                               {"pooled_size": (7, 7), "spatial_scale": s16},
+                               "float"),
+        "_contrib_DeformablePSROIPooling": (
+            ["@ps", "@rois", "@ps_trans"],
+            {"spatial_scale": s16, "output_dim": DET_PS[0],
+             "group_size": DET_PS[1], "pooled_size": DET_PS[1],
+             "trans_std": 0.1}, "float"),
+        "_contrib_DeformableConvolution": (
+            ["@dcn", "@dcn_off", "@dcn_w", "@dcn_b"],
+            {"kernel": (3, 3), "pad": (2, 2), "dilate": (2, 2),
+             "num_filter": DET_DCN}, "float"),
+        "_contrib_ModulatedDeformableConvolution": (
+            ["@dcn", "@dcn_off", "@mdcn_mask", "@dcn_w", "@dcn_b"],
+            {"kernel": (3, 3), "pad": (2, 2), "dilate": (2, 2),
+             "num_filter": DET_DCN}, "float"),
+        "_contrib_mrcnn_mask_target": (
+            ["@mask_rois", "@masks", "@matches", "@mask_cls"],
+            {"num_classes": DET_CLASSES, "mask_size": (14, 14)}, "float"),
+    }
+
+
+def _det_derived(torch, nd, a, dev):
+    """The arrays that come from the card's own ops (copied to the host,
+    so both sides get the same bits): SSD's anchors, the decoded SSD rows,
+    the proposals' rois; and the small derived inputs of the cases."""
+    from mxnet_tpu_torch.ops import proposal_ops
+    anchors = _det_anchors(nd, dev)
+    d = dict(a)
+    d["anchors"] = anchors.asnumpy()
+    if d["anchors"].shape != (1, DET_ANCHORS, 4):
+        fail("detection: SSD300's anchors are %s, not (1, %d, 4)"
+             % (d["anchors"].shape, DET_ANCHORS))
+    d["det"] = proposal_ops.multibox_decode(
+        torch.from_numpy(a["cls_prob"]).to(dev),
+        torch.from_numpy(a["loc_preds"]).to(dev),
+        anchors._data).cpu().numpy()
+    rois = nd.Proposal(nd.NDArray(torch.from_numpy(a["rpn_prob"]).to(dev)),
+                       nd.NDArray(torch.from_numpy(a["rpn_deltas"]).to(dev)),
+                       nd.NDArray(torch.from_numpy(a["im_info"]).to(dev)))
+    d["rois"] = rois[0].asnumpy() if isinstance(rois, (list, tuple)) \
+        else rois.asnumpy()
+    r = d["rois"]
+    d["rrois"] = np.concatenate(
+        [r[:, :1], (r[:, 1:3] + r[:, 3:5]) / 2, r[:, 3:5] - r[:, 1:3] + 1,
+         np.linspace(-90, 90, r.shape[0], dtype=np.float32)[:, None]], 1)
+    d["rois32"] = r[:32].copy()
+    d["mask_rois"] = (r[None, :, 1:] / 4.0).astype(np.float32)
+    d["zeros32"] = np.zeros(DET_BATCH, np.float32)
+    d["arena0"] = a["arena"][0].reshape(8, 128, 12, 64)
+    d["block0"] = a["block"][0].reshape(1, 16, 12, 64).repeat(8, 0)
+    d["positions"] = np.arange(8, dtype=np.int32) * 13
+    d["q"] = a["qkv"][:, :, :768].copy()
+    d["kv"] = a["qkv"][:, :, 768:].copy()
+    d["loc_pos"] = np.abs(a["loc_preds"]) + 0.5
+    d["c4_rows"] = a["c4"].reshape(DET_C4, -1)
+    d["row_index"] = np.arange(0, DET_C4, 7, dtype=np.float32)[::-1].copy()
+    d["c4_new"] = a["c4"].reshape(DET_C4, -1)[:len(d["row_index"])] * 2
+    d["row_mask"] = (np.arange(DET_C4) % 3 == 0).astype(np.float32)
+    d["dcn_w2"] = a["dcn_w"].reshape(DET_DCN, -1)
+    d["dcn_g2"] = a["dcn_w"].reshape(DET_DCN, -1)[::-1].copy()
+    d["hist"] = np.abs(a["dcn_b"]).reshape(DET_DCN, 1)
+    n = DET_BATCH
+    d["hawkes_lda"] = np.abs(a["bn_params"][0, :4 * n]).reshape(n, 4) + 0.1
+    d["hawkes_alpha"] = np.full(4, 0.3, np.float32)
+    d["hawkes_beta"] = np.full(4, 1.5, np.float32)
+    d["hawkes_state"] = np.abs(a["bn_params"][1, :4 * n]).reshape(n, 4)
+    d["hawkes_valid"] = np.full(n, 30, np.float32)
+    d["hawkes_time"] = a["hawkes_lags"].sum(1) + 1.0
+    d["map38"] = np.zeros((1, 1, 38, 38), np.float32)
+    d["crop_like"] = np.zeros((1, 1, 30, 50), np.float32)
+    d["svm_scores"] = a["cls_preds"][:, :, :64].transpose(0, 2, 1).reshape(
+        -1, DET_CLASSES).copy()
+    d["grid"] = np.clip(a["flow"][:, :, :30, :30].repeat(10, 2).repeat(
+        10, 3) / 4.0, -1.2, 1.2)
+    d["corr1"], d["corr2"] = a["corr"][0], a["corr"][1]
+    spec = np.fft.fft(a["signal"].astype(np.float64), axis=-1)
+    d["spectrum"] = np.stack([spec.real, spec.imag], -1).reshape(
+        DET_BATCH, -1).astype(np.float32)
+    d["bn_g"], d["bn_b"] = a["bn_params"][0], a["bn_params"][1]
+    d["bn_m"], d["bn_v"] = a["bn_params"][2], np.abs(a["bn_params"][3]) + 0.5
+    d["anchors2d"] = d["anchors"][0]
+    d["gt2d"] = a["labels"][0, :, 1:]
+    gt = torch.from_numpy(a["labels"][:, :, 1:])
+    from mxnet_tpu_torch.ops import detection_ops
+    d["gt_iou"] = detection_ops.iou_corner(
+        gt, torch.from_numpy(d["anchors"]).expand(DET_BATCH, -1, -1)).numpy()
+    d["samples"] = np.sign(a["loc_preds"][:, :DET_ANCHORS]).astype(np.float32)
+    d["matches_enc"] = np.abs(a["loc_preds"][:, DET_ANCHORS:2 * DET_ANCHORS]
+                              * 7).astype(np.int64).clip(0, DET_GT - 1) \
+        .astype(np.float32)
+    d["anchors_b"] = np.repeat(d["anchors"], DET_BATCH, 0)
+    d["refs"] = a["labels"][:, :, 1:].copy()
+    d["loc_b"] = a["loc_preds"].reshape(DET_BATCH, DET_ANCHORS, 4)
+    return d
+
+
+def _det_value(torch, d, v, dev):
+    """A case argument on ``dev``: an NDArray for ``"@key"``, a key tuple
+    as a uint32 NDArray, else the value."""
+    from mxnet_tpu_torch import nd
+    if isinstance(v, str) and v.startswith("@"):
+        return nd.NDArray(torch.from_numpy(
+            np.ascontiguousarray(d[v[1:]])).to(dev))
+    if isinstance(v, tuple):
+        return nd.NDArray(torch.tensor(v, dtype=torch.int64).to(dev))
+    return v
+
+
+def _det_compare(torch, family, own, ref, what, dev):
+    """(a)'s card outputs against the CPU's (see :func:`_det_cases`);
+    raises :class:`_OpsMismatch`; returns the rows an ``nms`` family kept
+    on one side only."""
+    own = own if isinstance(own, (list, tuple)) else [own]
+    ref = ref if isinstance(ref, (list, tuple)) else [ref]
+    if len(own) != len(ref):
+        raise _OpsMismatch("detection %s: %d outputs on the card, %d on "
+                           "the CPU" % (what, len(own), len(ref)))
+    odd = 0
+    for i, (o, r) in enumerate(zip(own, ref)):
+        o, r = o._data, r._data
+        if o.device.type != dev.type or o.dtype != r.dtype or \
+                o.shape != r.shape:
+            raise _OpsMismatch("detection %s: output %d is %s %s on %s, %s "
+                               "%s on the CPU" % (what, i, o.dtype,
+                                                  tuple(o.shape), o.device,
+                                                  r.dtype, tuple(r.shape)))
+        o = o.cpu()
+        fam = family
+        if family == "mbt":
+            fam = "exact" if i == 2 else "float"
+        if fam == "draw":
+            if int(o.min()) < 0 or int(o.max()) >= 32000:
+                raise _OpsMismatch("detection %s: tokens out of range"
+                                   % what)
+            continue
+        if fam == "exact":
+            same = torch.equal(o, r) if not o.is_floating_point() else \
+                bool(((o == r) & (torch.signbit(o) == torch.signbit(r))
+                      | (torch.isnan(o) & torch.isnan(r))).all())
+            if not same:
+                raise _OpsMismatch("detection %s: output %d differs from "
+                                   "the CPU's (exact)" % (what, i))
+            continue
+        of, rf = o.double(), r.double()
+        if fam == "nms":
+            if i == 0:     # kept rows: not all -1 (rois: a nonzero box)
+                rows_o = ~(of == -1).all(-1) if of.shape[-1] == 6 else \
+                    ~(of[..., 1:] == 0).all(-1)
+                rows_r = ~(rf == -1).all(-1) if rf.shape[-1] == 6 else \
+                    ~(rf[..., 1:] == 0).all(-1)
+                odd = int((rows_o ^ rows_r).sum())
+            if odd:        # rows moved: the NMS check covers this output
+                continue
+            if i == 0:
+                of, rf = of[rows_o], rf[rows_r]
+        if of.numel() == 0:
+            continue
+        scale = max(rf.abs().max().item(), 1e-30)
+        err = (of - rf).abs().max().item()
+        if not err <= DET_TOL * scale:
+            raise _OpsMismatch("detection %s: output %d is %.3g of its max "
+                               "from the CPU's (tol %g)"
+                               % (what, i, err / scale, DET_TOL))
+    return odd
+
+
+def _det_nms_explained(torch, d, dev, cpu):
+    """The NMS family's exactness, apart from its decode: the card's
+    decoded SSD rows within DET_TOL of the CPU's, and ``box_nms`` on the
+    card bitwise to the CPU's on the same (the card's) rows; the same for
+    the RPN's candidates and ``proposal_select``. Returns the rows each
+    full op keeps on one side only (an ulp of ``exp`` moves a decoded box;
+    this check shows the NMS itself agrees)."""
+    from mxnet_tpu_torch.ops import detection_ops, proposal_ops
+    out = {}
+    det_card = torch.from_numpy(d["det"]).to(dev)
+    det_cpu = proposal_ops.multibox_decode(
+        torch.from_numpy(d["cls_prob"]), torch.from_numpy(d["loc_preds"]),
+        torch.from_numpy(d["anchors"]))
+    err = (det_card.cpu().double() - det_cpu.double()).abs().max().item()
+    if not err <= DET_TOL:
+        fail("detection: SSD decode %.3g from the CPU's" % err)
+    kw = dict(overlap_thresh=DET_NMS, valid_thresh=0.01, topk=DET_TOPK,
+              coord_start=2, score_index=1, id_index=0, background_id=-1)
+    on_card = detection_ops.box_nms.fn(det_card, **kw).cpu()
+    on_cpu = detection_ops.box_nms.fn(det_card.cpu(), **kw)
+    if not torch.equal(on_card, on_cpu):
+        fail("detection: box_nms of the same rows differs on the card")
+    out["ssd_decode_err"] = err
+    base = proposal_ops.base_anchors(DET_STRIDE, (0.5, 1, 2),
+                                     (4, 8, 16, 32), torch.float32, dev)
+    args = (torch.from_numpy(d["rpn_prob"][0, 12:]).to(dev),
+            torch.from_numpy(d["rpn_deltas"][0]).to(dev),
+            torch.from_numpy(d["im_info"][0]).to(dev), base,
+            float(DET_STRIDE), 6000, 16.0)
+    cand = proposal_ops.proposal_candidates(*args)
+    cand_cpu = proposal_ops.proposal_candidates(
+        *[t.cpu() if isinstance(t, torch.Tensor) else t for t in args])
+    err = (cand.cpu().double() - cand_cpu.double()).abs().max().item()
+    scale = cand_cpu.double().abs().max().item()
+    if not err <= DET_TOL * scale:
+        fail("detection: RPN candidates %.3g of max from the CPU's"
+             % (err / scale))
+    sel = proposal_ops.proposal_select(cand, 300, 0.7)
+    sel_cpu = proposal_ops.proposal_select(cand.cpu(), 300, 0.7)
+    if not all(torch.equal(x.cpu(), y) for x, y in zip(sel, sel_cpu)):
+        fail("detection: the RPN's NMS of the same rows differs on the card")
+    out["rpn_candidates_rel_err"] = err / scale
+    return out
+
+
+def _det_part_a(args, torch, nd, d, dev, cpu):
+    """(a): every new name on the card against the CPU."""
+    from mxnet_tpu_torch.ops.registry import get_op
+    cases = _det_cases(d)
+    done, odd, mism = set(), {}, []
+    ref_cache = {}
+    for canon, (cargs, kw, fam) in cases.items():
+        op = get_op(canon.split("/")[0])
+        run_cpu = [_det_value(torch, d, v, cpu) for v in cargs]
+        try:
+            ref_cache[canon] = (op(*run_cpu, **kw), fam)
+        except Exception as e:  # noqa: BLE001 — reported with the name
+            mism.append("%s on the CPU: %s" % (canon, e))
+    by_canon = {}
+    for name in DET_NEW_NAMES:
+        op = get_op(name)
+        if op is None:
+            mism.append("%s is not registered" % name)
+            continue
+        by_canon.setdefault(op.name, []).append(name)
+    for canon, (cargs, kw, fam) in cases.items():
+        base = canon.split("/")[0]
+        if canon not in ref_cache:
+            continue
+        ref, _ = ref_cache[canon]
+        for name in by_canon.get(base, [base]):
+            run = [_det_value(torch, d, v, dev) for v in cargs]
+            try:
+                own = getattr(nd, name)(*run, **kw)
+                odd[name] = _det_compare(torch, fam, own, ref,
+                                         "%s (%s)" % (name, canon), dev)
+                done.add(name)
+            except _OpsMismatch as e:
+                mism.append(str(e))
+    # the control-flow trio, through its registry names and nd.contrib
+    x = nd.NDArray(torch.from_numpy(d["signal"][:4]).to(dev))
+    xc = nd.NDArray(torch.from_numpy(d["signal"][:4]))
+    for name, fn in (
+            ("_foreach", lambda v, m: m._foreach(
+                lambda t, s: (t * s, s + t), v, v[0])),
+            ("_while_loop", lambda v, m: m._while_loop(
+                lambda s: s.sum() < 1e6, lambda s: s * 2 + 1,
+                nd.abs(v[0]))),
+            ("_cond", lambda v, m: m._cond(v.sum() > 0, lambda: [v * 2],
+                                           lambda: [v - 1]))):
+        try:
+            own, ref = fn(x, nd), fn(xc, nd)
+            _det_compare(torch, "float", list(own), list(ref), name, dev)
+            done.add(name)
+        except _OpsMismatch as e:
+            mism.append(str(e))
+    missing = sorted(set(DET_NEW_NAMES) - done)
+    if missing:
+        mism.append("not checked: %s" % " ".join(missing))
+    return {"names": len(done), "nms_rows_one_side": {
+        k: v for k, v in odd.items() if v}}, mism
+
+
+def _det_lstm(torch, nd, autograd, d, dev, cpu):
+    """(a): ``nd.contrib.foreach`` over an LSTM cell (gates i, f, c, o) at
+    the LSTM LM's width, forward and backward on the card (ms), the first
+    DET_CPU_ROWS rows' outputs and input gradients against the CPU's."""
+    T, B, H = DET_LSTM
+
+    def run(ctx_dev, rows):
+        x = nd.NDArray(torch.from_numpy(d["lstm_x"][:, :rows]).to(ctx_dev))
+        wi, wh, b = (nd.NDArray(torch.from_numpy(d[k]).to(ctx_dev))
+                     for k in ("lstm_wi", "lstm_wh", "lstm_b"))
+        h0 = nd.NDArray(torch.zeros((rows, H), device=ctx_dev))
+        x.attach_grad()
+
+        def cell(xt, states):
+            h, c = states
+            g = nd.dot(xt, wi, transpose_b=True) + \
+                nd.dot(h, wh, transpose_b=True) + b
+            i, f, cc, o = nd.split(g, num_outputs=4, axis=1)
+            c2 = nd.sigmoid(f) * c + nd.sigmoid(i) * nd.tanh(cc)
+            h2 = nd.sigmoid(o) * nd.tanh(c2)
+            return h2, [h2, c2]
+
+        with autograd.record():
+            out, (h, c) = nd.contrib.foreach(cell, x, [h0, h0])
+            loss = (out * out).sum()
+        loss.backward()
+        return out, x.grad
+
+    run(dev, B)
+    torch.cuda.synchronize()
+    e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    e0.record()
+    out, grad = run(dev, B)
+    e1.record()
+    torch.cuda.synchronize()
+    ms = e0.elapsed_time(e1)
+    ref_out, ref_grad = run(cpu, DET_CPU_ROWS)
+    res = {"ms_fwd_bwd": ms}
+    for k, o, r in (("out", out, ref_out), ("grad", grad, ref_grad)):
+        o = o._data[:, :DET_CPU_ROWS].cpu().double()
+        r = r._data.double()
+        rel = ((o - r).abs().max() / r.abs().max().clamp(min=1e-30)).item()
+        if not rel <= 1e-4:
+            fail("detection: foreach LSTM %s %.3g of max from the CPU's"
+                 % (k, rel))
+        res[k + "_rel_to_max"] = rel
+    return res
+
+
+def _det_ssd(args, torch, nd, autograd, d, dev):
+    """(b): SSD300's anchors, targets, loss (with its gradient) and
+    detection on the card, each timed (CUDA events) with the peak
+    memory."""
+    torch.cuda.reset_peak_memory_stats()
+    t = lambda k: nd.NDArray(torch.from_numpy(d[k]).to(dev))  # noqa: E731
+    labels, cls_preds, loc_preds = t("labels"), t("cls_preds"), t("loc_preds")
+    anchors = _det_anchors(nd, dev)
+    ms = {"MultiBoxPrior": _events_ms(torch, lambda: _det_anchors(nd, dev),
+                                      DET_CALLS)}
+
+    def target():
+        return nd.MultiBoxTarget(anchors, labels, cls_preds,
+                                 negative_mining_ratio=DET_NEG_RATIO,
+                                 negative_mining_thresh=0.5)
+    box_t, box_m, cls_t = target()
+    ms["MultiBoxTarget"] = _events_ms(torch, target, DET_CALLS)
+    pos = int((cls_t._data > 0).sum())
+    neg = int((cls_t._data == 0).sum())
+    if pos == 0 or not neg <= DET_NEG_RATIO * pos:
+        fail("detection: SSD targets %d positives, %d negatives" % (pos, neg))
+
+    def loss_step():
+        cp, lp = cls_preds.copy(), loc_preds.copy()
+        cp.attach_grad()
+        lp.attach_grad()
+        with autograd.record():
+            logp = nd.log_softmax(cp, axis=1)
+            keep = cls_t >= 0
+            ce = -nd.pick(logp, nd.maximum(cls_t, 0), axis=1) * keep
+            l1 = nd.smooth_l1((lp - box_t) * box_m, scalar=1.0)
+            loss = (ce.sum() + l1.sum()) / max(pos, 1)
+        loss.backward()
+        return loss, cp.grad, lp.grad
+    loss, gc_, gl = loss_step()
+    ms["loss_fwd_bwd"] = _events_ms(torch, loss_step, DET_CALLS)
+    if not all(bool(torch.isfinite(x._data).all()) for x in (loss, gc_, gl)):
+        fail("detection: the SSD loss or its gradient is not finite")
+    cls_prob = nd.softmax(cls_preds, axis=1)
+
+    def detect():
+        return nd.MultiBoxDetection(cls_prob, loc_preds, anchors,
+                                    nms_threshold=DET_NMS, nms_topk=DET_TOPK)
+    det = detect()
+    ms["MultiBoxDetection"] = _events_ms(torch, detect, DET_CALLS)
+    kept = int((~(det._data == -1).all(-1)).sum())
+    if not 0 < kept <= DET_BATCH * DET_TOPK:
+        fail("detection: MultiBoxDetection kept %d rows" % kept)
+    return {"ms": ms, "loss": float(loss.asnumpy()), "positives": pos,
+            "negatives": neg, "kept": kept,
+            "peak_gb": torch.cuda.max_memory_allocated() / 2 ** 30}
+
+
+def _det_frcnn(args, torch, nd, autograd, d, dev):
+    """(c): Faster R-CNN C4's Proposal, ROIAlign forward and backward,
+    R-FCN's PSROIPooling and one deformable convolution, each timed."""
+    torch.cuda.reset_peak_memory_stats()
+    t = lambda k: nd.NDArray(torch.from_numpy(d[k]).to(dev))  # noqa: E731
+    prob, deltas, info = t("rpn_prob"), t("rpn_deltas"), t("im_info")
+    ms = {}
+
+    def propose():
+        return nd.Proposal(prob, deltas, info)
+    rois = propose()
+    rois = rois[0] if isinstance(rois, (list, tuple)) else rois
+    ms["Proposal"] = _events_ms(torch, propose, DET_CALLS)
+    kept = int((~(rois._data[:, 1:] == 0).all(-1)).sum())
+    if rois.shape != (300, 5) or kept == 0:
+        fail("detection: Proposal gave %s with %d rows" % (rois.shape, kept))
+    c4 = t("c4")
+    s16 = 1.0 / DET_STRIDE
+    ms["ROIAlign"] = _events_ms(torch, lambda: nd.ROIAlign(
+        c4, rois, pooled_size=(DET_POOL, DET_POOL), spatial_scale=s16,
+        sample_ratio=2), DET_CALLS)
+
+    def align_bwd():
+        x = c4.copy()
+        x.attach_grad()
+        with autograd.record():
+            y = nd.ROIAlign(x, rois, pooled_size=(DET_POOL, DET_POOL),
+                            spatial_scale=s16, sample_ratio=2)
+        y.backward(nd.ones_like(y))
+        return x.grad
+    g = align_bwd()
+    ms["ROIAlign_fwd_bwd"] = _events_ms(torch, align_bwd, DET_CALLS)
+    total = float(g._data.double().sum())
+    want = 300 * DET_C4 * DET_POOL * DET_POOL
+    if not abs(total - want) <= 1e-3 * want:
+        fail("detection: ROIAlign's gradient sums to %g, not %d"
+             % (total, want))
+    ps = t("ps")
+    ms["PSROIPooling"] = _events_ms(torch, lambda: nd.PSROIPooling(
+        ps, rois, spatial_scale=s16, output_dim=DET_PS[0],
+        pooled_size=DET_PS[1]), DET_CALLS)
+    dx, off, w, b = t("dcn"), t("dcn_off"), t("dcn_w"), t("dcn_b")
+    ms["DeformableConvolution"] = _events_ms(
+        torch, lambda: nd.DeformableConvolution(
+            dx, off, w, b, kernel=(3, 3), pad=(2, 2), dilate=(2, 2),
+            num_filter=DET_DCN), DET_CALLS)
+    return {"ms": ms, "rois_kept": kept,
+            "peak_gb": torch.cuda.max_memory_allocated() / 2 ** 30}
+
+
+def detection_phase(args, torch):
+    """Item 8 steps 1-4 on the card, parts (a)-(c) (see the module
+    docstring)."""
+    import mxnet_tpu_torch as mx  # noqa: F401
+    from mxnet_tpu_torch import autograd, nd
+    t0 = time.perf_counter()
+    fa0 = kernel_launches()
+    dev, cpu = torch.device("cuda"), torch.device("cpu")
+    d = _det_derived(torch, nd, _det_arrays(args.seed), dev)
+    out = {}
+    ta = time.perf_counter()
+    out["a"], mism = _det_part_a(args, torch, nd, d, dev, cpu)
+    if mism:
+        fail("detection: %d cases differ from the CPU: %s"
+             % (len(mism), "; ".join(mism)))
+    out["a"]["nms"] = _det_nms_explained(torch, d, dev, cpu)
+    out["a"]["lstm"] = _det_lstm(torch, nd, autograd, d, dev, cpu)
+    out["a"]["wall_s"] = time.perf_counter() - ta
+    torch.cuda.empty_cache()
+    out["b"] = _det_ssd(args, torch, nd, autograd, d, dev)
+    torch.cuda.empty_cache()
+    out["c"] = _det_frcnn(args, torch, nd, autograd, d, dev)
+    torch.cuda.empty_cache()
+    out["launches"] = {k: v - fa0[k] for k, v in kernel_launches().items()}
+    if any(out["launches"].values()):
+        fail("detection: a flash kernel launched %s" % out["launches"])
+    out["wall_s"] = time.perf_counter() - t0
+    return out
+
+
+def print_detection(res, card):
+    """The detection phase's lines of the output."""
+    a, b, c = res["a"], res["b"], res["c"]
+    print("detection (a): %d new registry names on gpu(0) == the CPU (exact "
+          "families bitwise, float ops within %g of max); NMS on the same "
+          "rows bitwise, SSD decode %.3g, RPN candidates %.3g of max; rows "
+          "kept on one side only (decode ulps) %s; foreach LSTM b%d s%d "
+          "h%d fwd+bwd %.1f ms, out %.2g / grad %.2g of max vs the CPU; "
+          "%.1f s [%s]"
+          % (a["names"], DET_TOL, a["nms"]["ssd_decode_err"],
+             a["nms"]["rpn_candidates_rel_err"], a["nms_rows_one_side"] or 0,
+             DET_LSTM[1], DET_LSTM[0], DET_LSTM[2], a["lstm"]["ms_fwd_bwd"],
+             a["lstm"]["out_rel_to_max"], a["lstm"]["grad_rel_to_max"],
+             a["wall_s"], card), flush=True)
+    print("detection (b) SSD300 VOC b%d, %d anchors: ms %s; loss %.4f, %d "
+          "positives, %d negatives, %d rows kept; peak memory %.2f GB [%s]"
+          % (DET_BATCH, DET_ANCHORS, ", ".join(
+              "%s %.3f" % kv for kv in b["ms"].items()), b["loss"],
+             b["positives"], b["negatives"], b["kept"], b["peak_gb"], card),
+          flush=True)
+    print("detection (c) Faster R-CNN C4 %dx%d (map %dx%d): ms %s; %d rois "
+          "kept; peak memory %.2f GB; flash launches %s; %.1f s [%s]"
+          % (DET_IMAGE[0], DET_IMAGE[1], DET_MAP[0], DET_MAP[1], ", ".join(
+              "%s %.3f" % kv for kv in c["ms"].items()), c["rois_kept"],
+             c["peak_gb"], res["launches"], res["wall_s"], card), flush=True)
+
+
 def kernel_entries(serving, v2, training, bert, surface, core, vision,
-                   data, rnn, symbol, ops, np_res, fwd_cases, bwd_cases):
+                   data, rnn, symbol, ops, np_res, det, fwd_cases,
+                   bwd_cases):
     """The ``{"kernels": [...]}`` entries, one per TPU kernel. The three
     ``(B, S, H, D)`` ones: numbers of the main path's training shape (B 32,
     S 512, H 12, D 64, causal) in fp32, and under ``*_bf16`` keys in bf16;
@@ -6422,9 +7211,9 @@ def kernel_entries(serving, v2, training, bert, surface, core, vision,
     at the registry op's shape (B 8, S 512, H 12, D 64, causal, key mask).
     ``core`` holds the predict, autograd and registry-op phases' launch
     counts; the backward kernels serve both layouts, so their launches are
-    split by the phase's layout. The vision, data, rnn, ops and np
-    phases' launches (none: no attention on those paths) are listed under
-    their names, the ops phase's ``.states`` resume on the flash path under
+    split by the phase's layout. The vision, data, rnn, ops, np and
+    detection phases' launches (none: no attention on those paths) are
+    listed under their names, the ops phase's ``.states`` resume on the flash path under
     ``ops_resume`` (BSHD), and the symbol phase's (its attention op
     through an Executor: BHSD)."""
     def pick(cases, dtype="float32", B=TRAIN_BATCH, layout="BSHD"):
@@ -6479,7 +7268,8 @@ def kernel_entries(serving, v2, training, bert, surface, core, vision,
              "symbol": symbol["launches"]["flash_attn_fwd"],
              "ops": ops["launches"]["flash_attn_fwd"],
              "ops_resume": ops["resume_launches"]["flash_attn_fwd"],
-             "np": np_res["launches"]["flash_attn_fwd"]}
+             "np": np_res["launches"]["flash_attn_fwd"],
+             "detection": det["launches"]["flash_attn_fwd"]}
     train_timed = "B=%d S=%d H=12 D=64 BSHD causal, float32 (*_bf16: " \
         "bfloat16)" % (TRAIN_BATCH, TRAIN_SEQ)
     reg_timed = "B=8 S=512 H=12 D=64 BHSD causal with a key mask, float32 " \
@@ -6506,7 +7296,9 @@ def kernel_entries(serving, v2, training, bert, surface, core, vision,
                           "symbol":
                               symbol["launches"]["flash_attn_fwd_bhsd"],
                           "ops": ops["launches"]["flash_attn_fwd_bhsd"],
-                          "np": np_res["launches"]["flash_attn_fwd_bhsd"]},
+                          "np": np_res["launches"]["flash_attn_fwd_bhsd"],
+                          "detection":
+                              det["launches"]["flash_attn_fwd_bhsd"]},
         **timed(pick(fwd_cases, B=8, layout="BHSD"),
                 pick(fwd_cases, "bfloat16", B=8, layout="BHSD"))))
     for name, part, line, line_bhsd in (
@@ -6523,7 +7315,8 @@ def kernel_entries(serving, v2, training, bert, surface, core, vision,
               "rnn": rnn["launches"][name],
               "symbol": 0, "ops": ops["launches"][name],
               "ops_resume": ops["resume_launches"][name],
-              "np": np_res["launches"][name]}
+              "np": np_res["launches"][name],
+              "detection": det["launches"][name]}
         for layout, ln in (("BSHD", line), ("BHSD", line_bhsd)):
             errs = [c["max_abs_err"][n] for c in bwd_cases
                     if c["layout"] == layout
@@ -6544,7 +7337,9 @@ def kernel_entries(serving, v2, training, bert, surface, core, vision,
                                            "symbol":
                                                symbol["launches"][name],
                                            "ops": ops["launches"][name],
-                                           "np": np_res["launches"][name]},
+                                           "np": np_res["launches"][name],
+                                           "detection":
+                                               det["launches"][name]},
                          **timed(pick(bwd_cases, B=8, layout="BHSD"),
                                  pick(bwd_cases, "bfloat16", B=8,
                                       layout="BHSD"), part))
@@ -6921,6 +7716,8 @@ def main():
     print_ops(ops, card)
     np_res = np_phase(args, torch)
     print_np(np_res, card)
+    det = detection_phase(args, torch)
+    print_detection(det, card)
 
     for tag, prof in (("serving burst", serving["profile"]),
                       ("2 fp32 training steps",
@@ -6975,7 +7772,7 @@ def main():
                  ",".join("%.2g" % v for v in
                           c["max_err_rel_to_max"].values())))
     entries = kernel_entries(serving, v2, training, bert, surface, core,
-                             vision, data, rnn, symbol, ops, np_res,
+                             vision, data, rnn, symbol, ops, np_res, det,
                              fwd_cases, bwd_cases)
     if args.out:
         with open(args.out, "w") as f:
@@ -6985,7 +7782,8 @@ def main():
                        "predict": predict, "autograd": core_ag,
                        "registry_op": registry, "vision": vision,
                        "data": data, "rnn": rnn, "symbol": symbol,
-                       "ops": ops, "np": np_res, "kernels": entries,
+                       "ops": ops, "np": np_res, "detection": det,
+                       "kernels": entries,
                        "card": card,
                        "build_s": build_s}, f, indent=1)
     print(json.dumps({"kernels": [{k: v for k, v in e.items()

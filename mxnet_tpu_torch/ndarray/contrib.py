@@ -1,5 +1,7 @@
-"""``nd.contrib`` namespace: the registry's ``_contrib_`` ops by their
+"""``nd.contrib`` namespace: the control-flow trio (``foreach``,
+``while_loop``, ``cond``) and the registry's ``_contrib_`` ops by their
 short names, as the reference's ``ndarray/contrib.py``."""
+from ..ops.contrib_ops import cond, foreach, while_loop  # noqa: F401
 from ..ops.registry import get_op as _get_op
 
 

@@ -279,6 +279,7 @@ class NDArray:
             self._leaf = False
 
     def __setitem__(self, key, value):
+        from ..ops import _jnp
         if isinstance(value, NDArray):
             v = value._data
         elif isinstance(value, numeric_types):
@@ -287,7 +288,7 @@ class NDArray:
             v = torch.as_tensor(_np.asarray(value), device=self._data.device)
         if self._bound:
             with torch.no_grad():
-                self._data[_canonical_index(key)] = v
+                _jnp.setitem(self._data, _canonical_index(key), v)
             return
         if key is None or key is Ellipsis or (isinstance(key, slice) and
                                               key == slice(None)):
@@ -298,7 +299,7 @@ class NDArray:
                     self._data.shape).clone())
             return
         new = self._data.clone()
-        new[_canonical_index(key)] = v
+        _jnp.setitem(new, _canonical_index(key), v)
         self._set_data(new)
 
     def __getitem__(self, key):

@@ -40,6 +40,7 @@ from ..base import dtype_np, torch_dtype as _torch_dtype
 from ..context import Context as _Context, current_context
 from ..ndarray.ndarray import NDArray as _NDArrayBase
 from ..ops import _jnp
+from ..ops import core as _ops_core
 from ..ops.core import _block_scan, _cbrt, _rounded
 from ..ops import numpy_ops as _nops
 from ..ops.numpy_ops import _wide
@@ -179,7 +180,7 @@ class ndarray(_NDArrayBase):
 
     def __getitem__(self, key):
         key = _index_key(self, key)
-        return _wrap_record("getitem", lambda v: v[key], self)
+        return _wrap_record("getitem", lambda v: _jnp.getitem(v, key), self)
 
     def __len__(self):
         if not self.shape:
@@ -295,9 +296,9 @@ class ndarray(_NDArrayBase):
 
 
 def _index_key(arr, key):
-    """An index in jnp's terms: NDArray parts as tensors, integer arrays
-    wrapped once and clamped to their axis (a gather clamps in jnp), a
-    boolean array eager only."""
+    """An index in jnp's terms: NDArray parts as tensors, a floating array
+    refused, a boolean array eager only (``_jnp.getitem`` then clamps the
+    integers and takes negative steps)."""
     key = key if isinstance(key, tuple) else (key,)
     key = tuple(k._data if isinstance(k, _NDArrayBase) else k for k in key)
     key = tuple(_host_tensor(k, arr._data.device)
@@ -319,7 +320,6 @@ def _index_key(arr, key):
                 raise TypeError("Indexer must have integer or boolean "
                                 "type, got indexer with type %s"
                                 % _dtype_name(k.dtype))
-            k = _jnp.clip_index(k, arr.shape[axis])
             axis += 1
         else:
             axis += 1
@@ -521,10 +521,13 @@ def _spacing(v):
 
 
 def _angle(v):
+    """``arctan2(0, v)``: pi where the sign bit is set (-0.0 too), NaN at
+    NaN."""
     if not v.is_floating_point():
         v = v.to(torch.float64)
-    return torch.where(v < 0, _full(math.pi, v.dtype, v.device),
-                       _full(0.0, v.dtype, v.device))
+    return torch.where(torch.isnan(v), v, torch.where(
+        torch.signbit(v), _full(math.pi, v.dtype, v.device),
+        _full(0.0, v.dtype, v.device)))
 
 
 def _sort(v, axis=-1, kind=None, order=None, stable=True, descending=False):
@@ -572,7 +575,7 @@ def _abs(v):
 
 
 _UNARY_FNS = {
-    "abs": _abs, "absolute": _abs, "sign": torch.sign,
+    "abs": _abs, "absolute": _abs, "sign": _ops_core.sign.fn,
     "sqrt": _inexact_unary(torch.sqrt), "cbrt": _inexact_unary(_cbrt),
     "square": _square, "exp": _inexact_unary(torch.exp),
     "expm1": _inexact_unary(torch.expm1), "log": _inexact_unary(torch.log),
@@ -665,10 +668,12 @@ def _remainder(a, b):
 
 
 def _floor_divide(a, b):
-    """``floor_divide``; an integer one by zero gives XLA's values (-1, or
-    -2 for a nonzero dividend; the largest value unsigned)."""
+    """``floor_divide``; a float one by ±0 gives NaN (jnp's ``fmod``-based
+    quotient), an integer one XLA's values (-1, or -2 for a nonzero
+    dividend; the largest value unsigned)."""
     if a.is_floating_point():
-        return torch.floor_divide(a, b)
+        return torch.where(b == 0, _full(float("nan"), a.dtype, a.device),
+                           torch.floor_divide(a, b))
     zero = b == 0
     q = torch.floor_divide(a, torch.where(zero, torch.ones_like(b), b))
     info = torch.iinfo(a.dtype) if a.dtype != torch.bool else None
@@ -711,7 +716,27 @@ def _matmul(a, b):
 def _inner(a, b):
     if a.dim() == 0 or b.dim() == 0:
         return a * b
+    if a.dtype == torch.bool:
+        return torch.tensordot(a.int(), b.int(), dims=([-1], [-1])) > 0
     return torch.tensordot(a, b, dims=([-1], [-1]))
+
+
+def _vdot(a, b):
+    a, b = a.reshape(-1), b.reshape(-1)
+    if a.dtype == torch.bool:
+        return torch.dot(a.int(), b.int()) > 0
+    return torch.dot(a, b)
+
+
+def _heaviside(x, h):
+    """jnp's ``where(x < 0, 0, where(x > 0, 1, h))``: NaN gives ``h``."""
+    return torch.where(x < 0, torch.zeros_like(x),
+                       torch.where(x > 0, torch.ones_like(x), h))
+
+
+def _shift(tfn):
+    """A shift on integers (booleans shift as int32, the result type)."""
+    return _promoted("numeric", tfn)
 
 
 def _outer(a, b):
@@ -821,19 +846,18 @@ _BINARY_FNS = {
     "bitwise_and": _promoted("promote", torch.bitwise_and),
     "bitwise_or": _promoted("promote", torch.bitwise_or),
     "bitwise_xor": _promoted("promote", torch.bitwise_xor),
-    "left_shift": _promoted("promote", torch.bitwise_left_shift),
-    "right_shift": _promoted("promote", torch.bitwise_right_shift),
+    "left_shift": _shift(torch.bitwise_left_shift),
+    "right_shift": _shift(torch.bitwise_right_shift),
     "matmul": _promoted("promote", _matmul),
     "dot": _promoted("promote", _dot),
-    "vdot": _promoted("promote", lambda a, b: torch.dot(a.reshape(-1),
-                                                          b.reshape(-1))),
+    "vdot": _promoted("promote", _vdot),
     "outer": _promoted("promote", _outer),
     "inner": _promoted("promote", _inner),
     "cross": _promoted("promote", _cross),
     "kron": _promoted("promote", torch.kron),
     "gcd": _promoted("promote", torch.gcd),
     "lcm": _promoted("promote", torch.lcm),
-    "heaviside": _promoted("inexact", torch.heaviside),
+    "heaviside": _promoted("inexact", _heaviside),
     "ldexp": _ldexp,
     "floor_divide": _promoted("numeric", _floor_divide),
     "nextafter": _promoted("inexact", torch.nextafter),
@@ -1324,6 +1348,8 @@ def _pad(v, pad_width, mode="constant", **kwargs):
 
 def _take(a, indices, axis=None, out=None, mode=None, unique_indices=False,
           indices_are_sorted=False, fill_value=None):
+    if isinstance(indices, torch.Tensor) and indices.is_floating_point():
+        raise ValueError("indices must have an integer type")
     idx = indices if isinstance(indices, torch.Tensor) else \
         _full(int(indices), torch.int64, a.device)
     if axis is None:
@@ -1877,7 +1903,10 @@ def size(a, axis=None):
 
 def isin(element, test_elements, assume_unique=False, invert=False):
     def run(v, t):
-        return torch.isin(v, t, invert=invert)
+        dt = _jnp.result_dtype("promote", v, t)
+        if dt == torch.bool:         # torch.isin takes no booleans
+            dt = torch.uint8
+        return torch.isin(v.to(dt), t.to(dt), invert=invert)
     return _wrap_record("isin", run, element, test_elements)
 
 

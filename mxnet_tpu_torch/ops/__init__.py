@@ -2,19 +2,25 @@
 the op registry that the ``nd`` namespace is generated from. Importing
 this package registers the ops of ``core``, ``tensor_extra``,
 ``random_ops``, ``nn``, ``loss_ops``, ``rnn``, ``numpy_ops``,
-``linalg_extra``, ``optim_ops`` and ``image_ops``, then ``numpy_ops``'s
-aliases onto the others."""
+``linalg_extra``, ``optim_ops``, ``image_ops``, ``generation_ops``,
+``ctc``, ``transformer_ops``, ``contrib_ops``, ``contrib_misc``,
+``ste_graph_ops``, ``spatial_ops``, ``detection_ops`` and
+``proposal_ops``, then ``numpy_ops``'s aliases onto the others."""
 from . import registry
-from . import (core, ctc, flash_attention, generation_ops,  # noqa: F401
-               image_ops, linalg_extra, loss_ops, nn, numpy_ops, optim_ops,
-               random_ops, rnn, tensor_extra)
+from . import (contrib_misc, contrib_ops, core, ctc,  # noqa: F401
+               detection_ops, flash_attention, generation_ops, image_ops,
+               linalg_extra, loss_ops, nn, numpy_ops, optim_ops,
+               proposal_ops, random_ops, rnn, spatial_ops, ste_graph_ops,
+               tensor_extra, transformer_ops)
 from .registry import Op, get_op, invoke, list_ops, register
 
 numpy_ops.register_aliases()
 
-__all__ = ["ctc", "core", "flash_attention", "generation_ops", "image_ops",
+__all__ = ["contrib_misc", "contrib_ops", "ctc", "core", "detection_ops",
+           "flash_attention", "generation_ops", "image_ops",
            "linalg_extra", "loss_ops", "nn", "numpy_ops", "optim_ops",
-           "random_ops", "rnn", "tensor_extra",
+           "proposal_ops", "random_ops", "rnn", "spatial_ops",
+           "ste_graph_ops", "tensor_extra", "transformer_ops",
            "registry", "register", "get_op", "list_ops", "invoke", "Op",
            "populate_namespace"]
 

@@ -191,3 +191,121 @@ def scatter_mask(idx, n):
     idx = idx.long()
     ok = (idx >= -n) & (idx < n)
     return torch.where(idx < 0, idx + n, idx).clamp(0, n - 1), ok
+
+
+# ---- basic indexing -------------------------------------------------------
+#
+# jnp reads ``x[key]`` with every integer clamped into its axis (a negative
+# one wrapped once) and takes slices with a negative step; it drops a write
+# whose integer index lies outside ``[-n, n)``. Torch raises on both. The
+# helpers below rewrite a key for torch: a slice with a negative step
+# becomes the positive-step slice that reads the same elements of the axis
+# flipped, so the read is ``x.flip(axes)[key]`` and a write goes through a
+# flipped copy; an out-of-range index of a write points at a spare slot
+# appended to its axis and cut off again.
+
+
+def _key_parts(key):
+    return key if isinstance(key, tuple) else (key,)
+
+
+def _is_int(k):
+    return isinstance(k, (int, _np.integer)) and not isinstance(
+        k, (bool, _np.bool_))
+
+
+def _flipped_slice(s, n):
+    """The positive-step slice of the flipped axis that holds the
+    elements of ``s`` (a negative step) in the same order."""
+    start, stop, step = s.indices(n)
+    count = len(range(start, stop, step))
+    if count == 0:
+        return slice(0, 0)
+    first = n - 1 - start
+    return slice(first, first + (count - 1) * -step + 1, -step)
+
+
+def _walk(shape, key):
+    """``(part, axis)`` for each part of ``key``: the axis of ``shape``
+    the part indexes (None for ``None`` and ``Ellipsis``)."""
+    parts = tuple(torch.as_tensor(k) if isinstance(k, (list, _np.ndarray))
+                  else k for k in _key_parts(key))
+    used = sum(k.dim() if isinstance(k, torch.Tensor) and
+               k.dtype == torch.bool else 0 if k is None or k is Ellipsis
+               else 1 for k in parts)
+    axis = 0
+    for k in parts:
+        if k is Ellipsis:
+            yield k, None
+            axis += len(shape) - used
+        elif k is None:
+            yield k, None
+        elif isinstance(k, torch.Tensor) and k.dtype == torch.bool:
+            yield k, None
+            axis += k.dim()
+        else:
+            yield k, axis
+            axis += 1
+
+
+def read_key(shape, key):
+    """``(flip_axes, key)``: ``x[key]`` in jnp equals
+    ``x.flip(flip_axes)[key]`` in torch with the returned key."""
+    out, flips = [], []
+    for k, axis in _walk(shape, key):
+        n = shape[axis] if axis is not None and axis < len(shape) else 0
+        if axis is None or n == 0:
+            pass
+        elif isinstance(k, slice) and k.step is not None and k.step < 0:
+            k = _flipped_slice(k, n)
+            flips.append(axis)
+        elif _is_int(k):
+            k = min(max(int(k) + n if k < 0 else int(k), 0), n - 1)
+        elif isinstance(k, torch.Tensor) and not k.is_floating_point():
+            k = clip_index(k, n)
+        out.append(k)
+    return tuple(flips), tuple(out)
+
+
+def getitem(x, key):
+    """``x[key]`` with jnp's basic-indexing semantics (see above)."""
+    flips, key = read_key(tuple(x.shape), key)
+    return (x.flip(flips) if flips else x)[key]
+
+
+def setitem(x, key, value):
+    """``x[key] = value`` in place, with jnp's semantics: negative steps
+    taken, a write at an out-of-range integer index dropped."""
+    shape = tuple(x.shape)
+    out, flips, spare = [], [], []
+    for k, axis in _walk(shape, key):
+        n = shape[axis] if axis is not None and axis < len(shape) else 0
+        if axis is None or n == 0:
+            pass
+        elif isinstance(k, slice) and k.step is not None and k.step < 0:
+            k = _flipped_slice(k, n)
+            flips.append(axis)
+        elif _is_int(k):
+            if not -n <= k < n:
+                k = n
+                spare.append(axis)
+            else:
+                k = int(k) % n
+        elif isinstance(k, torch.Tensor) and not k.is_floating_point():
+            safe, ok = scatter_mask(k, n)
+            k = torch.where(ok, safe, torch.full_like(safe, n))
+            spare.append(axis)
+        out.append(k)
+    out = tuple(out)
+    if not flips and not spare:
+        x[out] = value
+        return
+    work = x.flip(flips) if flips else x.clone()
+    for axis in sorted(set(spare)):
+        pad = list(work.shape)
+        pad[axis] = 1
+        work = torch.cat([work, work.new_zeros(pad)], dim=axis)
+    work[out] = value
+    for axis in sorted(set(spare)):
+        work = work.narrow(axis, 0, shape[axis])
+    x.copy_(work.flip(flips) if flips else work)

@@ -26,6 +26,7 @@ import numpy as _np
 import torch
 
 from ..base import torch_dtype
+from . import _jnp
 from .registry import register, register_alias
 
 # ---------------------------------------------------------------- arithmetic
@@ -97,8 +98,25 @@ def reciprocal(x):
     return 1.0 / x
 
 
+@register("sign")
+def sign(x):
+    """``sign`` as jnp's: NaN stays NaN and a signed zero keeps its sign
+    (``torch.sign`` gives +0 for both)."""
+    if not x.is_floating_point():
+        return torch.sign(x)
+    return torch.where((x == 0) | torch.isnan(x), x.detach(), torch.sign(x))
+
+
+@register("relu")
+def relu(x):
+    """``maximum(x, 0)`` as XLA computes it: -0.0 gives +0.0 and NaN stays
+    NaN (``torch.relu`` keeps the sign of -0.0)."""
+    return torch.where(x <= 0, torch.zeros((), dtype=x.dtype,
+                                           device=x.device), x)
+
+
 for _name, _fn in (
-        ("abs", torch.abs), ("sign", torch.sign), ("round", torch.round),
+        ("abs", torch.abs), ("round", torch.round),
         ("ceil", torch.ceil), ("floor", torch.floor), ("trunc", torch.trunc),
         ("square", torch.square), ("sqrt", torch.sqrt),
         ("rsqrt", torch.rsqrt), ("exp", torch.exp), ("log", torch.log),
@@ -107,8 +125,7 @@ for _name, _fn in (
         ("erf", torch.erf), ("sin", torch.sin), ("cos", torch.cos),
         ("tan", torch.tan), ("arcsin", torch.asin),
         ("arccos", torch.acos), ("arctan", torch.atan),
-        ("sinh", torch.sinh), ("cosh", torch.cosh), ("tanh", torch.tanh),
-        ("relu", torch.relu)):
+        ("sinh", torch.sinh), ("cosh", torch.cosh), ("tanh", torch.tanh)):
     register(_name)(_fn)
 del _name, _fn
 
@@ -356,7 +373,7 @@ def split(data, num_outputs=1, axis=1, squeeze_axis=False):
 def slice(data, begin=(), end=(), step=()):  # noqa: A001
     step = step or [None] * len(begin)
     idx = tuple(builtins.slice(b, e, s) for b, e, s in zip(begin, end, step))
-    return data[idx]
+    return _jnp.getitem(data, idx)
 
 
 @register("slice_axis")
@@ -406,7 +423,9 @@ def _index_key(key):
 
 @register("_index")
 def _index(data, key=None):
-    return data[_index_key(key)]
+    """``data[key]`` as jnp reads it: integers clamp into their axis,
+    negative steps are taken (:func:`._jnp.getitem`)."""
+    return _jnp.getitem(data, _index_key(key))
 
 
 @register("take")

@@ -6,13 +6,18 @@ alpha recursion, the same masks, with the LAST class as blank. Label
 padding may be any value when ``label_lengths`` is given; otherwise labels
 below 0 mark padding. The reference runs the recursion as one XLA loop
 (``lax.scan``); here it is a plain loop over time of batched torch ops,
-and the gradient comes from autograd through it.
+and the gradient comes from autograd through it. The registry op
+``_ctc_loss`` (``ctc_loss``, ``CTCLoss``, ``CTCLoss_op``,
+``_contrib_ctc_loss``, ``_contrib_CTCLoss``) takes the reference's
+``(data, label, data_lengths, label_lengths)`` and, as the reference,
+uses the lengths it is given whatever ``use_*_lengths`` say.
 """
 from __future__ import annotations
 
 import torch
 
 from . import nn as _ops
+from .registry import register
 
 __all__ = ["ctc_loss"]
 
@@ -75,3 +80,12 @@ def ctc_loss(pred, labels, pred_lengths=None, label_lengths=None):
                              alpha[rows, torch.clamp(sl - 1, min=0)],
                              neg[:, 0])
     return -torch.logaddexp(last_blank, last_label)
+
+
+@register("_ctc_loss", aliases=("ctc_loss", "CTCLoss_op", "_contrib_ctc_loss",
+                                "CTCLoss", "_contrib_CTCLoss"))
+def _ctc_loss(data, label, data_lengths=None, label_lengths=None,
+              use_data_lengths=False, use_label_lengths=False,
+              blank_label="last"):
+    """``data`` ``(T, B, C)``: see the module's text."""
+    return ctc_loss(data, label, data_lengths, label_lengths)

@@ -17,10 +17,18 @@ Counterpart of ``mxnet_tpu/ops/generation_ops.py``.
   copying the arena. An arena index may be a Python int or a one-element
   device tensor; a tensor index keeps the write (and the read, which is
   then a copy) free of host values, as a captured graph needs.
+
+The registry ops (``_contrib_sample_greedy`` ... ``_contrib_arena_update``,
+each with its bare alias, as the reference registers them) are pure, as
+the reference's: the samplers bind the invoke-time ``key`` words and draw
+from :func:`.random_ops.generator_for`, token ids come out int32, and the
+cache writes update a copy.
 """
 from __future__ import annotations
 
 import torch
+
+from .registry import bind_key, register
 
 __all__ = ["sample_greedy", "sample_temperature", "sample_top_k", "generation_sample",
            "kv_cache_update", "arena_update", "arena_slice"]
@@ -123,3 +131,58 @@ def arena_update(arena, block, index, axis=1):
         dst.narrow(axis, _clamped(index, arena, size, axis),
                    size).copy_(block)
     return arena
+
+
+# ---- the registry ops -----------------------------------------------------
+
+_RNG = {"key": bind_key}
+
+
+def _gen(logits, key):
+    from .random_ops import generator_for
+    return generator_for(logits.device, key)
+
+
+@register("_contrib_sample_greedy", aliases=("sample_greedy",),
+          differentiable=False)
+def _sample_greedy_op(logits):
+    return sample_greedy(logits).to(torch.int32)
+
+
+@register("_contrib_sample_temperature", aliases=("sample_temperature",),
+          differentiable=False, state_binders=_RNG)
+def _sample_temperature_op(logits, key=None, temperature=1.0):
+    return sample_temperature(logits, _gen(logits, key),
+                              temperature).to(torch.int32)
+
+
+@register("_contrib_sample_top_k", aliases=("sample_top_k",),
+          differentiable=False, state_binders=_RNG)
+def _sample_top_k_op(logits, key=None, k=0, temperature=1.0):
+    return sample_top_k(logits, _gen(logits, key), int(k),
+                        temperature).to(torch.int32)
+
+
+@register("_contrib_generation_sample", aliases=("generation_sample",),
+          differentiable=False, state_binders=_RNG)
+def _generation_sample_op(logits, key=None, temperatures=1.0, k=0):
+    return generation_sample(logits, _gen(logits, key), temperatures,
+                             int(k)).to(torch.int32)
+
+
+@register("_contrib_kv_cache_update", aliases=("kv_cache_update",),
+          differentiable=False)
+def _kv_cache_update_op(cache, new, positions):
+    return kv_cache_update(cache.clone(), new, positions)
+
+
+@register("_contrib_arena_slice", aliases=("arena_slice",),
+          differentiable=False)
+def _arena_slice_op(arena, index, size=1, axis=1):
+    return arena_slice(arena, index, int(size), int(axis)).clone()
+
+
+@register("_contrib_arena_update", aliases=("arena_update",),
+          differentiable=False)
+def _arena_update_op(arena, block, index, axis=1):
+    return arena_update(arena.clone(), block, index, int(axis))

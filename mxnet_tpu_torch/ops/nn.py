@@ -54,6 +54,7 @@ import torch.nn.functional as F
 
 from .. import config as _config
 from .. import random as _random
+from . import core as _core
 from .core import _const
 from .registry import bind_key, bind_train, register, register_alias
 from .flash_attention import (_M32, SUPPORTED_DTYPES, SUPPORTED_HEAD_DIMS,
@@ -613,7 +614,7 @@ def _dropout(data, p=0.5, mode="training", axes=(), cudnn_off=False,
 
 def Activation(data, act_type="relu"):
     """``relu``, ``sigmoid``, ``tanh``, ``softrelu`` or ``softsign``."""
-    fns = {"relu": torch.relu, "sigmoid": sigmoid,
+    fns = {"relu": _core.relu.fn, "sigmoid": sigmoid,
            "tanh": torch.tanh, "softrelu": softrelu,
            "softsign": F.softsign}
     if act_type not in fns:

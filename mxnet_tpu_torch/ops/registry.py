@@ -16,6 +16,8 @@ it returns.
 """
 from __future__ import annotations
 
+import functools
+import inspect
 from typing import Dict, Optional
 
 import torch
@@ -110,6 +112,21 @@ def wrap_out(val, like=None):
     return NDArray(val)
 
 
+@functools.lru_cache(maxsize=None)
+def _params(fn):
+    """The names a positional argument can fill, in order."""
+    kinds = (inspect.Parameter.POSITIONAL_ONLY,
+             inspect.Parameter.POSITIONAL_OR_KEYWORD)
+    return tuple(n for n, p in inspect.signature(fn).parameters.items()
+                 if p.kind in kinds)
+
+
+def _positional(op, n):
+    """The names of ``op``'s parameters that ``n`` positional arguments
+    fill (a state binder does not bind one of them)."""
+    return _params(op.fn)[:n] if op.state_binders else ()
+
+
 def invoke(op: Op, *args, out=None, **kwargs):
     """Eager dispatch: unwrap handles, bind state, run, wrap."""
     from ..ndarray.ndarray import NDArray
@@ -119,7 +136,7 @@ def invoke(op: Op, *args, out=None, **kwargs):
         if isinstance(v, NDArray):
             kwargs[k] = v._data.detach()
     for kname, binder in op.state_binders.items():
-        if kname not in kwargs:
+        if kname not in kwargs and kname not in _positional(op, len(vals)):
             kwargs[kname] = binder()
     with torch.set_grad_enabled(op.differentiable and
                                 _tape.is_recording()):

@@ -21,25 +21,49 @@ def _plain(out):
     return out._data if hasattr(out, "_data") else out
 
 
-def reference_results(cases):
-    """``{name: result}`` for ``cases`` (``{name: thunk}``)."""
-    traced, eager = [], []
-    for name in sorted(cases):
-        try:
-            jax.eval_shape(lambda f=cases[name]: _plain(f()))
-            traced.append(name)
-        except Exception:
-            eager.append(name)
+def _eager(cases, name):
+    try:
+        return _plain(cases[name]())
+    except Exception as e:     # the case's own test re-raises it
+        return e
+
+
+def reference_results(cases, chunk=40, probe=True):
+    """``{name: result}`` for ``cases`` (``{name: thunk}``), ``chunk``
+    cases a compile (XLA's compile time grows faster than the program:
+    files of heavy cases take smaller chunks). With ``probe`` each case is
+    traced once first (``jax.eval_shape``) to find the ones that cannot
+    be; without it a chunk that fails to trace runs its cases one by one,
+    each under its own ``jax.jit`` or else eagerly (one trace per case
+    fewer when nearly all trace)."""
+    names = sorted(cases)
+    eager = []
+    if probe:
+        traced = []
+        for name in names:
+            try:
+                jax.eval_shape(lambda f=cases[name]: _plain(f()))
+                traced.append(name)
+            except Exception:
+                eager.append(name)
+        names = traced
     res = {}
-    for i in range(0, len(traced), 40):
-        part = traced[i:i + 40]
-        outs = jax.jit(lambda: [_plain(cases[n]()) for n in part])()
+    for i in range(0, len(names), chunk):
+        part = names[i:i + chunk]
+        try:
+            outs = jax.jit(lambda: [_plain(cases[n]()) for n in part])()
+        except Exception:
+            if probe:
+                raise
+            outs = []
+            for n in part:
+                try:
+                    outs.append(jax.jit(lambda n=n: _plain(cases[n]()))())
+                except Exception:
+                    outs.append(_eager(cases, n))
         res.update(zip(part, outs))
     for name in eager:
-        try:
-            res[name] = _plain(cases[name]())
-        except Exception as e:     # the case's own test re-raises it
-            res[name] = e
+        res[name] = _eager(cases, name)
     return res
 
 

@@ -358,8 +358,8 @@ def test_multi_device_and_dist_stores_raise():
     with pytest.raises(NotImplementedError, match="item 10"):
         _mlp(tmx.sym).simple_bind(CPU, group2ctx={"dev1": tmx.gpu(1)},
                                   data=(4, 10), softmax_label=(4,))
-    with pytest.raises(NotImplementedError, match="item 8"):
-        tmx.sym.contrib.foreach
+    # the control-flow trio is ported (item 8, step 2): the NDArray functions
+    assert tmx.sym.contrib.foreach is tmx.nd.contrib.foreach
     mod = tmx.mod.Module(_mlp(tmx.sym), context=CPU)
     mod.bind(data_shapes=[("data", (4, 10))],
              label_shapes=[("softmax_label", (4,))])
