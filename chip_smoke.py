@@ -415,6 +415,43 @@ Builds the package's CUDA kernels from the sources in this checkout
     channels (14x14, forward and backward), R-FCN's ``PSROIPooling`` (21 x
     7 x 7) and a 3x3 ``DeformableConvolution`` (dilation 2, 512
     channels), each timed. No flash kernel may launch.
+18. **Quant phase: the Custom op and INT8 (item 8 step 5).** (a)
+    ``resnet50_v1()`` from ``Xavier()`` exported as the symbol phase does,
+    its head ``sym.Custom(fc, label, op_type="chip_softmax")`` running
+    ``example/numpy-ops/custom_softmax.py``'s numpy softmax: one b32
+    step's parameter gradients through ``Module`` against the same step
+    with ``SoftmaxOutput`` (within ``QUANT_GRAD_TOL`` of each gradient's
+    max), 8 SGD steps (ms a step beside the symbol phase's), the op alone
+    forward and backward against ``SoftmaxOutput`` (the host round trip);
+    a hybridized block ending in ``nd.Custom`` served through
+    ``InferenceEngine`` (its signature eager and counted under
+    ``host_eager``, its answers the block's), and a block that reads a
+    value to the host outside a host op still fails its capture. (b) The
+    same net's BatchNorm statistics from 3 training-mode forwards, its
+    fp32 and bf16 replays, ``quantize_net(calib_mode="naive")`` on 4
+    calibration batches (54 layers swapped: 53 convolutions folded with
+    their BatchNorm, and the Dense); b32 int8 inference, every layer's
+    int32 accumulators bitwise against the plain version (a float64
+    product) on the same int8 inputs, eager and replayed, the peak
+    memory, top-1 agreement with the fp32 net; the same quantized net on
+    the CPU from its ``.params`` file (4 rows: logits within
+    ``QUANT_LOGIT_TOL``, int8 values off by one counted); the ``.params``
+    round trip bitwise; ``quantize_model`` on the exported symbol; every
+    one of the 26 names once against the CPU, bitwise. No flash kernel
+    may launch.
+19. **Sparse phase: sparse storage and the graph ops (item 8 step 6).**
+    (c) MXNet 1.6's ``example/sparse/linear_classification`` at Avazu's
+    width: a (1,000,001, 1) fp32 weight, CSR batches of 8192 rows with 15
+    nonzeros a row (one hashed feature in each of 15 disjoint field
+    ranges, value 1), ``sparse.dot(csr, w)`` plus a bias, the logistic
+    loss, the row-sparse gradient ``dot(csr.T, g)`` over the touched rows
+    and SGD's lazy update (lr 0.1, wd 1e-4), 20 steps: twice on the card
+    (bitwise), on the CPU and in float64 numpy (within
+    ``SPARSE_CPU_ULPS`` and ``SPARSE_TRUTH_ULPS`` float32 ulps of the
+    largest weight), the untouched rows bitwise unchanged, ms a step. (d)
+    The 7 graph names on a CSR graph on the card (20,000 vertices, 8
+    neighbours each) against the CPU, bitwise; ``LeakyReLU`` rrelu in
+    training at ResNet-50's first activation. No flash kernel may launch.
 
 The predict phase's bf16 pass (8.) holds the kernel path to the plain
 path by ``PREDICT_BF16_FACTOR``, each path's distance from the fp32 path:
@@ -427,19 +464,22 @@ With ``--profile`` the burst is served a second time, serving v2's part
 (f) is profiled, and two fp32 and two bf16 training steps, two bf16 BERT
 steps and two bf16 BERT steps each with LAMB and Adam (surface phase),
 one bf16 ResNet-50 step and one b32 bf16 ResNet-50 eager forward (vision
-phase) and one fp32 ``Module`` step (symbol phase) are run, under
+phase), one fp32 ``Module`` step (symbol phase), one b32 int8 ResNet-50
+eager forward (quant phase) and one sparse linear step (sparse phase) are
+run, under
 ``torch.profiler`` (after the checked runs) to print the device's busy
 share, its kernel count and its top kernels.
 
 Prints the serving, serving v2, training, BERT, surface, predict,
-autograd, registry-op, vision, data, rnn, symbol, ops, np and detection
-numbers, one
+autograd, registry-op, vision, data, rnn, symbol, ops, np, detection,
+quant and sparse numbers, one
 ``{"kernels": [...]}`` line with an
 entry per TPU kernel (the three (B, S, H, D) ones with the numbers of the
 training shape in fp32, under ``*_bf16`` keys in bf16, and under ``bert``
 those of the BERT shape; the three (B, H, S, D) ones with the numbers of
 the registry op's shape; every kernel's launches also under ``vision``,
-``data``, ``rnn``, ``ops``, ``np`` and ``detection``, where none runs,
+``data``, ``rnn``, ``ops``, ``np``, ``detection``, ``quant`` and
+``sparse``, where none runs,
 and ``symbol``),
 the
 card's name
@@ -7200,9 +7240,917 @@ def print_detection(res, card):
              c["peak_gb"], res["launches"], res["wall_s"], card), flush=True)
 
 
+# the quant phase: the Custom op and INT8 ResNet-50 v1 (item 8 step 5)
+QUANT_GRAD_TOL = 1e-4       # a Custom-head step's gradients against
+#                             SoftmaxOutput's, of each gradient's max
+QUANT_BN_BATCHES = 3        # training-mode forwards that set the statistics
+QUANT_CALIB_BATCHES = 4     # quantize_net's calibration batches (naive)
+QUANT_LAYERS = 54           # ResNet-50 v1: 53 convolutions and the Dense
+QUANT_CPU_ROWS = 4          # rows of the b32 batch run again on the CPU
+QUANT_LOGIT_TOL = 1e-3      # int8 logits, the card against the CPU, of max
+QUANT_REPLAYS = 20
+QUANT_ROUND_TRIPS = 20      # the Custom softmax alone, calls timed a side
+QUANT_GEMM_RE = re.compile(r"(?i)imma|igemm|i8i8|int8|s8")   # cuBLASLt's
+
+
+def _register_custom_softmax(mx):
+    """``example/numpy-ops/custom_softmax.py``'s op as ``chip_softmax``
+    (numpy softmax; backward ``p - onehot(label)``, no top gradient), and
+    its forward alone as ``chip_softmax_infer`` (data only)."""
+
+    class Softmax(mx.operator.CustomOp):
+        def forward(self, is_train, req, in_data, out_data, aux):
+            x = in_data[0].asnumpy()
+            y = np.exp(x - x.max(axis=1).reshape((x.shape[0], 1)))
+            y /= y.sum(axis=1).reshape((x.shape[0], 1))
+            self.assign(out_data[0], req[0], mx.nd.array(y))
+
+        def backward(self, req, out_grad, in_data, out_data, in_grad, aux):
+            lab = in_data[1].asnumpy().ravel().astype(np.int64)
+            y = out_data[0].asnumpy()
+            y[np.arange(lab.shape[0]), lab] -= 1.0
+            self.assign(in_grad[0], req[0], mx.nd.array(y))
+
+    @mx.operator.register("chip_softmax")
+    class SoftmaxProp(mx.operator.CustomOpProp):
+        def __init__(self):
+            super().__init__(need_top_grad=False)
+
+        def list_arguments(self):
+            return ["data", "label"]
+
+        def infer_shape(self, in_shape):
+            return [in_shape[0], (in_shape[0][0],)], [in_shape[0]], []
+
+        def create_operator(self, ctx, shapes, dtypes):
+            return Softmax()
+
+    @mx.operator.register("chip_softmax_infer")
+    class InferProp(mx.operator.CustomOpProp):
+        def create_operator(self, ctx, shapes, dtypes):
+            return Softmax()
+
+
+def _custom_module(torch, graph, head, arg_p, aux_p):
+    from mxnet_tpu_torch import module as mod_ns
+    shape = (VISION_BATCH, 3, VISION_IMAGE, VISION_IMAGE)
+    m = mod_ns.Module(head)
+    m.bind(data_shapes=[("data", shape)],
+           label_shapes=[("softmax_label", (VISION_BATCH,))])
+    m.init_params(arg_params=arg_p, aux_params=aux_p)
+    m.init_optimizer(optimizer="sgd", optimizer_params=dict(VISION_SGD))
+    return m
+
+
+def quant_custom(args, torch, tmp):
+    """(a) ResNet-50 v1 exported, its head the Custom softmax: one step's
+    gradients against ``SoftmaxOutput``'s, 8 SGD steps through
+    ``Module``, the op alone against ``SoftmaxOutput``; a hybridized block
+    ending in ``nd.Custom`` served through ``InferenceEngine`` (its
+    signature eager, counted); a host read outside a host op still fails
+    its capture."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import autograd, gluon, io, model, nd, sym
+    from mxnet_tpu_torch import random as trandom
+    from mxnet_tpu_torch.serving import InferenceEngine
+    dev = torch.device("cuda")
+    _register_custom_softmax(mx)
+    net = _resnet50(torch, trandom, args.seed)
+    prefix = os.path.join(tmp, "resnet50_custom")
+    net.export(prefix)
+    graph, arg_p, aux_p = model.load_checkpoint(prefix, 0)
+    label = sym.var("softmax_label")
+    g = torch.Generator(dev).manual_seed(args.seed + 5)
+    x = torch.rand((VISION_BATCH, 3, VISION_IMAGE, VISION_IMAGE),
+                   generator=g, device=dev)
+    y = torch.randint(0, VISION_CLASSES, (VISION_BATCH,), generator=g,
+                      device=dev).float()
+    batch = io.DataBatch(data=[nd.NDArray(x)], label=[nd.NDArray(y)])
+    res = {}
+    ref = _custom_module(torch, graph, sym.SoftmaxOutput(
+        graph, label, name="softmax"), arg_p, aux_p)
+    ref.forward_backward(batch)
+    want = {n: a._data.clone() for n, a in ref._exec.grad_dict.items()
+            if n in arg_p}
+    probs = ref.get_outputs()[0]._data.clone()
+    del ref
+    custom = _custom_module(torch, graph, sym.Custom(
+        graph, label, op_type="chip_softmax", name="softmax"), arg_p, aux_p)
+    custom.forward_backward(batch)
+    worst, worst_name = 0.0, None
+    for n, w in want.items():
+        err = rel_to_max(custom._exec.grad_dict[n]._data, w)
+        if not err <= worst:
+            worst, worst_name = err, n
+    if not worst <= QUANT_GRAD_TOL:
+        fail("quant (a): the Custom head's gradient of %s lies %.3g of its "
+             "max from SoftmaxOutput's (tolerance %g)"
+             % (worst_name, worst, QUANT_GRAD_TOL))
+    res["grad_vs_softmax_output"] = {"worst_rel_to_max": worst,
+                                     "param": worst_name,
+                                     "params": len(want)}
+    res["probs_vs_softmax_output"] = rel_to_max(
+        custom.get_outputs()[0]._data, probs)
+    del want, probs
+    custom.update()
+    losses = [_sm_loss(torch, custom.get_outputs()[0]._data, y)]
+
+    def step():
+        custom.forward_backward(batch)
+        custom.update()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    for _ in range(SYMBOL_STEPS - 1):
+        step()
+        losses.append(_sm_loss(torch, custom.get_outputs()[0]._data, y))
+    e1.record()
+    torch.cuda.synchronize()
+    res["step_ms"] = e0.elapsed_time(e1) / (SYMBOL_STEPS - 1)
+    res["losses"] = losses
+    del custom
+    # the op alone at the head's shape: the host round trip's cost
+    logits = nd.NDArray(torch.randn((VISION_BATCH, VISION_CLASSES),
+                                    generator=g, device=dev))
+    logits.attach_grad()
+    lab = nd.NDArray(y)
+
+    def run(custom_op):
+        def once():
+            with autograd.record():
+                out = nd.Custom(logits, lab, op_type="chip_softmax") \
+                    if custom_op else nd.SoftmaxOutput(logits, lab)
+            out.backward()
+        return once
+    run(True)()
+    run(False)()
+    res["custom_fwd_bwd_ms"] = _events_ms(torch, run(True),
+                                          QUANT_ROUND_TRIPS)
+    res["softmax_output_fwd_bwd_ms"] = _events_ms(torch, run(False),
+                                                  QUANT_ROUND_TRIPS)
+
+    class Served(gluon.HybridBlock):
+        def __init__(self, body):
+            super().__init__()
+            self.body = body
+
+        def hybrid_forward(self, F, data):
+            return F.Custom(self.body(data), op_type="chip_softmax_infer")
+
+    served = Served(net)
+    served.hybridize()
+    engine = InferenceEngine(served, buckets=(1, 8, 32))
+    xs = nd.NDArray(x[:8])
+    with autograd.predict_mode():
+        outs = [engine.predict(xs)._data for _ in range(3)]
+        eager = served._nd_forward(xs)._data
+    stats = engine.stats()
+    if not (stats["host_eager"] == 1 and stats["graphs"] == 0
+            and stats["hits"] == 2):
+        fail("quant (a): the served Custom signature was not run eagerly "
+             "and counted: %s" % stats)
+    if not all(torch.equal(o, eager) for o in outs) or not torch.allclose(
+            eager.sum(1), torch.ones(eager.shape[0], device=dev),
+            atol=1e-5):
+        fail("quant (a): the served answers differ from the block's eager "
+             "forward")
+    res["served"] = {k: stats[k] for k in ("host_eager", "graphs", "hits",
+                                           "misses")}
+    engine.close()
+
+    class Syncs(gluon.HybridBlock):
+        def hybrid_forward(self, F, data):
+            return data * float(data.sum().asscalar())
+
+    syncs = Syncs()
+    syncs.hybridize()
+    try:
+        with autograd.predict_mode():
+            syncs(nd.NDArray(torch.ones(4, device=dev)))
+    except Exception as e:  # noqa: BLE001 — the capture's own error
+        res["other_capture_raises"] = type(e).__name__
+    else:
+        fail("quant (a): a host read outside a host op was captured")
+    torch.cuda.synchronize()
+    return net, res
+
+
+def _int8_layers(net):
+    return [m for m in net.modules()
+            if type(m).__name__ in ("_Int8Conv", "_Int8Dense")]
+
+
+def _trace_int8(torch, net, x, check=None):
+    """One eager forward of a quantized net on ``x``: each int8 layer's
+    int8 input (on the host), and ``check(layer, qx)`` of each."""
+    from mxnet_tpu_torch import autograd, nd
+    trace, handles = [], []
+
+    def hook(block, inputs):
+        qx = block._quantize_in(inputs[0])[0]
+        trace.append(qx.cpu())
+        if check is not None:
+            check(block, qx)
+    for m in _int8_layers(net):
+        handles.append(m.register_forward_pre_hook(hook))
+    try:
+        with autograd.predict_mode():
+            out = net(nd.NDArray(x))._data
+    finally:
+        for h in handles:
+            h.detach()
+    return out, trace
+
+
+def _int8_conv_plain(torch, qx, w, stride, pad, dilate):
+    """The plain version of an int8 convolution: ``F.conv2d`` of the int8
+    values in float64 (exact: every sum stays under 2^53), with cuDNN off
+    so that PyTorch's own convolution (im2col and cuBLAS's DGEMM) makes
+    it, apart from the port's im2col and ``torch._int_mm``."""
+    import torch.nn.functional as F
+    with torch.backends.cudnn.flags(enabled=False):
+        out = F.conv2d(qx.double(), w.double(), stride=stride, padding=pad,
+                       dilation=dilate)
+    return out.to(torch.int32)
+
+
+def _accumulators_check(torch, results):
+    """``check`` of :func:`_trace_int8`: the layer's int32 accumulators
+    from the port's route (im2col and ``torch._int_mm``) against the
+    plain version (a float64 convolution or product, exact) on the same
+    int8 input."""
+    from mxnet_tpu_torch.ops import quantized_ops as qo
+
+    def check(block, qx):
+        w = block._wq
+        if type(block).__name__ == "_Int8Conv":
+            k = block._kwargs
+            geo = (tuple(k["stride"]), tuple(k["pad"]), tuple(k["dilate"]))
+            got = qo.int8_conv(qx, w, *geo)
+            plain = _int8_conv_plain(torch, qx, w, *geo)
+        else:
+            rows = qx.reshape(qx.shape[0], -1)
+            got = qo.int8_matmul(rows, w)
+            plain = qo.int8_matmul_plain(rows, w)
+        results.append((tuple(got.shape), bool(torch.equal(got, plain))))
+    return check
+
+
+def _range_set_in_place(torch, net, xn, replay8):
+    """``set_data`` of a narrower range into the first int8 layer of the
+    hybridized, captured ``net``: its replay must quantize in the new
+    range (equal to an eager forward in it, unlike the old output); the
+    old range set back gives the old output again. Leaves ``net``
+    eager."""
+    first = _int8_layers(net)[0]
+    old = first.calib.data()._data.clone()
+    first.calib.set_data(old * 0.5)
+    replayed = net(xn)._data.clone()
+    first.calib.set_data(old)
+    restored = net(xn)._data.clone()
+    net.hybridize(False)
+    first.calib.set_data(old * 0.5)
+    eager = net(xn)._data.clone()
+    first.calib.set_data(old)
+    ok = (torch.equal(replayed, eager) and not torch.equal(replayed, replay8)
+          and torch.equal(restored, replay8))
+    if not ok:
+        fail("quant (b): a range set in place after the capture was not "
+             "used by the replay")
+    return True
+
+
+def quant_int8(args, torch, tmp, net):
+    """(b) ``net`` (ResNet-50 v1 from ``Xavier()``) with BatchNorm
+    statistics from training-mode forwards, ``quantize_net`` on 4
+    calibration batches; b32 int8 inference against the plain
+    accumulators, the CPU, the fp32 net, timed beside the fp32 and bf16
+    replays; a ``.params`` round trip; ``quantize_model`` on the exported
+    symbol."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import autograd, model, nd
+    from mxnet_tpu_torch import random as trandom
+    from mxnet_tpu_torch.contrib.quantization import (quantize_model,
+                                                      quantize_net)
+    from mxnet_tpu_torch.gluon.model_zoo import vision
+    dev = torch.device("cuda")
+    shape = (VISION_BATCH, 3, VISION_IMAGE, VISION_IMAGE)
+    g = torch.Generator(dev).manual_seed(args.seed + 6)
+    with autograd.train_mode():
+        for _ in range(QUANT_BN_BATCHES):
+            net(nd.NDArray(torch.rand(shape, generator=g, device=dev)))
+    calib = [nd.NDArray(torch.rand(shape, generator=g, device=dev))
+             for _ in range(QUANT_CALIB_BATCHES)]
+    x = torch.rand(shape, generator=g, device=dev)
+    xn = nd.NDArray(x)
+    res = {}
+    src = os.path.join(tmp, "resnet50_float")
+    net.hybridize()
+    with autograd.predict_mode():
+        net(xn)                                     # the capture
+        out32 = net(xn)._data.clone()
+        res["fp32_replay_ms"] = _events_ms(torch, lambda: net(xn),
+                                           QUANT_REPLAYS)
+    net.export(src)
+    net.hybridize(False)
+    nbf = _resnet50(torch, trandom, args.seed)
+    for p, q in zip(nbf.collect_params().values(),
+                    net.collect_params().values()):
+        p.set_data(q.data())
+    nbf.cast("bfloat16")
+    nbf.hybridize()
+    xb = nd.NDArray(x.bfloat16())
+    with autograd.predict_mode():
+        nbf(xb)
+        res["bf16_replay_ms"] = _events_ms(torch, lambda: nbf(xb),
+                                           QUANT_REPLAYS)
+    del nbf
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    quantize_net(net, calib_data=calib, calib_mode="naive")
+    res["quantize_s"] = time.perf_counter() - t0
+    layers = _int8_layers(net)
+    if len(layers) != QUANT_LAYERS or any(m._range is None for m in layers):
+        fail("quant (b): %d layers swapped (%d calibrated), not %d"
+             % (len(layers), sum(m._range is not None for m in layers),
+                QUANT_LAYERS))
+    acc = []
+    torch.cuda.reset_peak_memory_stats()
+    out8, _ = _trace_int8(torch, net, x, _accumulators_check(torch, acc))
+    if len(acc) != QUANT_LAYERS or not all(eq for _, eq in acc):
+        fail("quant (b): int32 accumulators differ from the plain version "
+             "in %d of %d layers" % (sum(not eq for _, eq in acc),
+                                     len(acc)))
+    res["accumulators_bitwise"] = len(acc)
+    with autograd.predict_mode():
+        torch.cuda.reset_peak_memory_stats()
+        eager8 = net(xn)._data.clone()
+        res["peak_gb"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        res["int8_eager_ms"] = _events_ms(torch, lambda: net(xn), 5)
+        net.hybridize()
+        net(xn)                                     # the capture
+        replay8 = net(xn)._data.clone()
+        res["int8_replay_ms"] = _events_ms(torch, lambda: net(xn),
+                                           QUANT_REPLAYS)
+        res["range_set_in_place"] = _range_set_in_place(torch, net, xn,
+                                                        replay8)
+    net.hybridize(False)
+    if args.profile:
+        with autograd.predict_mode():
+            res["profile"] = profile(torch, lambda: net(xn), QUANT_GEMM_RE)
+    if not (torch.equal(eager8, out8) and torch.equal(replay8, out8)
+            and torch.isfinite(out8).all()):
+        fail("quant (b): the int8 forward's replay or a second eager "
+             "forward differs, or is not finite")
+    res["top1_agree_fp32"] = float(
+        (out8.argmax(1) == out32.argmax(1)).float().mean())
+    res["logits_vs_fp32_rel_to_max"] = rel_to_max(out8, out32)
+    # the same quantized net on the CPU, from its .params file
+    fparams = os.path.join(tmp, "int8.params")
+    net.save_parameters(fparams)
+    rows = x[:QUANT_CPU_ROWS]
+    card_out, card_trace = _trace_int8(torch, net, rows)
+    with mx.cpu():
+        trandom.seed(args.seed)
+        np.random.seed(args.seed)
+        cpu_net = vision.resnet50_v1()
+        cpu_net.initialize(mx.initializer.Xavier())
+        cpu_net(nd.zeros((1, 3, VISION_IMAGE, VISION_IMAGE)))
+        quantize_net(cpu_net)
+        cpu_net.load_parameters(fparams)
+        cpu_out, cpu_trace = _trace_int8(torch, cpu_net, rows.cpu())
+    diffs = [(a.to(torch.int32) - b.to(torch.int32)).abs()
+             for a, b in zip(card_trace, cpu_trace)]
+    res["cpu"] = {"rows": QUANT_CPU_ROWS,
+                  "int8_off_by_one": int(sum((d == 1).sum() for d in diffs)),
+                  "int8_off_by_more": int(sum((d > 1).sum() for d in diffs)),
+                  "int8_values": int(sum(d.numel() for d in diffs)),
+                  "logits_rel_to_max": rel_to_max(card_out.cpu(), cpu_out),
+                  "tol": QUANT_LOGIT_TOL}
+    if not res["cpu"]["logits_rel_to_max"] <= QUANT_LOGIT_TOL:
+        fail("quant (b): the int8 logits lie %.3g of their max from the "
+             "CPU's (tolerance %g)" % (res["cpu"]["logits_rel_to_max"],
+                                       QUANT_LOGIT_TOL))
+    del cpu_net
+    # .params round trip into a fresh quantized net on the card
+    twin = _resnet50(torch, trandom, args.seed + 1)
+    quantize_net(twin)
+    twin.load_parameters(fparams)
+    with autograd.predict_mode():
+        back = twin(xn)._data
+    if not torch.equal(back, out8):
+        fail("quant (b): the int8 net loaded from its .params file answers "
+             "otherwise (max |diff| %g)" % (back - out8).abs().max())
+    res["params_round_trip_bitwise"] = True
+    del twin
+    # quantize_model on the exported float symbol
+    graph, arg_p, aux_p = model.load_checkpoint(src, 0)
+    _, qargs, qaux = quantize_model(graph, arg_p, aux_p, ctx=mx.gpu(0))
+    quantized = [n for n in arg_p if n.endswith("weight")]
+    ex = graph.bind(mx.gpu(0), dict(qargs, data=xn), aux_states=qaux)
+    qout = ex.forward()[0]._data
+    res["quantize_model"] = {
+        "weights": len(quantized),
+        "worst_weight_step": max(
+            float(((qargs[n]._data - arg_p[n]._data).abs().amax(
+                dim=tuple(range(1, arg_p[n].ndim)))
+                / (arg_p[n]._data.abs().amax(
+                    dim=tuple(range(1, arg_p[n].ndim))) / 127.0)
+                .clamp_min(1e-30)).max()) for n in quantized),
+        "logits_vs_fp32_rel_to_max": rel_to_max(qout, out32)}
+    if len(quantized) != QUANT_LAYERS or \
+            not res["quantize_model"]["worst_weight_step"] <= 0.5 + 1e-3:
+        fail("quant (b): quantize_model: %s" % res["quantize_model"])
+    del ex, qargs
+    return res
+
+
+def _quant_cases(torch, g, dev):
+    """Each of the 13 ops at ResNet-50's widths, on ``dev``'s tensors
+    drawn from ``g`` (on the card) and copied."""
+    def i8(*s):
+        return torch.randint(-127, 128, s, generator=g, device=dev,
+                             dtype=torch.int8)
+
+    def f(*s):
+        return torch.randn(s, generator=g, device=dev)
+
+    def r(v):
+        return torch.full((1,), v, device=dev)
+    act = f(32, 3, 224, 224)
+    return {
+        "quantize_v2": ([act], {"min_calib_range": -2.1,
+                                "max_calib_range": 2.6}),
+        "quantize": ([act, r(-2.1), r(2.6)], {}),
+        "dequantize": ([i8(32, 64, 56, 56), r(-3.0), r(4.0)], {}),
+        "requantize": ([torch.randint(-2 ** 24, 2 ** 24, (32, 1000),
+                                      generator=g, device=dev,
+                                      dtype=torch.int32),
+                        r(-400.0), r(400.0)], {}),
+        "quantized_fully_connected": (
+            [i8(32, 2048), i8(1000, 2048), f(1000)],
+            dict(min_data=-3.0, max_data=3.0, min_weight=-0.2,
+                 max_weight=0.2, min_bias=-1.0, max_bias=1.0,
+                 num_hidden=1000)),
+        "quantized_conv": (
+            [i8(8, 3, 224, 224), i8(64, 3, 7, 7), f(64)],
+            dict(min_data=-2.0, max_data=2.0, min_weight=-0.1,
+                 max_weight=0.1, min_bias=-0.5, max_bias=0.5,
+                 kernel=(7, 7), stride=(2, 2), pad=(3, 3), num_filter=64)),
+        "quantized_pooling": (
+            [i8(32, 64, 112, 112)],
+            dict(min_data=-1.0, max_data=1.0, kernel=(3, 3), stride=(2, 2),
+                 pad=(1, 1), pool_type="max")),
+        "quantized_act": ([i8(32, 64, 112, 112)],
+                          dict(min_data=-1.0, max_data=1.0)),
+        "quantized_flatten": ([i8(32, 2048, 1, 1)],
+                              dict(min_data=-1.0, max_data=1.0)),
+        "quantized_elemwise_add": (
+            [i8(32, 256, 56, 56), i8(32, 256, 56, 56)],
+            dict(lhs_min=-1.0, lhs_max=1.0, rhs_min=-2.0, rhs_max=3.0)),
+        "quantized_concat": (
+            [i8(32, 64, 56, 56), i8(32, 128, 56, 56), r(-1.0), r(1.0),
+             r(-2.0), r(3.0)], dict(num_args=2, dim=1)),
+        "quantized_batch_norm": (
+            [i8(32, 64, 56, 56), f(64) + 1.0, f(64), f(64),
+             f(64).abs() + 0.5], dict(min_data=-2.0, max_data=2.0)),
+        "calibrate_entropy": (
+            [torch.randint(0, 1000, (512,), generator=g, device=dev)
+             .float(), torch.linspace(0, 8.0, 513, device=dev)],
+            dict(num_quantized_bins=255)),
+    }
+
+
+def quant_names(args, torch):
+    """(b) every one of the 26 names once on the card against the CPU on
+    the same inputs: bitwise (int8/uint8/int32 payloads and the float32
+    ranges and values alike)."""
+    from mxnet_tpu_torch.ops import registry as treg
+    dev, cpu = torch.device("cuda"), torch.device("cpu")
+    g = torch.Generator(dev).manual_seed(args.seed + 8)
+    cases = _quant_cases(torch, g, dev)
+    mism, names = [], 0
+    for base, (a, kw) in sorted(cases.items()):
+        want = treg.get_op(base).fn(*[t.to(cpu) for t in a], **kw)
+        want = want if isinstance(want, tuple) else (want,)
+        for name in (base, "_contrib_" + base):
+            got = treg.get_op(name).fn(*a, **kw)
+            got = got if isinstance(got, tuple) else (got,)
+            names += 1
+            for i, (o, w) in enumerate(zip(got, want)):
+                if o.dtype != w.dtype or not torch.equal(o.cpu(), w):
+                    mism.append("%s[%d]" % (name, i))
+    if mism:
+        fail("quant: %d outputs differ from the CPU: %s"
+             % (len(mism), ", ".join(mism)))
+    return {"names": names}
+
+
+def quant_phase(args, torch):
+    """The quant phase, parts (a) and (b) (see the module docstring)."""
+    import tempfile
+    t0 = time.perf_counter()
+    fa0 = kernel_launches()
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        net, out["custom"] = quant_custom(args, torch, tmp)
+        gc.collect()
+        torch.cuda.empty_cache()
+        out["int8"] = quant_int8(args, torch, tmp, net)
+        del net
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["ops"] = quant_names(args, torch)
+    out["launches"] = {k: v - fa0[k] for k, v in kernel_launches().items()}
+    if any(out["launches"].values()):
+        fail("quant: a flash kernel launched %s" % out["launches"])
+    out["wall_s"] = time.perf_counter() - t0
+    return out
+
+
+def print_quant(res, symbol, vision, card):
+    """The quant phase's lines of the output."""
+    c, q = res["custom"], res["int8"]
+    print("quant (a) resnet50_v1 b%d, Custom softmax head (numpy on the "
+          "host) through Module: gradients vs SoftmaxOutput %.3g of max "
+          "(%d arrays, tol %g); step %.2f ms against the symbol phase's "
+          "SoftmaxOutput step %.2f ms; the op alone fwd+bwd %.3f ms against "
+          "SoftmaxOutput's %.3f ms; losses %s; served hybridized block: %s, "
+          "a host read outside a host op raises %s [%s]"
+          % (VISION_BATCH, c["grad_vs_softmax_output"]["worst_rel_to_max"],
+             c["grad_vs_softmax_output"]["params"], QUANT_GRAD_TOL,
+             c["step_ms"], symbol["module"]["step_ms"],
+             c["custom_fwd_bwd_ms"], c["softmax_output_fwd_bwd_ms"],
+             ", ".join("%.4f" % v for v in c["losses"]), c["served"],
+             c["other_capture_raises"], card), flush=True)
+    cpu = q["cpu"]
+    print("quant (b) int8 resnet50_v1 b%d: %d layers swapped, int32 "
+          "accumulators == plain (float64) in all %d; int8 eager %.3f ms, "
+          "replay %.3f ms; fp32 replay %.3f ms, bf16 replay %.3f ms (vision "
+          "phase bf16 %.3f); peak %.2f GB; top-1 vs fp32 %.3f (logits %.3g of "
+          "max); CPU (%d rows): logits %.3g of max (tol %g), int8 values off "
+          "by one %d / more %d of %d; .params round trip bitwise; "
+          "quantize_model %d weights (worst %.3f of a step), logits %.3g of "
+          "fp32 max; %d names == CPU; quantize_net %.1f s; flash launches "
+          "%s; %.1f s [%s]"
+          % (VISION_BATCH, QUANT_LAYERS, q["accumulators_bitwise"],
+             q["int8_eager_ms"], q["int8_replay_ms"], q["fp32_replay_ms"],
+             q["bf16_replay_ms"], vision["inference"]["replay_ms"],
+             q["peak_gb"], q["top1_agree_fp32"],
+             q["logits_vs_fp32_rel_to_max"], cpu["rows"],
+             cpu["logits_rel_to_max"], cpu["tol"], cpu["int8_off_by_one"],
+             cpu["int8_off_by_more"], cpu["int8_values"],
+             q["quantize_model"]["weights"],
+             q["quantize_model"]["worst_weight_step"],
+             q["quantize_model"]["logits_vs_fp32_rel_to_max"],
+             res["ops"]["names"], q["quantize_s"], res["launches"],
+             res["wall_s"], card), flush=True)
+    if "profile" in q:
+        pr = q["profile"]
+        print("profile quant (b) int8 b%d eager forward: %.1f ms wall, "
+              "device busy %.1f ms (%.1f%%), %d kernels; int8 GEMMs %.1f%% "
+              "of busy; top: %s" % (
+                  VISION_BATCH, pr["wall_ms"], pr["device_busy_ms"],
+                  100 * pr["device_busy_share"], pr["kernels_launched"],
+                  100 * pr["matched_share_of_busy"],
+                  "; ".join("%s x%d %.2f ms" % (k["name"][:48], k["calls"],
+                                                k["ms"])
+                            for k in pr["top_kernels"][:6])), flush=True)
+
+
+# the sparse phase: MXNet 1.6's example/sparse/linear_classification at
+# Avazu's width, and the graph ops (item 8 step 6)
+SPARSE_FEATURES = 1000001   # Avazu's hashed features, and one
+SPARSE_FIELDS = 15          # nonzeros a row: one hashed feature a field
+SPARSE_BATCH = 8192
+SPARSE_STEPS = 20
+SPARSE_SGD = {"learning_rate": 0.1, "wd": 1e-4}
+SPARSE_CPU_ULPS = 4         # the weight vs the CPU's, in float32 ulps of
+SPARSE_TRUTH_ULPS = 16      # the largest |weight|; vs float64 numpy
+GRAPH_VERTICES = 20000
+GRAPH_DEGREE = 8
+GRAPH_PAIRS = 2000          # edge_id queries
+GRAPH_SUBSET = 1000         # dgl_subgraph's vertices
+GRAPH_SEEDS = 32            # a sampler's seed vertices (two seed arrays)
+RRELU_SHAPE = (32, 64, 112, 112)   # ResNet-50's first activation
+
+
+def _avazu_batches(torch, seed, dev):
+    """Every step's CSR batch, made in bulk on ``dev``: one hashed column a
+    field (the fields' ranges are disjoint, so a row's columns are sorted
+    and distinct), value 1, and a 0/1 label; the weight from N(0, 0.01)."""
+    g = torch.Generator(dev).manual_seed(seed)
+    width = SPARSE_FEATURES // SPARSE_FIELDS
+    cols = torch.arange(SPARSE_FIELDS, device=dev) * width + torch.randint(
+        0, width, (SPARSE_STEPS, SPARSE_BATCH, SPARSE_FIELDS), generator=g,
+        device=dev)
+    labels = torch.randint(0, 2, (SPARSE_STEPS, SPARSE_BATCH, 1),
+                           generator=g, device=dev).float()
+    w0 = torch.randn((SPARSE_FEATURES, 1), generator=g, device=dev) * 0.01
+    return cols, labels, w0
+
+
+def _linear_steps(torch, cols, labels, w0, dev, timed=False):
+    """``linear_classification``'s loop on ``dev``: ``dot(csr, w) + b``,
+    the logistic loss, the row-sparse gradient ``dot(csr.T, g)`` and SGD's
+    lazy update; the bias by the dense rule. ``w`` is a
+    ``RowSparseNDArray`` that stores every row (the example's
+    ``stype='row_sparse'`` weight from ``Normal``); the weight is returned
+    as the dense tensor its payload (values at indices) makes."""
+    import torch.nn.functional as F
+    from mxnet_tpu_torch import nd, optimizer
+    from mxnet_tpu_torch.ndarray import sparse
+    cols, labels = cols.to(dev), labels.to(dev)
+    steps, batch, fields = cols.shape
+    w = sparse.RowSparseNDArray(w0.to(dev).clone(),
+                                torch.arange(w0.shape[0], device=dev),
+                                tuple(w0.shape))
+    b = torch.zeros(1, device=dev)
+    opt = optimizer.SGD(lazy_update=True, **SPARSE_SGD)
+    indptr = torch.arange(0, batch * fields + 1, fields, device=dev)
+    ones = torch.ones(batch * fields, device=dev)
+    rows = torch.full((), float(batch), device=dev)
+    losses, events = [], []
+    for s in range(steps):
+        if timed:
+            events.append(torch.cuda.Event(enable_timing=True))
+            events[-1].record()
+        csr = sparse.CSRNDArray(ones, cols[s].reshape(-1), indptr,
+                                (batch, SPARSE_FEATURES))
+        z = sparse.dot(csr, w)._data + b
+        losses.append(F.binary_cross_entropy_with_logits(z, labels[s]))
+        gz = (torch.sigmoid(z) - labels[s]) / rows
+        gw = sparse.dot(csr, nd.NDArray(gz), transpose_a=True,
+                        forward_stype="row_sparse")
+        opt.update(0, w, gw, None)
+        opt.update(1, b, gz.sum(0), None)
+    if timed:
+        events.append(torch.cuda.Event(enable_timing=True))
+        events[-1].record()
+        torch.cuda.synchronize()
+    ms = [a.elapsed_time(e) for a, e in zip(events, events[1:])]
+    if w.stype != "row_sparse":
+        fail("sparse (c): the weight's storage became %r" % w.stype)
+    values, idx = w.data._data, w.indices._data
+    stored = torch.zeros(tuple(w0.shape), dtype=values.dtype, device=dev)
+    stored[idx] = values
+    if not torch.equal(stored, w.tostype("default")._data):
+        fail("sparse (c): the row-sparse weight's payload disagrees with "
+             "its dense value after %d SGD steps" % steps)
+    return stored, b, [float(v) for v in losses], ms
+
+
+def _linear_truth(cols, labels, w0):
+    """The same 20 steps in float64 numpy."""
+    lr, wd = SPARSE_SGD["learning_rate"], SPARSE_SGD["wd"]
+    w, b = w0.astype(np.float64).ravel(), 0.0
+    for s in range(SPARSE_STEPS):
+        idx, y = cols[s], labels[s].ravel().astype(np.float64)
+        z = w[idx].sum(1) + b
+        gz = (1.0 / (1.0 + np.exp(-z)) - y) / SPARSE_BATCH
+        gw = np.zeros_like(w)
+        np.add.at(gw, idx.ravel(), np.repeat(gz, SPARSE_FIELDS))
+        touched = np.unique(idx)
+        w[touched] -= lr * (gw[touched] + wd * w[touched])
+        b -= lr * (gz.sum() + wd * b)
+    return w
+
+
+def sparse_linear(args, torch):
+    """(c) the sparse linear classifier at Avazu's width: 20 steps on the
+    card twice (bitwise repeat), on the CPU, and in float64 numpy."""
+    dev, cpu = torch.device("cuda"), torch.device("cpu")
+    cols, labels, w0 = _avazu_batches(torch, args.seed + 9, dev)
+    _linear_steps(torch, cols[:2], labels[:2], w0, dev)   # warm-up
+    w, b, losses, ms = _linear_steps(torch, cols, labels, w0, dev,
+                                     timed=True)
+    w2, _, _, _ = _linear_steps(torch, cols, labels, w0, dev)
+    prof = profile(torch, lambda: _linear_steps(
+        torch, cols[:1], labels[:1], w0, dev)) if args.profile else None
+    wc, _, _, _ = _linear_steps(torch, cols, labels, w0, cpu)
+    truth = _linear_truth(cols.cpu().numpy(), labels.cpu().numpy(),
+                          w0.cpu().numpy())
+    touched = torch.zeros(SPARSE_FEATURES, dtype=torch.bool, device=dev)
+    touched[cols.reshape(-1)] = True
+    ulp = float(np.spacing(np.float32(w.abs().max().item())))
+    w64 = w.ravel().double().cpu()
+    delta = w64 - w0.cpu().ravel().double()
+    d_truth = torch.from_numpy(truth) - w0.cpu().ravel().double()
+    res = {"features": SPARSE_FEATURES, "batch": SPARSE_BATCH,
+           "weight_stype": "row_sparse", "payload_matches_dense": True,
+           "nnz_per_row": SPARSE_FIELDS, "steps": SPARSE_STEPS,
+           "sgd": dict(SPARSE_SGD), "losses": losses,
+           "first_step_ms": ms[0], "step_ms": float(np.mean(ms[1:])),
+           "touched_rows": int(touched.sum()),
+           "repeat_bitwise": bool(torch.equal(w, w2)),
+           "cpu_bitwise": bool(torch.equal(w.cpu(), wc)),
+           "vs_cpu_ulps": float((w64 - wc.ravel().double()).abs().max())
+           / ulp,
+           "vs_float64_ulps": float((delta - d_truth).abs().max()) / ulp,
+           "max_change": float(d_truth.abs().max()), "ulp": ulp,
+           "untouched_unchanged": bool(torch.equal(w[~touched],
+                                                   w0[~touched]))}
+    if prof is not None:
+        res["profile_one_step"] = prof
+    if not (res["repeat_bitwise"] and res["untouched_unchanged"]
+            and res["vs_cpu_ulps"] <= SPARSE_CPU_ULPS
+            and res["vs_float64_ulps"] <= SPARSE_TRUTH_ULPS
+            and all(np.isfinite(losses))):
+        fail("sparse (c): %s" % {k: v for k, v in res.items()
+                                 if k != "losses"})
+    return res
+
+
+def _graph(torch, seed, dev):
+    """A random graph on ``dev``: ``GRAPH_DEGREE`` distinct neighbours a
+    vertex (none itself), values 1-9."""
+    from mxnet_tpu_torch.ndarray import sparse
+    g = torch.Generator(dev).manual_seed(seed)
+    n, d = GRAPH_VERTICES, GRAPH_DEGREE
+    steps = torch.randint(1, (n - 1) // d, (n, d), generator=g, device=dev)
+    nbrs = (torch.arange(n, device=dev)[:, None] + steps.cumsum(1)) % n
+    nbrs = nbrs.sort(1).values
+    vals = torch.randint(1, 10, (n * d,), generator=g, device=dev).float()
+    indptr = torch.arange(0, n * d + 1, d, device=dev)
+    return sparse.CSRNDArray(vals, nbrs.reshape(-1), indptr, (n, n)), g
+
+
+def _graph_run(nd, csr, q, seed):
+    out = {"edge_id": nd._contrib_edge_id(csr, q["u"], q["v"]),
+           "getnnz": nd._contrib_getnnz(csr),
+           "getnnz0": nd._contrib_getnnz(csr, axis=0),
+           "getnnz1": nd._contrib_getnnz(csr, axis=1),
+           "adjacency": nd._contrib_dgl_adjacency(csr),
+           "subgraph": nd._contrib_dgl_subgraph(csr, q["subset"],
+                                                return_mapping=True)}
+    np.random.seed(seed)
+    out["uniform"] = nd._contrib_dgl_csr_neighbor_uniform_sample(
+        csr, q["seeds0"], q["seeds1"], num_hops=2, num_neighbor=4,
+        max_num_vertices=500)
+    np.random.seed(seed + 1)
+    out["non_uniform"] = nd._contrib_dgl_csr_neighbor_non_uniform_sample(
+        csr, q["prob"], q["seeds0"], num_hops=2, num_neighbor=4,
+        max_num_vertices=500)
+    verts, sub = out["uniform"][0], out["uniform"][2]
+    out["compact"] = nd._contrib_dgl_graph_compact(
+        sub, verts, graph_sizes=(int(verts.asnumpy()[-1]),))
+    return out
+
+
+def _graph_flat(v):
+    items = v if isinstance(v, (tuple, list)) else (v,)
+    res = []
+    for a in items:
+        res.append(a.asnumpy())
+        if a.stype == "csr":
+            res.extend(getattr(a, p).asnumpy()
+                       for p in ("data", "indices", "indptr"))
+    return res
+
+
+def sparse_graph(args, torch):
+    """(d) the seven graph names on a CSR graph held on the card against
+    the same graph on the CPU (the samplers under the same numpy seeds)."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import nd
+    from mxnet_tpu_torch.ndarray import sparse
+    dev = torch.device("cuda")
+    csr, g = _graph(torch, args.seed + 10, dev)
+    n = GRAPH_VERTICES
+    idx = lambda k: torch.randint(0, n, (k,), generator=g,  # noqa: E731
+                                  device=dev)
+    rows = idx(GRAPH_PAIRS // 2)
+    hits = csr._csr_indices.reshape(n, GRAPH_DEGREE)[rows, 0]
+    q = {"u": torch.cat([rows, idx(GRAPH_PAIRS // 2)]),
+         "v": torch.cat([hits, idx(GRAPH_PAIRS // 2)]),
+         "subset": torch.randperm(n, generator=g, device=dev)[:GRAPH_SUBSET],
+         "seeds0": idx(GRAPH_SEEDS), "seeds1": idx(GRAPH_SEEDS),
+         "prob": torch.rand(n, generator=g, device=dev)}
+    t0 = time.perf_counter()
+    card = _graph_run(nd, csr, {k: nd.NDArray(v) for k, v in q.items()},
+                      args.seed)
+    card_s = time.perf_counter() - t0
+    with mx.cpu():
+        d, i, p = csr._payload()
+        host = sparse.CSRNDArray(d.cpu(), i.cpu(), p.cpu(), csr.shape)
+        cpu = _graph_run(nd, host, {k: nd.NDArray(v.cpu())
+                                    for k, v in q.items()}, args.seed)
+    mism = []
+    for k in card:
+        a, b = _graph_flat(card[k]), _graph_flat(cpu[k])
+        if len(a) != len(b) or any(x.dtype != y.dtype or x.shape != y.shape
+                                   or not np.array_equal(x, y)
+                                   for x, y in zip(a, b)):
+            mism.append(k)
+    if mism:
+        fail("sparse (d): graph ops differ from the CPU: %s" % mism)
+    on_card = all(a.ctx.device_type == "gpu" for v in card.values()
+                  for a in (v if isinstance(v, tuple) else (v,)))
+    if not on_card:
+        fail("sparse (d): a graph op's result left the card")
+    verts = card["uniform"][0].asnumpy()
+    return {"vertices": n, "edges": n * GRAPH_DEGREE, "names": 7,
+            "calls": len(card), "card_s": card_s,
+            "sampled_vertices": int(verts[-1])}
+
+
+def sparse_rrelu(args, torch):
+    """(d) ``LeakyReLU`` rrelu in training on the card: slopes within
+    their bounds with the right mean, the identity on positive inputs,
+    one key one mask, and its gradient the drawn slope (``torch.randn``
+    on the card makes exact zeros now and then: those take a slope, as
+    ``x > 0`` is false for them)."""
+    from mxnet_tpu_torch import autograd, nd
+    from mxnet_tpu_torch.ops import registry as treg
+    dev = torch.device("cuda")
+    lo, hi = 0.125, 0.334
+    g = torch.Generator(dev).manual_seed(args.seed + 11)
+    x = torch.randn(RRELU_SHAPE, generator=g, device=dev)
+    fn = treg.get_op("LeakyReLU").fn
+    y = fn(x, act_type="rrelu", key=(3, 4), train=True)
+    again = fn(x, act_type="rrelu", key=(3, 4), train=True)
+    other = fn(x, act_type="rrelu", key=(3, 5), train=True)
+    neg = ~(x > 0)       # the op's own test: x == 0 takes the slope too
+    xn = nd.NDArray(x)
+    xn.attach_grad()
+    with autograd.record(train_mode=True):
+        out = nd.LeakyReLU(xn, act_type="rrelu")
+    out.backward()
+    grad = xn.grad._data
+    slopes = grad[neg].double()        # d(u * x)/dx = u, exactly
+    res = {"shape": list(RRELU_SHAPE), "slope_min": float(slopes.min()),
+           "slope_max": float(slopes.max()),
+           "slope_mean": float(slopes.mean()),
+           "positive_identity": bool(torch.equal(y[~neg], x[~neg])),
+           "one_key_one_mask": bool(torch.equal(y, again)
+                                    and not torch.equal(y, other)),
+           "grad_is_slope": bool(torch.equal(grad[~neg],
+                                             torch.ones_like(x[~neg]))
+                                 and torch.equal(grad[neg] * x[neg],
+                                                 out._data[neg]))}
+    if not (res["positive_identity"] and res["one_key_one_mask"]
+            and res["grad_is_slope"] and lo <= res["slope_min"]
+            and res["slope_max"] < hi
+            and abs(res["slope_mean"] - (lo + hi) / 2) < 1e-3):
+        fail("sparse (d) rrelu: %s" % res)
+    return res
+
+
+def sparse_phase(args, torch):
+    """The sparse phase, parts (c) and (d) (see the module docstring)."""
+    t0 = time.perf_counter()
+    fa0 = kernel_launches()
+    out = {"linear": sparse_linear(args, torch)}
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["graph"] = sparse_graph(args, torch)
+    out["rrelu"] = sparse_rrelu(args, torch)
+    out["launches"] = {k: v - fa0[k] for k, v in kernel_launches().items()}
+    if any(out["launches"].values()):
+        fail("sparse: a flash kernel launched %s" % out["launches"])
+    out["wall_s"] = time.perf_counter() - t0
+    return out
+
+
+def print_sparse(res, card):
+    """The sparse phase's lines of the output."""
+    s, g, r = res["linear"], res["graph"], res["rrelu"]
+    print("sparse (c) linear classification, Avazu width (%d features), "
+          "CSR b%d x %d nonzeros a row, SGD lazy %s: %d steps, step %.3f ms "
+          "(first %.3f); %d rows touched, untouched rows bitwise unchanged "
+          "%s; repeat bitwise %s; vs CPU bitwise %s, %.3g ulps of max "
+          "|w| (tol %d); vs float64 %.3g ulps (tol %d; the largest change "
+          "%.3g, an ulp %.3g); losses %.5f -> %.5f [%s]"
+          % (s["features"], s["batch"], s["nnz_per_row"], s["sgd"],
+             s["steps"], s["step_ms"], s["first_step_ms"], s["touched_rows"],
+             s["untouched_unchanged"], s["repeat_bitwise"], s["cpu_bitwise"],
+             s["vs_cpu_ulps"], SPARSE_CPU_ULPS, s["vs_float64_ulps"],
+             SPARSE_TRUTH_ULPS, s["max_change"], s["ulp"], s["losses"][0],
+             s["losses"][-1], card), flush=True)
+    if "profile_one_step" in s:
+        pr = s["profile_one_step"]
+        print("profile sparse (c) one step (with the weight's copy): %.2f ms "
+              "wall, device busy %.3f ms (%.1f%%), %d kernels; top: %s" % (
+                  pr["wall_ms"], pr["device_busy_ms"],
+                  100 * pr["device_busy_share"], pr["kernels_launched"],
+                  "; ".join("%s x%d %.3f ms" % (k["name"][:48], k["calls"],
+                                                k["ms"])
+                            for k in pr["top_kernels"][:6])), flush=True)
+    print("sparse (d) graph ops on gpu(0), %d vertices, %d edges: %d names "
+          "(%d calls) == the CPU bitwise, %.2f s on the card (host loops), "
+          "%d vertices sampled; rrelu training at %s: slopes %.4f..%.4f mean "
+          "%.4f, identity on x > 0, one key one mask, gradient the slope; "
+          "flash launches %s; %.1f s [%s]"
+          % (g["vertices"], g["edges"], g["names"], g["calls"], g["card_s"],
+             g["sampled_vertices"], "x".join(map(str, r["shape"])),
+             r["slope_min"], r["slope_max"], r["slope_mean"],
+             res["launches"], res["wall_s"], card), flush=True)
+
+
 def kernel_entries(serving, v2, training, bert, surface, core, vision,
-                   data, rnn, symbol, ops, np_res, det, fwd_cases,
-                   bwd_cases):
+                   data, rnn, symbol, ops, np_res, det, quant, sparse,
+                   fwd_cases, bwd_cases):
     """The ``{"kernels": [...]}`` entries, one per TPU kernel. The three
     ``(B, S, H, D)`` ones: numbers of the main path's training shape (B 32,
     S 512, H 12, D 64, causal) in fp32, and under ``*_bf16`` keys in bf16;
@@ -7211,8 +8159,9 @@ def kernel_entries(serving, v2, training, bert, surface, core, vision,
     at the registry op's shape (B 8, S 512, H 12, D 64, causal, key mask).
     ``core`` holds the predict, autograd and registry-op phases' launch
     counts; the backward kernels serve both layouts, so their launches are
-    split by the phase's layout. The vision, data, rnn, ops, np and
-    detection phases' launches (none: no attention on those paths) are
+    split by the phase's layout. The vision, data, rnn, ops, np,
+    detection, quant and sparse phases' launches (none: no attention on
+    those paths) are
     listed under their names, the ops phase's ``.states`` resume on the flash path under
     ``ops_resume`` (BSHD), and the symbol phase's (its attention op
     through an Executor: BHSD)."""
@@ -7269,7 +8218,9 @@ def kernel_entries(serving, v2, training, bert, surface, core, vision,
              "ops": ops["launches"]["flash_attn_fwd"],
              "ops_resume": ops["resume_launches"]["flash_attn_fwd"],
              "np": np_res["launches"]["flash_attn_fwd"],
-             "detection": det["launches"]["flash_attn_fwd"]}
+             "detection": det["launches"]["flash_attn_fwd"],
+             "quant": quant["launches"]["flash_attn_fwd"],
+             "sparse": sparse["launches"]["flash_attn_fwd"]}
     train_timed = "B=%d S=%d H=12 D=64 BSHD causal, float32 (*_bf16: " \
         "bfloat16)" % (TRAIN_BATCH, TRAIN_SEQ)
     reg_timed = "B=8 S=512 H=12 D=64 BHSD causal with a key mask, float32 " \
@@ -7298,7 +8249,10 @@ def kernel_entries(serving, v2, training, bert, surface, core, vision,
                           "ops": ops["launches"]["flash_attn_fwd_bhsd"],
                           "np": np_res["launches"]["flash_attn_fwd_bhsd"],
                           "detection":
-                              det["launches"]["flash_attn_fwd_bhsd"]},
+                              det["launches"]["flash_attn_fwd_bhsd"],
+                          "quant": quant["launches"]["flash_attn_fwd_bhsd"],
+                          "sparse":
+                              sparse["launches"]["flash_attn_fwd_bhsd"]},
         **timed(pick(fwd_cases, B=8, layout="BHSD"),
                 pick(fwd_cases, "bfloat16", B=8, layout="BHSD"))))
     for name, part, line, line_bhsd in (
@@ -7316,7 +8270,9 @@ def kernel_entries(serving, v2, training, bert, surface, core, vision,
               "symbol": 0, "ops": ops["launches"][name],
               "ops_resume": ops["resume_launches"][name],
               "np": np_res["launches"][name],
-              "detection": det["launches"][name]}
+              "detection": det["launches"][name],
+              "quant": quant["launches"][name],
+              "sparse": sparse["launches"][name]}
         for layout, ln in (("BSHD", line), ("BHSD", line_bhsd)):
             errs = [c["max_abs_err"][n] for c in bwd_cases
                     if c["layout"] == layout
@@ -7339,7 +8295,10 @@ def kernel_entries(serving, v2, training, bert, surface, core, vision,
                                            "ops": ops["launches"][name],
                                            "np": np_res["launches"][name],
                                            "detection":
-                                               det["launches"][name]},
+                                               det["launches"][name],
+                                           "quant": quant["launches"][name],
+                                           "sparse":
+                                               sparse["launches"][name]},
                          **timed(pick(bwd_cases, B=8, layout="BHSD"),
                                  pick(bwd_cases, "bfloat16", B=8,
                                       layout="BHSD"), part))
@@ -7718,6 +8677,10 @@ def main():
     print_np(np_res, card)
     det = detection_phase(args, torch)
     print_detection(det, card)
+    quant = quant_phase(args, torch)
+    print_quant(quant, symbol, vision, card)
+    sparse = sparse_phase(args, torch)
+    print_sparse(sparse, card)
 
     for tag, prof in (("serving burst", serving["profile"]),
                       ("2 fp32 training steps",
@@ -7773,7 +8736,7 @@ def main():
                           c["max_err_rel_to_max"].values())))
     entries = kernel_entries(serving, v2, training, bert, surface, core,
                              vision, data, rnn, symbol, ops, np_res, det,
-                             fwd_cases, bwd_cases)
+                             quant, sparse, fwd_cases, bwd_cases)
     if args.out:
         with open(args.out, "w") as f:
             json.dump({"serving": serving, "serving_v2": v2,
@@ -7783,6 +8746,7 @@ def main():
                        "registry_op": registry, "vision": vision,
                        "data": data, "rnn": rnn, "symbol": symbol,
                        "ops": ops, "np": np_res, "detection": det,
+                       "quant": quant, "sparse": sparse,
                        "kernels": entries,
                        "card": card,
                        "build_s": build_s}, f, indent=1)

@@ -52,13 +52,20 @@ What the port carries so far:
   in the reference's dtypes; ``np.linalg``, ``np.random``) and ``npx``
   (``numpy_extension``), over the second part of the op corpus
   (``ops/numpy_ops.py``, the rest of ``ops/nn.py``, ``optim_ops``,
-  ``linalg_extra``, ``image_ops``).
+  ``linalg_extra``, ``image_ops``);
+- the rest of the op corpus: the contrib, control-flow, spatial and
+  detection families; ``operator`` (Python ``CustomOp``s as the ``Custom``
+  op, ``nd.Custom``, ``sym.Custom``), the INT8 family with
+  ``contrib.quantization`` (``quantize_net``, ``quantize_model``), sparse
+  storage (``nd.sparse``: ``CSRNDArray``, ``RowSparseNDArray``, ``dot``,
+  SGD's lazy update) and ``contrib.graph``.
 """
-from . import (autograd, base, callback, config, context, convert, engine,
-               gluon, image, initializer, io, lr_scheduler, metric, model,
-               models, module, monitor, ndarray, numpy, numpy_extension,
-               ops, optimizer, parallel, random, recordio, rnn, runtime,
-               serving, symbol, test_utils, visualization)
+from . import (autograd, base, callback, config, context, contrib, convert,
+               engine, gluon, image, initializer, io, lr_scheduler, metric,
+               model, models, module, monitor, ndarray, numpy,
+               numpy_extension, operator, ops, optimizer, parallel, random,
+               recordio, rnn, runtime, serving, symbol, test_utils,
+               visualization)
 from .base import MXNetError
 from .cached_op import CachedOp
 from .context import (Context, cpu, current_context, default_device, gpu,
@@ -74,11 +81,12 @@ npx = numpy_extension
 
 __version__ = "0.3.0"
 
-__all__ = ["autograd", "base", "callback", "config", "context", "convert",
+__all__ = ["autograd", "base", "callback", "config", "context", "contrib",
+           "convert",
            "engine", "gluon", "image", "initializer", "init", "io",
            "lr_scheduler", "metric", "mod", "model", "models", "module",
            "monitor", "nd", "ndarray", "np", "npx", "numpy",
-           "numpy_extension", "ops", "optimizer", "parallel",
+           "numpy_extension", "operator", "ops", "optimizer", "parallel",
            "random", "recordio", "rnn", "runtime", "serving", "sym",
            "symbol", "test_utils", "visualization", "viz", "CachedOp", "Context",
            "MXNetError", "cpu", "gpu", "current_context", "default_device",

@@ -37,6 +37,13 @@ process). What an entry holds:
   torch's autograd, and the signature is still counted in the cache.
 - **On the CPU**, a miss captures nothing and every call runs the
   callable; the counters are the same.
+- **A callable that reaches a host op** (``ops.registry.register(
+  host_op=True)``: ``Custom``, the graph ops; their code reads values to
+  the host, which a capture refuses) is seen by the miss's side-stream
+  run: that signature captures nothing and runs eagerly at every call,
+  and :meth:`CachedOp.cache_stats` counts it under ``"host_eager"`` (on
+  the CPU too, where the call itself shows it). A capture of any other
+  callable that fails still raises.
 
 A callable that draws from its own ``torch.Generator`` names it in
 ``generators``: each graph registers it before the capture
@@ -70,6 +77,7 @@ import torch
 from . import _tape
 from . import config as _config
 from .ops.random_ops import graph_generators
+from .ops.registry import host_calls
 
 __all__ = ["CachedOp", "cache_stats", "reset_cache_stats", "storage_rebound"]
 
@@ -85,6 +93,9 @@ _STORAGE_EPOCH = [0]
 
 
 _SIDE_STREAMS = {}
+# the cache entry of a signature whose callable reaches a host op: it runs
+# eagerly at every call
+_HOST = "host"
 
 
 def _side_stream(device):
@@ -165,7 +176,8 @@ class CachedOp:
             capacity = _config.get("MXNET_CACHED_OP_CAPACITY")
         self._capacity = int(capacity)
         self._cache = OrderedDict()
-        self._stats = {"hits": 0, "misses": 0, "evictions": 0}
+        self._stats = {"hits": 0, "misses": 0, "evictions": 0,
+                       "host_eager": 0}
         self._pool = None
         self.pool_bytes = 0
         self.capture_ms = {}
@@ -174,7 +186,9 @@ class CachedOp:
 
     def cache_stats(self):
         """This op's ``{"size", "capacity", "hits", "misses",
-        "evictions", "graphs", "pool_bytes"}``."""
+        "evictions", "graphs", "pool_bytes", "host_eager"}``
+        (``host_eager``: signatures that reach a host op and run
+        eagerly)."""
         with self._dispatch_lock:
             out = dict(self._stats)
             out["size"] = len(self._cache)
@@ -197,6 +211,13 @@ class CachedOp:
         if not any(isinstance(e, _Graph) for e in self._cache.values()):
             self._pool = None
             self.pool_bytes = 0
+
+    def _mark_host(self, sig):
+        """Note an eager call of ``sig`` that reached a host op."""
+        with self._dispatch_lock:
+            if self._cache.get(sig) is True:
+                self._cache[sig] = _HOST
+                self._stats["host_eager"] += 1
 
     def _signature(self, args):
         return (tuple((a.shape, str(a.dtype)) for a in args),
@@ -231,9 +252,12 @@ class CachedOp:
             with torch.no_grad():
                 side = _side_stream(dev)
                 side.wait_stream(torch.cuda.current_stream(dev))
+                calls = host_calls()
                 with torch.cuda.stream(side):
                     self._run(static)
                 torch.cuda.current_stream(dev).wait_stream(side)
+                if host_calls() != calls:
+                    return _HOST
                 if self._pool is None:
                     self._pool = torch.cuda.graph_pool_handle()
                 graph = torch.cuda.CUDAGraph()
@@ -284,7 +308,8 @@ class CachedOp:
                     del self._cache[k]
                 self._drop_pool_if_unused()
             entry = self._cache.get(sig)
-            if entry is not None and graphable != isinstance(entry, _Graph):
+            if entry is not None and entry is not _HOST and \
+                    graphable != isinstance(entry, _Graph):
                 entry = None      # recorded before, replayed now (or back)
                 del self._cache[sig]
                 self._drop_pool_if_unused()
@@ -294,6 +319,8 @@ class CachedOp:
                 hit = True
             else:
                 entry = self._capture(args) if graphable else True
+                if entry is _HOST:
+                    self._stats["host_eager"] += 1
                 self._cache[sig] = entry
                 self._cache.move_to_end(sig)
                 self._stats["misses"] += 1
@@ -305,7 +332,7 @@ class CachedOp:
                     self._drop_pool_if_unused()
                 self._stats["evictions"] += evicted
                 hit = False
-            if graphable:
+            if graphable and entry is not _HOST:
                 result = entry.replay(args)
         with _STATS_LOCK:
             if hit:
@@ -314,7 +341,10 @@ class CachedOp:
                 _GLOBAL_STATS["misses"] += 1
                 _GLOBAL_STATS["evictions"] += evicted
         if result is None:
+            calls = host_calls()
             tensors, n_out, multi, aux = self._run(args)
+            if host_calls() != calls:
+                self._mark_host(sig)
             for h, v in zip(aux, tensors[n_out:]):
                 _tape.assign(h, v)
             result = tensors[:n_out], multi

@@ -301,6 +301,14 @@ class Parameter:
         self._check_init()
         return [NDArray._bind(t) for t in self._tensors]
 
+    def row_sparse_data(self, row_id):
+        """The data, whole (dense storage, as the reference's: every row,
+        whatever ``row_id`` names)."""
+        return self.data()
+
+    def list_row_sparse_data(self, row_id):
+        return self.list_data()
+
     def grad(self, ctx=None):
         """An NDArray bound to the gradient on ``ctx``."""
         return NDArray._bind(self.grad_tensor(ctx))
@@ -385,7 +393,11 @@ class Parameter:
 
 
 class Constant(Parameter):
-    """A parameter that holds a constant and takes no gradient."""
+    """A parameter that holds a constant and takes no gradient. It holds
+    its value whatever its name, as MXNet 1.6's does (the reference's
+    initializer routes a name ending in ``bias`` to zeros, so its
+    ``Constant("qbias", b)`` starts at zero: ROADMAP "Standing
+    hazards")."""
 
     def __init__(self, name, value):
         if isinstance(value, NDArray):
@@ -396,8 +408,8 @@ class Constant(Parameter):
         self.value = value
 
         class _CInit(init_mod.Initializer):
-            def _init_weight(self_i, _, arr):
-                arr[:] = value
+            def __call__(self_i, _, arr):
+                arr.copy_(torch.as_tensor(value))
 
         super().__init__(name, grad_req="null", shape=value.shape,
                          dtype=value.dtype, init=_CInit(),

@@ -215,14 +215,15 @@ class NDArray:
         return _op_proxy.cast(self, dtype=dtype)
 
     def tostype(self, stype):
-        if stype != "default":
-            raise NotImplementedError(
-                "sparse storage is not ported (ROADMAP Queue A item 8)")
-        return self
+        """A copy in storage ``stype`` (``"default"``, ``"row_sparse"`` or
+        ``"csr"``: :mod:`.sparse`)."""
+        from .sparse import _to_stype
+        return _to_stype(self, stype)
 
     # ---- autograd ---------------------------------------------------------
     def attach_grad(self, grad_req="write", stype=None):
-        """Mark as a differentiable leaf with a zero gradient."""
+        """Mark as a differentiable leaf with a zero gradient (dense
+        whatever ``stype`` asks, as the reference's)."""
         if grad_req not in ("write", "add", "null"):
             raise ValueError("invalid grad_req %r" % grad_req)
         self._grad_req = grad_req

@@ -464,12 +464,19 @@ def _window_sum(x, kernel, stride):
     pooling kernel accumulates in float32 and rounds once); in float32 one
     pooling kernel (exact to float32's rounding)."""
     n = len(kernel)
-    if not _per_op(x):
+    if not _per_op(x) and x.is_floating_point():
         if n == 1:
             return F.avg_pool2d(x.unsqueeze(2), (1,) + kernel,
                                 (1,) + stride, divisor_override=1).squeeze(2)
         pool = F.avg_pool2d if n == 2 else F.avg_pool3d
         return pool(x, kernel, stride, divisor_override=1)
+    return _window_reduce(x, kernel, stride, torch.add)
+
+
+def _window_reduce(x, kernel, stride, op):
+    """``op`` folded over each window of ``x`` (already padded), one
+    strided slice an offset, in row-major order: exact for integers."""
+    n = len(kernel)
     lead = x.dim() - n
     outs = [(x.shape[lead + i] - kernel[i]) // stride[i] + 1
             for i in range(n)]
@@ -478,7 +485,7 @@ def _window_sum(x, kernel, stride):
         idx = (slice(None),) * lead + tuple(
             slice(o, o + (m - 1) * s + 1, s)
             for o, m, s in zip(offs, outs, stride))
-        total = x[idx] if total is None else total + x[idx]
+        total = x[idx] if total is None else op(total, x[idx])
     return total
 
 
@@ -491,7 +498,9 @@ def Pooling(data, kernel=(), pool_type="max", stride=(), pad=(),
     a last partial window (ceil mode; ``avg`` with ``count_include_pad``
     then still divides by the whole kernel, as the reference does).
     ``avg`` without ``count_include_pad`` divides by the window's count of
-    real elements. ``global_pool`` reduces every spatial axis."""
+    real elements. ``global_pool`` reduces every spatial axis. Integer
+    data pools exactly and averages in the reference's dtypes (float64
+    with ``count_include_pad``, else float32)."""
     n = data.dim() - 2
     if global_pool:
         dims = tuple(range(2, data.dim()))
@@ -502,6 +511,13 @@ def Pooling(data, kernel=(), pool_type="max", stride=(), pad=(),
         if pool_type == "lp":
             return data.abs().pow(p_value).sum(dim=dims, keepdim=True) \
                 .pow(1.0 / p_value)
+        if not data.is_floating_point():
+            # as the reference's jnp.mean: a float32 sum times the float32
+            # reciprocal of the count (XLA's division by a constant)
+            count = int(np.prod([data.shape[d] for d in dims]))
+            return data.to(torch.float32).sum(dim=dims, keepdim=True) * \
+                torch.full((), np.float32(1.0 / count), dtype=torch.float32,
+                           device=data.device)
         return data.mean(dim=dims, keepdim=True)
     if pool_type not in ("max", "avg", "sum", "lp"):
         raise ValueError("unknown pool_type %s" % pool_type)
@@ -515,6 +531,10 @@ def Pooling(data, kernel=(), pool_type="max", stride=(), pad=(),
                 high[i] += stride[i] - rem
     widths = tuple(w for i in reversed(range(n)) for w in (pad[i], high[i]))
     if pool_type == "max":
+        if not data.is_floating_point():
+            return _window_reduce(
+                F.pad(data, widths, value=torch.iinfo(data.dtype).min),
+                kernel, stride, torch.maximum)
         if tuple(high) == pad and all(2 * p <= k
                                       for p, k in zip(pad, kernel)):
             return _MAXPOOL[n](data, kernel, stride, pad)
@@ -528,8 +548,14 @@ def Pooling(data, kernel=(), pool_type="max", stride=(), pad=(),
     if pool_type == "lp":
         return s.pow(1.0 / p_value)
     if count_include_pad:
+        if not s.is_floating_point():     # a 0-d divisor: see optim_ops
+            s = s.to(torch.float64)
+            return s / torch.full((), float(np.prod(kernel)),
+                                  dtype=s.dtype, device=s.device)
         return s / float(np.prod(kernel))
     ones = F.pad(torch.ones_like(data), widths)
+    if not s.is_floating_point():
+        s = s.to(torch.float32)
     return s / _window_sum(ones, kernel, stride)
 
 
@@ -624,11 +650,14 @@ def Activation(data, act_type="relu"):
 
 def LeakyReLU(data, gamma=None, act_type="leaky", slope=0.25,
               lower_bound=0.125, upper_bound=0.334, key=None, train=False):
-    """The reference's ``leaky``, ``prelu``, ``elu``, ``selu`` and ``gelu``
-    variants, and ``rrelu`` outside training (its training-time draw waits
-    for the rest of the op corpus, ROADMAP Queue A item 8). The scalars
-    are rounded to ``data``'s dtype first, as the reference's weakly typed
-    ones are."""
+    """The reference's ``leaky``, ``prelu``, ``elu``, ``selu``, ``gelu``
+    and ``rrelu`` variants. ``rrelu`` in training scales each negative
+    element by its own slope drawn uniformly from ``[lower_bound,
+    upper_bound)`` with the generator of the key words ``key``
+    (``random_ops.generator_for``: one key gives one draw; threefry is not
+    ported, so the draws are not the reference's), outside training by the
+    bounds' mean. The scalars are rounded to ``data``'s dtype first, as
+    the reference's weakly typed ones are."""
     zero = torch.zeros((), dtype=data.dtype, device=data.device)
     if act_type == "leaky":
         return torch.where(data > zero, data, _const(slope, data) * data)
@@ -649,9 +678,13 @@ def LeakyReLU(data, gamma=None, act_type="leaky", slope=0.25,
         return gelu(data)
     if act_type == "rrelu":
         if train:
-            raise NotImplementedError(
-                "LeakyReLU rrelu in training is not ported (ROADMAP Queue A "
-                "item 8)")
+            from .random_ops import generator_for
+            from .registry import bind_key
+            gen = generator_for(data.device,
+                                bind_key() if key is None else key)
+            u = torch.rand(data.shape, generator=gen, device=data.device)
+            u = (lower_bound + u * (upper_bound - lower_bound)).to(data.dtype)
+            return torch.where(data > zero, data, u * data)
         return torch.where(data > zero, data,
                            _const((lower_bound + upper_bound) / 2.0, data)
                            * data)

@@ -8,7 +8,8 @@ reference's, in its order: the gradient is rescaled, then clipped, then
 weight decay is added (:func:`_prep`). The ``mp_*`` ops compute in
 float32 on the float32 master weight and round the new master to the
 weight's dtype. ``adagrad_update`` takes dense arrays, as the reference's
-(sparse storage is not ported). The ``multi_*`` and ``preloaded_multi_*``
+(a row-sparse gradient updates lazily through ``optimizer.SGD``). The
+``multi_*`` and ``preloaded_multi_*``
 ops take their arrays flat and return a flat tuple; the ``preloaded``
 ones take ``lrs``/``wds`` as tensors and read them where they lie (on the
 card, no host read per weight).

@@ -10,7 +10,13 @@ so, as in the reference, no op registers a backward.
 
 Tensor-valued keyword arguments (masks, index arrays) are unwrapped as
 constants: they are detached, and only positional arguments carry
-gradients. ``out=`` rebinds its target to the result. Under NaiveEngine
+gradients. ``out=`` rebinds its target to the result. A host op
+(``register(host_op=True)``: ``Custom`` and the graph ops) runs code on
+the host; each call of its function counts in :func:`host_calls`, which a
+``CachedOp`` reads to run such a callable eagerly. An op registered with
+``storage=True`` (the host ops, ``cast_storage``, ``_sparse_retain``)
+receives sparse handles (``ndarray.sparse``) as they are, and an op that
+returns an NDArray (a sparse one) gives it back as it is. Under NaiveEngine
 (``MXNET_ENGINE_TYPE=NaiveEngine``) each op synchronizes the device before
 it returns.
 """
@@ -18,6 +24,7 @@ from __future__ import annotations
 
 import functools
 import inspect
+import threading
 from typing import Dict, Optional
 
 import torch
@@ -26,9 +33,23 @@ from .. import _tape
 from .. import engine as _engine
 
 __all__ = ["Op", "register", "get_op", "register_alias", "list_ops",
-           "invoke", "wrap_out", "bind_key", "bind_train"]
+           "invoke", "wrap_out", "bind_key", "bind_train", "host_calls"]
 
 _OP_REGISTRY: Dict[str, "Op"] = {}
+_host = threading.local()
+
+
+def host_calls():
+    """How many times this thread has called a host op's function."""
+    return getattr(_host, "calls", 0)
+
+
+def _counted(fn):
+    @functools.wraps(fn)
+    def run(*args, **kwargs):
+        _host.calls = host_calls() + 1
+        return fn(*args, **kwargs)
+    return run
 
 
 def bind_key():
@@ -48,10 +69,11 @@ class Op:
     ``state_binders`` maps keyword names to zero-argument callables
     resolved at each :func:`invoke` that does not pass them."""
     __slots__ = ("name", "fn", "n_out", "aliases", "doc", "namespace",
-                 "differentiable", "state_binders")
+                 "differentiable", "state_binders", "host_op", "storage")
 
     def __init__(self, name, fn, n_out=1, aliases=(), doc=None,
-                 namespace="nd", differentiable=True, state_binders=None):
+                 namespace="nd", differentiable=True, state_binders=None,
+                 host_op=False, storage=False):
         self.name = name
         self.fn = fn
         self.n_out = n_out
@@ -60,6 +82,8 @@ class Op:
         self.namespace = namespace
         self.differentiable = differentiable
         self.state_binders = state_binders or {}
+        self.host_op = host_op
+        self.storage = storage
 
     def __call__(self, *args, **kwargs):
         return invoke(self, *args, **kwargs)
@@ -69,9 +93,12 @@ class Op:
 
 
 def register(name=None, n_out=1, aliases=(), namespace="nd",
-             differentiable=True, state_binders=None):
+             differentiable=True, state_binders=None, host_op=False,
+             storage=False):
     """Decorator: register a function on tensors as an op. A name that is
-    already registered is refused."""
+    already registered is refused. ``host_op`` declares that the function
+    runs host code (it reads values to the host); ``storage`` that it
+    takes sparse handles as they are."""
     def deco(fn):
         opname = name or fn.__name__
         for n in (opname,) + tuple(aliases):
@@ -80,9 +107,10 @@ def register(name=None, n_out=1, aliases=(), namespace="nd",
                     "operator %r is already registered (by %r); use "
                     "register_alias to re-expose an existing op"
                     % (n, _OP_REGISTRY[n].name))
-        op = Op(opname, fn, n_out=n_out, aliases=aliases,
-                namespace=namespace, differentiable=differentiable,
-                state_binders=state_binders)
+        op = Op(opname, _counted(fn) if host_op else fn, n_out=n_out,
+                aliases=aliases, namespace=namespace,
+                differentiable=differentiable, state_binders=state_binders,
+                host_op=host_op, storage=storage)
         _OP_REGISTRY[opname] = op
         for a in aliases:
             _OP_REGISTRY[a] = op
@@ -130,8 +158,10 @@ def _positional(op, n):
 def invoke(op: Op, *args, out=None, **kwargs):
     """Eager dispatch: unwrap handles, bind state, run, wrap."""
     from ..ndarray.ndarray import NDArray
+    from ..ndarray.sparse import BaseSparseNDArray
 
-    vals = [a._data if isinstance(a, NDArray) else a for a in args]
+    vals = [a if op.storage and isinstance(a, BaseSparseNDArray) else
+            a._data if isinstance(a, NDArray) else a for a in args]
     for k, v in kwargs.items():
         if isinstance(v, NDArray):
             kwargs[k] = v._data.detach()
@@ -150,9 +180,10 @@ def invoke(op: Op, *args, out=None, **kwargs):
         ([out] if out is not None else [])
     results = []
     for i, v in enumerate(outs):
-        if i < len(targets) and targets[i] is not None:
-            targets[i]._rebind_out(v)
-            results.append(targets[i])
+        target = targets[i] if i < len(targets) else None
+        if target is not None:
+            target._rebind_out(v._data if isinstance(v, NDArray) else v)
+            results.append(target)
         else:
-            results.append(NDArray(v))
+            results.append(v if isinstance(v, NDArray) else NDArray(v))
     return tuple(results) if multi else results[0]

@@ -10,9 +10,11 @@ scalar ops: counterpart of the first part of
   ``_scatter_elemwise_div``: on dense inputs the plain ops, as the
   reference's.
 
-The reference's DGL graph names (``_contrib_edge_id``, ``_contrib_getnnz``,
-``_contrib_dgl_*``) take compressed sparse rows and wait with sparse
-storage (ROADMAP item 8, step 6).
+- the graph names ``_contrib_edge_id``, ``_contrib_getnnz`` and the five
+  ``_contrib_dgl_*``: host ops over a ``CSRNDArray``
+  (``mxnet_tpu_torch.contrib.graph``), registered with ``host_op=True``
+  (a ``CachedOp`` runs a callable that reaches one eagerly) and
+  ``storage=True`` (they take the sparse handle as it is).
 """
 from __future__ import annotations
 
@@ -86,3 +88,26 @@ def scatter_minus_scalar(data, scalar=0.0):
 @register("_scatter_elemwise_div")
 def scatter_elemwise_div(lhs, rhs):
     return lhs / rhs
+
+
+def _graph(name):
+    def call(*args, **kwargs):
+        from ..contrib import graph as g
+        return getattr(g, name)(*args, **kwargs)
+    call.__name__ = name
+    call.__doc__ = "host op: mxnet_tpu_torch.contrib.graph.%s" % name
+    return call
+
+
+for _ref_name, _fn_name in [
+        ("_contrib_edge_id", "edge_id"),
+        ("_contrib_getnnz", "getnnz"),
+        ("_contrib_dgl_adjacency", "dgl_adjacency"),
+        ("_contrib_dgl_subgraph", "dgl_subgraph"),
+        ("_contrib_dgl_csr_neighbor_uniform_sample",
+         "dgl_csr_neighbor_uniform_sample"),
+        ("_contrib_dgl_csr_neighbor_non_uniform_sample",
+         "dgl_csr_neighbor_non_uniform_sample"),
+        ("_contrib_dgl_graph_compact", "dgl_graph_compact")]:
+    register(_ref_name, host_op=True, storage=True,
+             differentiable=False)(_graph(_fn_name))

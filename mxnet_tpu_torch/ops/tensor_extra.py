@@ -334,16 +334,30 @@ def _square_sum(data, axis=None, keepdims=False):
     return _sum.fn(torch.square(data), axis, keepdims)
 
 
-@register("cast_storage")
+@register("cast_storage", storage=True)
 def cast_storage(data, stype=None):
-    """Dense storage only: the data itself."""
-    return data
+    """``data`` in storage ``stype``: a sparse handle
+    (``ndarray.sparse``) for ``"row_sparse"``/``"csr"``, a tensor for
+    ``"default"`` (or None), as MXNet 1.6's; the values are the
+    reference's, which keeps every storage dense."""
+    from ..ndarray.ndarray import NDArray
+    from ..ndarray.sparse import BaseSparseNDArray, _to_stype
+    if isinstance(data, BaseSparseNDArray):
+        return data._data if stype in (None, "default") else \
+            _to_stype(data, stype)
+    if stype in (None, "default"):
+        return data
+    return _to_stype(NDArray(data), stype)
 
 
-@register("_sparse_retain", aliases=("sparse_retain",))
+@register("_sparse_retain", aliases=("sparse_retain",), storage=True)
 def _sparse_retain(data, indices):
-    """The rows at ``indices`` kept and every other row zeroed (a
-    row-sparse retain, dense)."""
+    """The rows at ``indices`` kept and every other row zeroed (dense, as
+    the reference's); a ``RowSparseNDArray`` keeps its rows at
+    ``indices`` (``ndarray.sparse.retain``)."""
+    from ..ndarray.sparse import RowSparseNDArray, retain
+    if isinstance(data, RowSparseNDArray):
+        return retain(data, indices)
     keep = torch.zeros(data.shape[0], dtype=torch.bool, device=data.device)
     keep[indices.to(torch.int64)] = True
     keep = keep.reshape((-1,) + (1,) * (data.dim() - 1))

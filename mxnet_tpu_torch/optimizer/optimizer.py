@@ -242,10 +242,22 @@ def _sgd_mom(w, mom, g, lr, wd, mo, rescale, clip):
 @torch.no_grad()
 def _sgd_rowwise(w, values, idx, lr, wd, rescale, clip):
     """SGD on the rows ``idx`` of ``w`` only (a row-sparse gradient whose
-    rows are ``values``); the other rows take no weight decay."""
-    g = _clip(values, rescale, clip)
+    rows are ``values``); the other rows take no weight decay. XLA fuses
+    the reference's update into ``fma(-lr, fma(wd, rows, g), rows)`` with
+    ``lr`` and ``wd`` in float32, each rounded once. Here each
+    multiply-add is computed in float64 (the product exactly) and rounded
+    to the weight's dtype: the rows match the reference's except where
+    that double rounding (to 53 bits, then to 24) lands otherwise than an
+    FMA's single rounding: only where the exact sum lies within half a
+    float64 step of a point halfway between two float32 values, a rare
+    case."""
+    g = _clip(values, rescale, clip).double()
     rows = w.index_select(0, idx)
-    w.index_copy_(0, idx, rows - lr * (g + wd * rows))
+    r64 = rows.double()
+    lr32, wd32 = (float(torch.tensor(v, dtype=torch.float32))
+                  for v in (lr, wd))
+    t = (wd32 * r64 + g).to(w.dtype).double()
+    w.index_copy_(0, idx, (r64 - lr32 * t).to(w.dtype))
     return w
 
 
@@ -446,9 +458,12 @@ def _c(clip):
 
 @register
 class SGD(Optimizer):
-    """SGD with momentum. A sparse (COO) gradient with ``lazy_update`` and
-    no momentum updates only its rows (``_sgd_rowwise``), as the
-    reference's row-sparse path."""
+    """SGD with momentum. A row-sparse gradient (a ``RowSparseNDArray``,
+    or a sparse COO tensor) with ``lazy_update`` and no momentum updates
+    only its rows (``_sgd_rowwise``), as the reference's row-sparse path:
+    the other rows take no weight decay. ``weight`` may be an NDArray (its
+    tensor is updated in place; a ``RowSparseNDArray``'s dense view, so
+    its payload is compressed again when next read)."""
 
     def __init__(self, momentum=0.0, lazy_update=True, **kwargs):
         super().__init__(**kwargs)
@@ -464,6 +479,18 @@ class SGD(Optimizer):
         self._update_count(index)
         lr, wd = self._get_lr(index), self._get_wd(index)
         clip = _c(self.clip_gradient)
+        from ..ndarray.ndarray import NDArray
+        from ..ndarray.sparse import RowSparseNDArray
+        if isinstance(weight, NDArray):
+            weight = weight._data
+        if isinstance(grad, RowSparseNDArray) and self.lazy_update \
+                and state is None:
+            values, idx = grad._payload()
+            _sgd_rowwise(weight, values.to(weight.dtype), idx, lr, wd,
+                         self.rescale_grad, clip)
+            return
+        if isinstance(grad, NDArray):
+            grad = grad._data
         if grad.is_sparse and self.lazy_update and state is None:
             grad = grad.coalesce()
             _sgd_rowwise(weight, grad.values().to(weight.dtype),

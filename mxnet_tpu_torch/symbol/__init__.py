@@ -11,6 +11,14 @@ from .symbol import _populate_ops, _sym_op
 _populate_ops(globals())
 
 
+def Custom(*args, **kwargs):
+    """Compose a registered Python custom op into the graph; tensor
+    inputs given by keyword take the prop's declared order."""
+    from ..operator import normalize_custom_args
+    tensors, call_kwargs = normalize_custom_args(args, kwargs)
+    return _sym_op("Custom")(*tensors, **call_kwargs)
+
+
 def __getattr__(name):
     from ..ops.registry import get_op
     if get_op(name) is not None:

@@ -20,7 +20,9 @@ write into them in place, so a captured CUDA graph keeps reading them.
 The op functions take their defaults for the state an eager call binds,
 as the reference's executor calls them: ``BatchNorm`` normalizes by its
 moving statistics and writes none, and ``Dropout`` is the identity, in
-training too (ROADMAP "Standing hazards"). ``set_monitor_callback`` hands
+training too (ROADMAP "Standing hazards"). The training flag is
+``is_train`` while a forward runs, so a ``Custom`` op's ``forward`` sees
+it, as in the reference. ``set_monitor_callback`` hands
 every operator's output (every node's, with ``monitor_all``) to the
 callback after a forward. ``group2ctx`` over more than one device is
 ROADMAP Queue A item 10.
@@ -29,6 +31,7 @@ from __future__ import annotations
 
 import torch
 
+from ..autograd import predict_mode, train_mode
 from ..base import MXNetError
 from ..cached_op import CachedOp
 from ..ndarray.ndarray import NDArray
@@ -108,11 +111,13 @@ class Executor:
             if n not in self.arg_dict:
                 raise MXNetError("unknown argument %r" % n)
             self.arg_dict[n][:] = v
-        if is_train:
-            self.outputs = [NDArray(o.detach()) for o in self._train()]
-        else:
-            self._train_state = None
-            self.outputs = self._infer(sorted(kwargs) or self._arg_names)
+        with train_mode() if is_train else predict_mode():
+            if is_train:
+                self.outputs = [NDArray(o.detach()) for o in self._train()]
+            else:
+                self._train_state = None
+                self.outputs = self._infer(sorted(kwargs) or
+                                           self._arg_names)
         if self._monitor is not None:
             self._report()
         return self.outputs
@@ -157,7 +162,8 @@ class Executor:
         forward is run first where there was none), weighted by
         ``out_grads`` (ones when None)."""
         if self._train_state is None:
-            self._train()
+            with train_mode():
+                self._train()
         outs, leaves, wanted = self._train_state
         self._train_state = None
         if not wanted:

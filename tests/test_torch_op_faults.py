@@ -179,20 +179,10 @@ def test_registry_names_are_reference_names():
 
 
 # The snapshot names (tests/data/reference_ops.txt) that the port's
-# registry still lacks: a name that gets ported leaves this list, and no
-# name may join it.
-MISSING_SNAPSHOT_NAMES = frozenset([
-    "Custom", "_CrossDeviceCopy", "_NDArray", "_Native",
-    "_contrib_calibrate_entropy", "_contrib_dequantize",
-    "_contrib_dgl_adjacency", "_contrib_dgl_csr_neighbor_non_uniform_sample",
-    "_contrib_dgl_csr_neighbor_uniform_sample", "_contrib_dgl_graph_compact",
-    "_contrib_dgl_subgraph", "_contrib_edge_id", "_contrib_getnnz",
-    "_contrib_quantize", "_contrib_quantize_v2", "_contrib_quantized_act",
-    "_contrib_quantized_batch_norm", "_contrib_quantized_concat",
-    "_contrib_quantized_conv", "_contrib_quantized_elemwise_add",
-    "_contrib_quantized_flatten", "_contrib_quantized_fully_connected",
-    "_contrib_quantized_pooling", "_contrib_requantize", "_npi_Custom",
-])
+# registry lacks: the reference lacks them too (its registry-parity test
+# allows them), and no name may join them.
+MISSING_SNAPSHOT_NAMES = frozenset(["_CrossDeviceCopy", "_NDArray",
+                                    "_Native"])
 
 
 def test_missing_snapshot_names_are_the_listed_ones():
@@ -201,10 +191,19 @@ def test_missing_snapshot_names_are_the_listed_ones():
     with open(path) as f:
         snapshot = {line.strip() for line in f if line.strip()}
     missing = snapshot - set(tregistry.list_ops())
-    assert len(MISSING_SNAPSHOT_NAMES) <= 25
+    assert len(MISSING_SNAPSHOT_NAMES) <= 3
     assert missing - MISSING_SNAPSHOT_NAMES == set(), "new gaps"
     assert MISSING_SNAPSHOT_NAMES - missing == set(), \
         "ported: take these names off the list"
+    assert not MISSING_SNAPSHOT_NAMES & set(jregistry.list_ops())
+
+
+def test_every_reference_name_resolves_in_the_port():
+    # the package's own names (tests register ops of their own modules)
+    ref = {n for n in jregistry.list_ops() if getattr(
+        jregistry.get_op(n).fn, "__module__", "").startswith("mxnet_tpu.")}
+    assert len(ref) == 878
+    assert ref - set(tregistry.list_ops()) == set()
 
 # ---- C7: shape arguments --------------------------------------------------
 
