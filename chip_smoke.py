@@ -453,6 +453,38 @@ Builds the package's CUDA kernels from the sources in this checkout
     neighbours each) against the CPU, bitwise; ``LeakyReLU`` rrelu in
     training at ResNet-50's first activation. No flash kernel may launch.
 
+20. **Mesh phase: distribution inside one process (item 10a).** (a)
+    ``transformer_lm_base`` at the training phase's configuration (b32 x
+    s512, fp32, Adam at lr 1e-4, 4 steps over 4 numpy batches) under
+    ``ShardedTrainer(mesh=make_mesh(dp=2, tp=2, devices=[gpu(0)] * 4),
+    param_rules=tp_rules())`` and on one device from the same weights:
+    losses agree to ``MESH_LOSS_RTOL``, the final parameters within
+    ``MESH_PARAM_ATOL`` and Adam's moments within ``MESH_STATE_RTOL`` of
+    their largest magnitude (limits from readings, see their comment; the
+    largest gaps are printed; a gap that is not finite fails); two planted
+    controls (replica 1's gradient left out, the gradient sum doubled) must
+    each break one of those limits; every ``tp_rules()`` parameter holds
+    half of itself at each position; the mesh run launches the flash
+    forward, dQ and dK/dV on (B, S, H, D) 2 replicas x 4 steps x 12 layers
+    times each and no (B, H, S, D) kernel (the backward wrappers count by
+    layout); ms a step, both runs. With more than one
+    visible GPU (a) runs again with the four positions over distinct GPUs.
+    (b) ``ring_attention_sharded`` over ``make_mesh(dp=1, sp=4)`` at the
+    long-context demo's widths (seq 4096, 4 heads, dim 64), causal and
+    not, against dense attention in float64 (``MESH_RING_ATOL``). (c)
+    ``moe_lm_tiny`` under ``plan_sharding(4, profile, force="dp=2,pp=1,
+    ep=2")``: four replicas, each MoE layer routing the gathered token
+    pool; 3 Adam steps whose losses equal the one-device trainer's within
+    ``MESH_MOE_RTOL``. (d) (a)'s mesh trainer checkpointed after
+    step 2 (``save_checkpoint``) and restored into a fresh trainer: steps
+    3-4 equal the uninterrupted run bit for bit (losses and parameters).
+    (e) ResNet-50 v1 b32 fp32 as the symbol phase exports it, bound with
+    ``MXNET_SUBGRAPH_BACKEND=TPU_ELEMWISE``: its inference output equals
+    the unpartitioned bind bit for bit; both replays' ms. (f) A ``device``
+    kvstore with ``2bit`` compression (threshold 0.05, two (1024, 1024)
+    copies a push, 4 pushes) on the card equals the same on the CPU bit
+    for bit. The phase prints ``torch.cuda.device_count()``.
+
 The predict phase's bf16 pass (8.) holds the kernel path to the plain
 path by ``PREDICT_BF16_FACTOR``, each path's distance from the fp32 path:
 each bucket's pooled output; the NSP logits over all the rows it checks
@@ -465,14 +497,15 @@ With ``--profile`` the burst is served a second time, serving v2's part
 steps and two bf16 BERT steps each with LAMB and Adam (surface phase),
 one bf16 ResNet-50 step and one b32 bf16 ResNet-50 eager forward (vision
 phase), one fp32 ``Module`` step (symbol phase), one b32 int8 ResNet-50
-eager forward (quant phase) and one sparse linear step (sparse phase) are
-run, under
+eager forward (quant phase), one sparse linear step (sparse phase) and
+two fp32 steps of the mesh phase's dp=2 x tp=2 trainer and of its
+one-device trainer are run, under
 ``torch.profiler`` (after the checked runs) to print the device's busy
 share, its kernel count and its top kernels.
 
 Prints the serving, serving v2, training, BERT, surface, predict,
 autograd, registry-op, vision, data, rnn, symbol, ops, np, detection,
-quant and sparse numbers, one
+quant, sparse and mesh numbers, one
 ``{"kernels": [...]}`` line with an
 entry per TPU kernel (the three (B, S, H, D) ones with the numbers of the
 training shape in fp32, under ``*_bf16`` keys in bf16, and under ``bert``
@@ -480,7 +513,7 @@ those of the BERT shape; the three (B, H, S, D) ones with the numbers of
 the registry op's shape; every kernel's launches also under ``vision``,
 ``data``, ``rnn``, ``ops``, ``np``, ``detection``, ``quant`` and
 ``sparse``, where none runs,
-and ``symbol``),
+``symbol``, and ``mesh``: the (a) mesh run's),
 the
 card's name
 and power limit,
@@ -8148,9 +8181,474 @@ def print_sparse(res, card):
              res["launches"], res["wall_s"], card), flush=True)
 
 
+# ---- mesh phase -------------------------------------------------------------
+
+MESH_STEPS = 4
+MESH_ADAM = {"learning_rate": 1e-4}
+# (a): the mesh run computes the one-device step with its sums in another
+# order (two half-batch means added, two replicas' gradients added), in
+# fp32 with TF32 off. The limits are set from the sound runs' largest
+# readings on an H100 (PERF.md §6) with room above them: the losses
+# read 9.07e-8 relative, the parameters 1.78e-6 absolute, Adam's moments
+# 1.11e-5 of each moment's largest magnitude. Adam moves an element by
+# about lr a step whatever its gradient's size, so the parameters see a
+# gradient scaled wrongly only where eps matters: the moments, held to the
+# one-device run's, see the gradient's size. The two planted controls of
+# ``_mesh_controls`` (replica 1's gradient left out; the gradient sum
+# doubled) must break them.
+MESH_LOSS_RTOL = 1e-6
+MESH_PARAM_ATOL = 1e-5
+MESH_STATE_RTOL = 1e-4
+MESH_RING = (1, 4, 4096, 64)       # B, H, S, D (ring_attention_demo's)
+MESH_RING_ATOL = 1e-4               # fp32 online softmax vs float64
+MESH_MOE_STEPS = 3
+MESH_MOE_RTOL = 1e-5
+# (c): two replicas over dp and two over ep, so each MoE layer gathers the
+# four replicas' tokens and routes the global pool
+MESH_MOE_PLAN = "dp=2,pp=1,ep=2"
+MESH_KV_SHAPE, MESH_KV_PUSHES = (1024, 1024), 4
+
+
+def _mesh_lm(args, torch):
+    from mxnet_tpu_torch import convert
+    from mxnet_tpu_torch.models import transformer_lm_base
+    model = transformer_lm_base(vocab_size=32000, max_len=TRAIN_SEQ,
+                                device=torch.device("cuda"))
+    convert.load_mxnet_params(model, random_params(model, args.seed))
+    batches = [tuple(torch.from_numpy(a).cuda()
+                     for a in lm_batch(args.seed + 40 + i))
+               for i in range(MESH_STEPS)]
+    return model, batches
+
+
+def _mesh_steps(torch, tr, batches, first=0):
+    return timed_steps(torch, lambda i: tr.step(*batches[first + i]),
+                       len(batches) - first)
+
+
+def _mesh_trainer(model, mesh):
+    from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+    from mxnet_tpu_torch.models import tp_rules
+    from mxnet_tpu_torch.parallel import ShardedTrainer
+    return ShardedTrainer(model, SoftmaxCrossEntropyLoss(), "adam",
+                          MESH_ADAM, mesh=mesh, param_rules=tp_rules())
+
+
+def _mesh_gaps(tr, want, want_states, losses, one_losses):
+    """(a)'s comparison of a mesh run with the one-device run: the losses'
+    largest relative gap, each parameter's largest absolute gap, each Adam
+    moment's largest gap over the one-device moment's largest magnitude;
+    and the limits broken (a gap that is not finite breaks its limit)."""
+    loss = max(abs(a - b) / abs(b) for a, b in zip(losses, one_losses))
+    param = {n: (v.full() - want[n]).abs().max().item()
+             for n, v in tr.values.items()}
+    state = {}
+    for n, moments in tr.states.items():
+        for k, (got, ref) in enumerate(zip(moments, want_states[n])):
+            scale = ref.abs().max().item() or 1.0
+            state["%s[%d]" % (n, k)] = \
+                (got.full() - ref).abs().max().item() / scale
+    worst_p = max(param, key=lambda n: (np.isnan(param[n]), param[n]))
+    worst_s = max(state, key=lambda n: (np.isnan(state[n]), state[n]))
+    gaps = {"loss_rel_gap": loss, "param_max_gap": param[worst_p],
+            "param_max_gap_name": worst_p,
+            "param_median_gap": float(np.median(list(param.values()))),
+            "state_max_rel_gap": state[worst_s],
+            "state_max_rel_gap_name": worst_s,
+            "state_median_rel_gap": float(np.median(list(state.values())))}
+    broken = []
+    if not loss <= MESH_LOSS_RTOL:
+        broken.append("losses %.3g > %g" % (loss, MESH_LOSS_RTOL))
+    if not param[worst_p] <= MESH_PARAM_ATOL:
+        broken.append("parameter %s %.3g > %g"
+                      % (worst_p, param[worst_p], MESH_PARAM_ATOL))
+    if not state[worst_s] <= MESH_STATE_RTOL:
+        broken.append("Adam moment %s %.3g > %g"
+                      % (worst_s, state[worst_s], MESH_STATE_RTOL))
+    return gaps, broken
+
+
+def _mesh_controls(torch, model, mesh, batches, want, want_states,
+                   one_losses):
+    """(a)'s planted faults, each through the phase's own comparison: the
+    mesh trainer with replica 1's gradient left out of the sum, and with
+    the gradient sum doubled. Each must break a limit."""
+    def drop_replica_1(values):
+        for v in values[1].values():
+            if v.requires_grad:
+                v.register_hook(torch.zeros_like)
+
+    def double(values):
+        for vals in values:
+            for v in vals.values():
+                if v.requires_grad:
+                    v.register_hook(lambda g: g * 2)
+
+    out = {}
+    for name, plant in (("replica_1_gradient_left_out", drop_replica_1),
+                        ("gradient_sum_doubled", double)):
+        tr = _mesh_trainer(model, mesh)
+        make = tr._replica_values
+
+        def planted(devices, grad, make=make, plant=plant):
+            values = make(devices, grad)
+            plant(values)
+            return values
+        tr._replica_values = planted
+        losses, _ = _mesh_steps(torch, tr, batches)
+        gaps, broken = _mesh_gaps(tr, want, want_states, losses, one_losses)
+        del tr
+        if not broken:
+            fail("mesh (a) control %s passed the comparison: %r"
+                 % (name, gaps))
+        out[name] = dict(gaps, broken=broken)
+    torch.cuda.empty_cache()
+    return out
+
+
+def _mesh_lm_part(args, torch, tmp):
+    """(a) and (d)."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+    from mxnet_tpu_torch.gluon.parameter import collect_params
+    from mxnet_tpu_torch.models import tp_rules
+    from mxnet_tpu_torch.ops import flash_attention as fa
+    from mxnet_tpu_torch.parallel import (ShardedTrainer, make_mesh,
+                                          restore_checkpoint,
+                                          save_checkpoint)
+    model, batches = _mesh_lm(args, torch)
+    one = ShardedTrainer(model, SoftmaxCrossEntropyLoss(), "adam",
+                         MESH_ADAM, device=torch.device("cuda"))
+    one_losses, one_ms = _mesh_steps(torch, one, batches)
+    want = {n: v.detach().clone() for n, v in one.values.items()}
+    want_states = {n: tuple(m.clone() for m in st)
+                   for n, st in one.states.items()}
+    del one
+    torch.cuda.empty_cache()
+    mesh = make_mesh(dp=2, tp=2, devices=[mx.gpu(0)] * 4)
+    tr = _mesh_trainer(model, mesh)
+    fa.reset_launches()
+    first, ms = _mesh_steps(torch, tr, batches[:2])
+    launches_half = kernel_launches()
+    save_checkpoint(tr, os.path.join(tmp, "mesh_ckpt"))
+    rest, ms2 = _mesh_steps(torch, tr, batches, first=2)
+    launches = kernel_launches()
+    by_layout = {"flash_attn_bwd_dq":
+                 dict(fa.flash_attention_bwd_dq.launches_by_layout),
+                 "flash_attn_bwd_dkv":
+                 dict(fa.flash_attention_bwd_dkv.launches_by_layout)}
+    losses = first + rest
+    out = {"model": "transformer_lm_base", "batch": TRAIN_BATCH,
+           "seq": TRAIN_SEQ, "steps": MESH_STEPS,
+           "mesh": dict(mesh.shape), "devices": "gpu(0) x 4",
+           "losses_mesh": losses, "losses_one": one_losses,
+           "step_ms_mesh": ms + ms2, "step_ms_one": one_ms,
+           "launches": launches, "launches_bwd_by_layout": by_layout,
+           "launches_first_two": launches_half}
+    expect = 2 * MESH_STEPS * model.num_layers
+    for name in ("flash_attn_fwd", "flash_attn_bwd_dq", "flash_attn_bwd_dkv"):
+        bshd = by_layout[name]["BSHD"] if name in by_layout \
+            else launches[name]
+        if bshd != expect:
+            fail("mesh (a): %s launched %d times on (B, S, H, D), not 2 "
+                 "replicas x %d steps x %d layers"
+                 % (name, bshd, MESH_STEPS, model.num_layers))
+    if launches["flash_attn_fwd_bhsd"] or any(
+            v["BHSD"] for v in by_layout.values()):
+        fail("mesh (a) launched a (B, H, S, D) kernel: %r %r"
+             % (launches, by_layout))
+    gaps, broken = _mesh_gaps(tr, want, want_states, losses, one_losses)
+    out.update(gaps, param_atol=MESH_PARAM_ATOL, loss_rtol=MESH_LOSS_RTOL,
+               state_rtol=MESH_STATE_RTOL)
+    if broken:
+        fail("mesh (a): the mesh run differs from the one-device run: %s"
+             % "; ".join(broken))
+    halves = []
+    ref_names = list(collect_params(model).keys())
+    rules = [r for r, _ in tp_rules()]
+    import re as _re
+    for (name, v), rname in zip(tr.values.items(), ref_names):
+        if any(_re.search(r, rname) for r in rules):
+            full = int(np.prod(v.shape))
+            if not all(s.numel() * 2 == full for s in v.shards):
+                fail("mesh (a): %s does not hold half a shard at each "
+                     "position" % rname)
+            halves.append(rname)
+    out["tp_sharded"] = len(halves)
+    if len(halves) != 2 + 4 * model.num_layers:
+        fail("mesh (a): %d tp_rules parameters, expected %d"
+             % (len(halves), 2 + 4 * model.num_layers))
+    # (d) a fresh trainer from the checkpoint: steps 3-4 bit for bit
+    fresh = _mesh_trainer(model, mesh)
+    restore_checkpoint(fresh, os.path.join(tmp, "mesh_ckpt"))
+    again, _ = _mesh_steps(torch, fresh, batches, first=2)
+    same = again == rest and all(
+        torch.equal(a.full(), b.full()) for a, b in
+        zip(fresh.values.values(), tr.values.values()))
+    if not same:
+        fail("mesh (d): the restored run's steps 3-4 %r differ from the "
+             "uninterrupted %r" % (again, rest))
+    out["resumed_losses"] = again
+    del tr
+    torch.cuda.empty_cache()
+    out["controls"] = _mesh_controls(torch, model, mesh, batches, want,
+                                     want_states, one_losses)
+    if args.profile:
+        # after the checks: two more steps of each, under the profiler
+        out["profile_mesh"] = profile(
+            torch, lambda: _mesh_steps(torch, fresh, batches[:2]))
+        one = ShardedTrainer(model, SoftmaxCrossEntropyLoss(), "adam",
+                             MESH_ADAM, device=torch.device("cuda"))
+        one.step(*batches[0])
+        out["profile_one"] = profile(
+            torch, lambda: _mesh_steps(torch, one, batches[:2]))
+        del one
+    del fresh, want, want_states
+    torch.cuda.empty_cache()
+    n = torch.cuda.device_count()
+    if n > 1:
+        mesh = make_mesh(dp=2, tp=2, devices=[mx.gpu(i % n)
+                                              for i in range(4)])
+        tr = _mesh_trainer(model, mesh)
+        l2, ms3 = _mesh_steps(torch, tr, batches)
+        rel2 = max(abs(a - b) / abs(b) for a, b in zip(l2, one_losses))
+        if not rel2 <= MESH_LOSS_RTOL:
+            fail("mesh (a) over %d GPUs: losses %r vs %r" % (n, l2,
+                                                             one_losses))
+        out["distinct_gpus"] = {"devices": n, "losses": l2,
+                                "step_ms": ms3, "loss_rel_gap": rel2}
+        del tr
+    else:
+        out["distinct_gpus"] = "not run: 1 visible GPU"
+    del model
+    torch.cuda.empty_cache()
+    return out
+
+
+def _mesh_ring(args, torch):
+    """(b)."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.parallel import make_mesh, ring_attention_sharded
+    B, H, S, D = MESH_RING
+    g = torch.Generator().manual_seed(args.seed + 50)
+    q, k, v = (torch.randn((B, H, S, D), generator=g).cuda()
+               for _ in range(3))
+    mesh = make_mesh(dp=1, sp=4, devices=[mx.gpu(0)] * 4)
+    out = {"shape": MESH_RING, "mesh": dict(mesh.shape)}
+    for causal in (False, True):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        got = ring_attention_sharded(q, k, v, mesh, causal=causal)
+        e1.record()
+        torch.cuda.synchronize()
+        q64, k64, v64 = (t.double() for t in (q, k, v))
+        s = torch.einsum("bhqd,bhkd->bhqk", q64, k64) / np.sqrt(D)
+        if causal:
+            s = s.masked_fill(~torch.ones((S, S), dtype=torch.bool,
+                                          device=s.device).tril(), -np.inf)
+        want = torch.einsum("bhqk,bhkd->bhqd", torch.softmax(s, -1), v64)
+        err = (got.double() - want).abs().max().item()
+        del s, want
+        if not err <= MESH_RING_ATOL:
+            fail("mesh (b) causal=%s: ring attention off by %g (> %g)"
+                 % (causal, err, MESH_RING_ATOL))
+        out["causal" if causal else "full"] = {
+            "max_abs_err": err, "ms": e0.elapsed_time(e1)}
+    torch.cuda.empty_cache()
+    return out
+
+
+def _mesh_moe(args, torch):
+    """(c)."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import initializer, nd
+    from mxnet_tpu_torch import random as trandom
+    from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+    from mxnet_tpu_torch.models import moe_lm_tiny
+    from mxnet_tpu_torch.parallel import ShardedTrainer, plan_sharding
+
+    def net():
+        trandom.seed(args.seed)
+        np.random.seed(args.seed)
+        with mx.gpu(0):
+            m = moe_lm_tiny()
+            m.initialize(initializer.Xavier())
+            m(nd.zeros((1, 4), dtype="int32"))
+        return m
+    rng = np.random.default_rng(args.seed + 60)
+    batches = [(torch.from_numpy(rng.integers(0, 64, (8, 16))).cuda(),
+                torch.from_numpy(rng.integers(0, 64, (8, 16))).float()
+                .cuda()) for _ in range(MESH_MOE_STEPS)]
+    first = net()
+    plan = plan_sharding(4, first.profile(batch=8, seq=16),
+                         force=MESH_MOE_PLAN)
+    runs, replicas = {}, None
+    for kind in ("plan", "one"):
+        kw = {"plan": plan, "device": torch.device("cuda")} \
+            if kind == "plan" else {"device": torch.device("cuda")}
+        tr = ShardedTrainer(first if kind == "plan" else net(),
+                            SoftmaxCrossEntropyLoss(), "adam",
+                            {"learning_rate": 1e-2}, **kw)
+        if kind == "plan":
+            replicas = len(tr._replica_devices())
+            if replicas != 4:
+                fail("mesh (c): plan %s ran %d replicas, not dp x ep = 4"
+                     % (plan.describe(), replicas))
+        runs[kind] = [float(tr.step(x, y)) for x, y in batches]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(runs["plan"],
+                                                  runs["one"]))
+    if not rel <= MESH_MOE_RTOL:
+        fail("mesh (c): plan %s losses %r vs one device %r (rel %g)"
+             % (plan.describe(), runs["plan"], runs["one"], rel))
+    return {"plan": plan.describe(), "replicas": replicas,
+            "losses_plan": runs["plan"], "losses_one": runs["one"],
+            "loss_rel_gap": rel}
+
+
+def _mesh_subgraph(args, torch, tmp):
+    """(e)."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import nd
+    from mxnet_tpu_torch import random as trandom
+    net = _resnet50(torch, trandom, args.seed)
+    prefix = os.path.join(tmp, "resnet50_v1")
+    net.export(prefix)
+    del net
+    symbol, arg_p, aux_p = mx.model.load_checkpoint(prefix, 0,
+                                                    ctx=mx.gpu(0))
+    x = torch.rand((VISION_BATCH, 3, VISION_IMAGE, VISION_IMAGE),
+                   generator=torch.Generator().manual_seed(args.seed)).cuda()
+    out, results = {}, {}
+    for tag, backend in (("plain", None), ("partitioned", "TPU_ELEMWISE")):
+        if backend:
+            os.environ["MXNET_SUBGRAPH_BACKEND"] = backend
+        try:
+            args_ = dict(arg_p)
+            args_["data"] = nd.NDArray(torch.zeros_like(x))
+            ex = symbol.bind(mx.gpu(0), args_, aux_states=dict(aux_p),
+                             grad_req="null")
+        finally:
+            os.environ.pop("MXNET_SUBGRAPH_BACKEND", None)
+        xn = nd.NDArray(x)
+        results[tag] = ex.forward(data=xn)[0]._data.clone()   # capture
+        replay = ex.forward(data=xn)[0]._data
+        if not torch.equal(replay, results[tag]):
+            fail("mesh (e) %s: replay differs from the first forward" % tag)
+        out[tag] = {"replay_ms": _events_ms(
+            torch, lambda: ex.forward(data=xn), SYMBOL_REPLAYS),
+            "regions": sum(1 for n in ex._symbol._toposort()
+                           if n._attr.get("__subgraph__"))}
+        del ex
+    if not out["partitioned"]["regions"]:
+        fail("mesh (e): MXNET_SUBGRAPH_BACKEND made no region")
+    if not torch.equal(results["plain"], results["partitioned"]):
+        fail("mesh (e): the partitioned bind's output differs (max |diff| "
+             "%g)" % (results["plain"] - results["partitioned"]).abs().max())
+    out["bitwise_equal"] = True
+    torch.cuda.empty_cache()
+    return out
+
+
+def _mesh_kvstore(args, torch):
+    """(f)."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import nd
+    g = torch.Generator().manual_seed(args.seed + 70)
+    pushes = [[torch.randn(MESH_KV_SHAPE, generator=g) * 0.1
+               for _ in range(2)] for _ in range(MESH_KV_PUSHES)]
+    pulled = {}
+    for ctx in (mx.gpu(0), mx.cpu()):
+        kv = mx.kvstore.create("device")
+        kv.set_gradient_compression({"type": "2bit", "threshold": 0.05})
+        with ctx:
+            kv.init(0, nd.zeros(MESH_KV_SHAPE, ctx=ctx))
+            got = []
+            for copies in pushes:
+                kv.push(0, [nd.NDArray(c.to(ctx.torch_device))
+                            for c in copies])
+                o = nd.zeros(MESH_KV_SHAPE, ctx=ctx)
+                kv.pull(0, out=o)
+                got.append(o._data.cpu())
+        pulled[str(ctx)] = torch.stack(got)
+    card, cpu = pulled["gpu(0)"], pulled["cpu(0)"]
+    if not torch.equal(card, cpu):
+        fail("mesh (f): the 2bit device store on the card differs from the "
+             "CPU (max |diff| %g)" % (card - cpu).abs().max())
+    return {"pushes": MESH_KV_PUSHES, "shape": MESH_KV_SHAPE,
+            "bitwise_equal": True,
+            "levels": sorted(set(card[0].unique().tolist()))}
+
+
+def mesh_phase(args, torch):
+    """(a)-(f): distribution inside one process on the card."""
+    import tempfile
+    t0 = time.perf_counter()
+    out = {"device_count": torch.cuda.device_count()}
+    with tempfile.TemporaryDirectory() as tmp:
+        out["lm"] = _mesh_lm_part(args, torch, tmp)
+        out["ring"] = _mesh_ring(args, torch)
+        out["moe"] = _mesh_moe(args, torch)
+        out["subgraph"] = _mesh_subgraph(args, torch, tmp)
+    out["kvstore"] = _mesh_kvstore(args, torch)
+    out["launches"] = out["lm"]["launches"]
+    out["launches_bwd_by_layout"] = out["lm"]["launches_bwd_by_layout"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["wall_s"] = time.perf_counter() - t0
+    return out
+
+
+def print_mesh(res, card):
+    """The mesh phase's lines of the output."""
+    a = res["lm"]
+    print("mesh: torch.cuda.device_count() = %d; (a) transformer_lm_base "
+          "b%d s%d fp32 Adam over %s (%s): %.2f ms a step (one device "
+          "%.2f ms); losses %s vs one device %s (rel gap %.3g, rtol %g); "
+          "params max gap %.3g (%s, atol %g), median %.3g; Adam moments max "
+          "gap %.3g of their max (%s, rtol %g), median %.3g; %d tp_rules "
+          "params at half a shard; launches %s, backward by layout %s; "
+          "distinct GPUs: %s [%s]" % (
+              res["device_count"], a["batch"], a["seq"], a["mesh"],
+              a["devices"], float(np.mean(a["step_ms_mesh"][1:])),
+              float(np.mean(a["step_ms_one"][1:])),
+              ", ".join("%.5f" % v for v in a["losses_mesh"]),
+              ", ".join("%.5f" % v for v in a["losses_one"]),
+              a["loss_rel_gap"], a["loss_rtol"], a["param_max_gap"],
+              a["param_max_gap_name"], a["param_atol"],
+              a["param_median_gap"], a["state_max_rel_gap"],
+              a["state_max_rel_gap_name"], a["state_rtol"],
+              a["state_median_rel_gap"], a["tp_sharded"], a["launches"],
+              a["launches_bwd_by_layout"], a["distinct_gpus"], card),
+          flush=True)
+    for name, c in a["controls"].items():
+        print("mesh: (a) control %s: loss gap %.3g, params max gap %.3g "
+              "(%s), Adam moments max gap %.3g (%s); broke: %s [%s]" % (
+                  name, c["loss_rel_gap"], c["param_max_gap"],
+                  c["param_max_gap_name"], c["state_max_rel_gap"],
+                  c["state_max_rel_gap_name"], "; ".join(c["broken"]),
+                  card), flush=True)
+    r, m, e, k = res["ring"], res["moe"], res["subgraph"], res["kvstore"]
+    print("mesh: (b) ring attention %s over sp=4: full max err %.3g (%.2f "
+          "ms), causal %.3g (%.2f ms) vs float64; (c) moe_lm_tiny plan %s "
+          "(%d replicas) losses %s vs one device (rel gap %.3g); (d) "
+          "resumed steps 3-4 %s bitwise; (e) resnet50_v1 b%d TPU_ELEMWISE "
+          "%d regions, bitwise; replay %.3f ms partitioned vs %.3f ms "
+          "plain; (f) 2bit device kvstore card == CPU bitwise (levels %s); "
+          "%.1f s [%s]" % (
+              r["shape"], r["full"]["max_abs_err"], r["full"]["ms"],
+              r["causal"]["max_abs_err"], r["causal"]["ms"], m["plan"],
+              m["replicas"], ", ".join("%.5f" % v for v in m["losses_plan"]),
+              m["loss_rel_gap"], ", ".join("%.5f" % v
+                                           for v in a["resumed_losses"]),
+              VISION_BATCH, e["partitioned"]["regions"],
+              e["partitioned"]["replay_ms"], e["plain"]["replay_ms"],
+              k["levels"], res["wall_s"], card), flush=True)
+
+
 def kernel_entries(serving, v2, training, bert, surface, core, vision,
                    data, rnn, symbol, ops, np_res, det, quant, sparse,
-                   fwd_cases, bwd_cases):
+                   mesh, fwd_cases, bwd_cases):
     """The ``{"kernels": [...]}`` entries, one per TPU kernel. The three
     ``(B, S, H, D)`` ones: numbers of the main path's training shape (B 32,
     S 512, H 12, D 64, causal) in fp32, and under ``*_bf16`` keys in bf16;
@@ -8159,7 +8657,8 @@ def kernel_entries(serving, v2, training, bert, surface, core, vision,
     at the registry op's shape (B 8, S 512, H 12, D 64, causal, key mask).
     ``core`` holds the predict, autograd and registry-op phases' launch
     counts; the backward kernels serve both layouts, so their launches are
-    split by the phase's layout. The vision, data, rnn, ops, np,
+    split by the phase's layout (the mesh phase's by the wrappers' own
+    counts by layout, ``launches_by_layout``). The vision, data, rnn, ops, np,
     detection, quant and sparse phases' launches (none: no attention on
     those paths) are
     listed under their names, the ops phase's ``.states`` resume on the flash path under
@@ -8220,7 +8719,8 @@ def kernel_entries(serving, v2, training, bert, surface, core, vision,
              "np": np_res["launches"]["flash_attn_fwd"],
              "detection": det["launches"]["flash_attn_fwd"],
              "quant": quant["launches"]["flash_attn_fwd"],
-             "sparse": sparse["launches"]["flash_attn_fwd"]}
+             "sparse": sparse["launches"]["flash_attn_fwd"],
+             "mesh": mesh["launches"]["flash_attn_fwd"]}
     train_timed = "B=%d S=%d H=12 D=64 BSHD causal, float32 (*_bf16: " \
         "bfloat16)" % (TRAIN_BATCH, TRAIN_SEQ)
     reg_timed = "B=8 S=512 H=12 D=64 BHSD causal with a key mask, float32 " \
@@ -8252,7 +8752,8 @@ def kernel_entries(serving, v2, training, bert, surface, core, vision,
                               det["launches"]["flash_attn_fwd_bhsd"],
                           "quant": quant["launches"]["flash_attn_fwd_bhsd"],
                           "sparse":
-                              sparse["launches"]["flash_attn_fwd_bhsd"]},
+                              sparse["launches"]["flash_attn_fwd_bhsd"],
+                          "mesh": mesh["launches"]["flash_attn_fwd_bhsd"]},
         **timed(pick(fwd_cases, B=8, layout="BHSD"),
                 pick(fwd_cases, "bfloat16", B=8, layout="BHSD"))))
     for name, part, line, line_bhsd in (
@@ -8272,7 +8773,8 @@ def kernel_entries(serving, v2, training, bert, surface, core, vision,
               "np": np_res["launches"][name],
               "detection": det["launches"][name],
               "quant": quant["launches"][name],
-              "sparse": sparse["launches"][name]}
+              "sparse": sparse["launches"][name],
+              "mesh": mesh["launches_bwd_by_layout"][name]["BSHD"]}
         for layout, ln in (("BSHD", line), ("BHSD", line_bhsd)):
             errs = [c["max_abs_err"][n] for c in bwd_cases
                     if c["layout"] == layout
@@ -8298,7 +8800,10 @@ def kernel_entries(serving, v2, training, bert, surface, core, vision,
                                                det["launches"][name],
                                            "quant": quant["launches"][name],
                                            "sparse":
-                                               sparse["launches"][name]},
+                                               sparse["launches"][name],
+                                           "mesh": mesh[
+                                               "launches_bwd_by_layout"][
+                                               name]["BHSD"]},
                          **timed(pick(bwd_cases, B=8, layout="BHSD"),
                                  pick(bwd_cases, "bfloat16", B=8,
                                       layout="BHSD"), part))
@@ -8681,6 +9186,8 @@ def main():
     print_quant(quant, symbol, vision, card)
     sparse = sparse_phase(args, torch)
     print_sparse(sparse, card)
+    mesh = mesh_phase(args, torch)
+    print_mesh(mesh, card)
 
     for tag, prof in (("serving burst", serving["profile"]),
                       ("2 fp32 training steps",
@@ -8695,7 +9202,11 @@ def main():
                       ("1 bf16 resnet50_v1 step (vision)",
                        vision["bfloat16"].get("profile")),
                       ("1 bf16 resnet50_v1 b32 eager forward (vision)",
-                       vision["inference"].get("profile_eager"))):
+                       vision["inference"].get("profile_eager")),
+                      ("2 fp32 dp=2 x tp=2 mesh steps (mesh)",
+                       mesh["lm"].get("profile_mesh")),
+                      ("2 fp32 one-device steps (mesh)",
+                       mesh["lm"].get("profile_one"))):
         if prof is not None:
             print("profile %s: %.1f ms wall, device busy %.1f ms (%.1f%%), "
                   "%d kernels; top: %s" % (
@@ -8736,7 +9247,7 @@ def main():
                           c["max_err_rel_to_max"].values())))
     entries = kernel_entries(serving, v2, training, bert, surface, core,
                              vision, data, rnn, symbol, ops, np_res, det,
-                             quant, sparse, fwd_cases, bwd_cases)
+                             quant, sparse, mesh, fwd_cases, bwd_cases)
     if args.out:
         with open(args.out, "w") as f:
             json.dump({"serving": serving, "serving_v2": v2,
@@ -8746,7 +9257,7 @@ def main():
                        "registry_op": registry, "vision": vision,
                        "data": data, "rnn": rnn, "symbol": symbol,
                        "ops": ops, "np": np_res, "detection": det,
-                       "quant": quant, "sparse": sparse,
+                       "quant": quant, "sparse": sparse, "mesh": mesh,
                        "kernels": entries,
                        "card": card,
                        "build_s": build_s}, f, indent=1)

@@ -58,10 +58,18 @@ What the port carries so far:
   op, ``nd.Custom``, ``sym.Custom``), the INT8 family with
   ``contrib.quantization`` (``quantize_net``, ``quantize_model``), sparse
   storage (``nd.sparse``: ``CSRNDArray``, ``RowSparseNDArray``, ``dot``,
-  SGD's lazy update) and ``contrib.graph``.
+  SGD's lazy update) and ``contrib.graph``;
+- distribution inside one process: ``kvstore``/``kv`` (``local``,
+  ``device``, ``nccl``, ``dist_sync`` as a world of one), and
+  ``parallel``'s meshes of logical devices, ``ShardedTrainer`` over a
+  mesh (``tp_rules``, sharding plans), ring attention, the MoE FFN, the
+  pipeline, the planner and checkpoints (``models.MoETransformerLM``);
+  ``gluon.Trainer``, ``Module`` and ``model.FeedForward`` over several
+  contexts; ``sym``'s subgraph backends and ``group2ctx``.
 """
 from . import (autograd, base, callback, config, context, contrib, convert,
-               engine, gluon, image, initializer, io, lr_scheduler, metric,
+               engine, gluon, image, initializer, io, kvstore, lr_scheduler,
+               metric,
                model, models, module, monitor, ndarray, numpy,
                numpy_extension, operator, ops, optimizer, parallel, random,
                recordio, rnn, runtime, serving, symbol, test_utils,
@@ -72,6 +80,7 @@ from .context import (Context, cpu, current_context, default_device, gpu,
                       num_gpus)
 
 nd = ndarray
+kv = kvstore
 init = initializer
 sym = symbol
 mod = module

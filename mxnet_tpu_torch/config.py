@@ -3,7 +3,8 @@
 Counterpart of ``mxnet_tpu/config.py``: the same ``MXNET_*`` names and
 defaults, for only the knobs that the port's modules read: the core
 runtime (engine, CachedOp), serving (``/predict`` and generation), the
-resilience stack, the tracer and the data path.
+resilience stack, the tracer, the data path, the sharding planner and
+the subgraph backend.
 :func:`get` is a typed read of the environment, so a knob set after import
 takes effect at its next read.
 """
@@ -118,6 +119,26 @@ KNOBS = dict([
     _k("MXNET_DATAFEED_CHUNK", 8, int,
        "ShardedTrainer.step_stream steps per chunk: the chaos point fires "
        "once per chunk, and the feed stages ahead while a chunk computes"),
+    _k("MXNET_PLAN_HBM_BYTES", 0, int,
+       "sharding planner per-device memory budget: placements whose "
+       "modeled params+optimizer+activation bytes/device exceed it are "
+       "infeasible (parallel/planner.py; 0 = unconstrained)"),
+    _k("MXNET_PLAN_MAX_PP", 0, int,
+       "sharding planner cap on the pipeline factor (0 = no cap)"),
+    _k("MXNET_PLAN_FORCE", "", str,
+       "bypass the placement search with an explicit plan, e.g. "
+       "'dp=2,pp=2,ep=2' (still validated against the model profile)"),
+    _k("MXNET_SERVE_PLAN_HBM_BYTES", 0, int,
+       "serving planner per-device memory budget (weights + activations "
+       "+ KV arena; 0 = unconstrained)"),
+    _k("MXNET_SERVE_PLAN_MAX_PP", 0, int,
+       "serving planner cap on the pipeline factor (0 = no cap)"),
+    _k("MXNET_SERVE_PLAN_FORCE", "", str,
+       "bypass the serving placement search with an explicit plan, e.g. "
+       "'dp=1,ep=8' (still validated)"),
+    _k("MXNET_SUBGRAPH_BACKEND", "NONE", str,
+       "partition every bound Symbol with this registered subgraph "
+       "backend (symbol/subgraph.py; NONE = off)"),
     _k("MXNET_FLASH_ATTENTION", 1, int,
        "dispatch dot_product_attention to the CUDA flash-attention kernel "
        "when its gate holds (ops/nn.py; 0 = always take the plain path)"),

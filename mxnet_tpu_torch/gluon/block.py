@@ -47,6 +47,8 @@ reads those files back).
 """
 from __future__ import annotations
 
+import contextlib
+
 import re
 import threading
 from collections import OrderedDict
@@ -61,7 +63,8 @@ from ..symbol.symbol import Symbol
 from .parameter import (DeferredInitializationError, Parameter,
                         ParameterDict, load_param_from_array, wrap_tensor)
 
-__all__ = ["Block", "HybridBlock", "SymbolBlock"]
+__all__ = ["Block", "HybridBlock", "SymbolBlock", "set_slots",
+           "slots_set_to"]
 
 _naming = threading.local()
 _global_counter = {}
@@ -164,6 +167,35 @@ def _unwrap_out(x):
     if isinstance(x, (list, tuple)):
         return type(x)(_unwrap_out(v) for v in x)
     return x
+
+
+def set_slots(slots, tensors):
+    """Put ``tensors[i]`` in the ``i``-th ``(module, leaf)`` parameter slot
+    of ``slots``; returns what the slots held. The one way the port runs a
+    block on other tensors than its registered ones (a context's copies,
+    a mesh replica's values): the caller puts the old ones back."""
+    old = [mod._parameters[leaf] for mod, leaf in slots]
+    for (mod, leaf), t in zip(slots, tensors):
+        mod._parameters[leaf] = t
+    return old
+
+
+@contextlib.contextmanager
+def slots_set_to(slots, tensors):
+    """``tensors`` in ``slots`` (:func:`set_slots`) for the length of the
+    ``with`` block."""
+    old = set_slots(slots, tensors)
+    try:
+        yield
+    finally:
+        set_slots(slots, old)
+
+
+# NDArray calls of blocks with parameters on several contexts: the context
+# whose copies this thread's outermost such call installed, and one lock so
+# that no thread runs such a block while another has its slots swapped
+_copies = threading.local()
+_copies_lock = threading.RLock()
 
 
 def _param_of(tensor, name, init=None):
@@ -444,7 +476,8 @@ class Block(nn.Module):
         for hook in self._mx_forward_pre_hooks.values():
             hook(self, args)
         if _has_nd(args, kwargs):
-            out = self._nd_call(*args, **kwargs)
+            with self._copies_for(args):
+                out = self._nd_call(*args, **kwargs)
         elif args and isinstance(args[0], Symbol):
             out = self._symbol_call(*args)
         else:
@@ -455,6 +488,43 @@ class Block(nn.Module):
 
     def _nd_call(self, *args, **kwargs):
         return self._nd_forward(*args, **kwargs)
+
+    @contextlib.contextmanager
+    def _copies_for(self, args):
+        """While the block runs on NDArrays of a context where its own
+        parameters hold a copy other than the first, its modules use that
+        copy (``initialize(ctx=[...])``: each context's forward and
+        gradient land in its own copy, as in the reference). Only the
+        outermost such call of a thread swaps (a nested call on the same
+        context finds it done), and it holds a lock, so another thread's
+        NDArray call of a block with several contexts waits."""
+        from .parameter import _several_contexts
+        ctx = next((a.ctx for a in args if isinstance(a, NDArray)), None) \
+            if _several_contexts else None
+        if ctx is None or getattr(_copies, "ctx", None) == ctx:
+            yield
+            return
+        slots, copies, several = [], [], False
+        for mod in self.modules():
+            for leaf, t in mod._parameters.items():
+                p = getattr(t, "_mx_parameter", None)
+                if p is None or p._tensors is None or len(p._ctx_list) < 2:
+                    continue
+                several = True
+                if ctx in p._ctx_list[1:]:
+                    slots.append((mod, leaf))
+                    copies.append(p._tensors[p._ctx_list.index(ctx)])
+        if not several:
+            yield
+            return
+        outer = getattr(_copies, "ctx", None)
+        with _copies_lock:
+            _copies.ctx = ctx
+            try:
+                with slots_set_to(slots, copies):
+                    yield
+            finally:
+                _copies.ctx = outer
 
     def _nd_forward(self, *args, **kwargs):
         """One Gluon call with NDArrays: grad mode and the training flag

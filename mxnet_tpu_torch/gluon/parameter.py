@@ -54,6 +54,10 @@ __all__ = ["DeferredInitializationError", "Parameter", "Constant",
 
 tensor_types = (NDArray,)
 
+# the live parameters that hold copies on several contexts: while it is
+# empty (a one-context process), ``Block._copies_for`` looks at nothing
+_several_contexts = weakref.WeakSet()
+
 
 class DeferredInitializationError(MXNetError):
     """Parameter accessed before its shape is known."""
@@ -223,6 +227,10 @@ class Parameter:
         if self._tensors is not None:
             cached_op.storage_rebound()
         self._ctx_list = list(ctx_list)
+        if len(self._ctx_list) > 1:
+            _several_contexts.add(self)
+        else:
+            _several_contexts.discard(self)
         data = data._data if isinstance(data, NDArray) else \
             torch.as_tensor(np.asarray(data)) \
             if not isinstance(data, torch.Tensor) else data

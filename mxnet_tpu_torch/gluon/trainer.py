@@ -1,4 +1,4 @@
-"""The eager Gluon ``Trainer`` on one device: counterpart of
+"""The eager Gluon ``Trainer``: counterpart of
 ``mxnet_tpu/gluon/trainer.py``.
 
 ``Trainer(collect_params(net), "adam", {...})`` applies an optimizer
@@ -14,9 +14,14 @@ after the caller's own forward and ``backward``::
 
 As in the reference, a dict of parameters is indexed by SORTED name: that
 index keys the optimizer's states, its update counts and
-``save_states``. The store (``kvstore``) only sums gradients across
-devices, and there is one device, so ``allreduce_grads`` does nothing;
-``dist*`` stores are not ported (ROADMAP Queue A item 10).
+``save_states``. The store (``kvstore``: ``"device"``, ``"local"``,
+``"nccl"``, a ``dist_*`` name as a world of one, a
+:class:`~mxnet_tpu_torch.kvstore.KVStore`, or None) only sums gradients
+across contexts: over parameters on several contexts (``initialize(ctx=
+[...])``) ``allreduce_grads`` pushes each parameter's gradient copies and
+pulls their sum back into every copy, and each context's copy is then
+updated by its own updater; over one context no store is made (a
+``dist_*`` one excepted), as in the reference.
 """
 from __future__ import annotations
 
@@ -30,7 +35,7 @@ class Trainer:
     """Applies an optimizer to a list or dict of :class:`Parameter`.
 
     ``optimizer`` is a registered name (with ``optimizer_params``) or an
-    ``Optimizer``; ``kvstore`` is ``"device"``, ``"local"`` or None."""
+    ``Optimizer``; ``kvstore`` a store's name, a store, or None."""
 
     def __init__(self, params, optimizer, optimizer_params=None,
                  kvstore="device", compression_params=None,
@@ -50,21 +55,14 @@ class Trainer:
                     "got list of %s." % (type(param)))
             self._param2idx[param.name] = i
             self._params.append(param)
-        if kvstore is not None and not (isinstance(kvstore, str) and
-                                        kvstore in ("device", "local")):
-            if isinstance(kvstore, str) and kvstore.startswith("dist"):
-                raise NotImplementedError(
-                    "Trainer: kvstore %r is not ported yet (ROADMAP Queue A "
-                    "item 10, distribution); the port trains on one device"
-                    % kvstore)
-            raise ValueError("Trainer: kvstore must be 'device', 'local' or "
-                             "None on one device, got %r" % (kvstore,))
         self._compression_params = compression_params
         optimizer_params = optimizer_params if optimizer_params else {}
         self._scale = float(optimizer_params.get("rescale_grad", 1.0))
         self._contexts = self._check_contexts()
         self._init_optimizer(optimizer, optimizer_params)
         self._kvstore_kind = kvstore
+        self._kvstore = None
+        self._kv_initialized = False
         self._update_on_kvstore = False
 
     def _check_contexts(self):
@@ -106,18 +104,52 @@ class Trainer:
     def set_learning_rate(self, lr):
         self._optimizer.set_learning_rate(lr)
 
+    def _init_kvstore(self):
+        """The store: made from its name over several contexts (or for a
+        ``dist_*`` name), each trained parameter's first copy its initial
+        value."""
+        from .. import kvstore as kvs
+        kind = self._kvstore_kind
+        if kind is None or (isinstance(kind, str) and
+                            len(self._contexts) <= 1 and
+                            not kind.startswith("dist")):
+            self._kvstore = None
+        else:
+            self._kvstore = kvs.create(kind) if isinstance(kind, str) \
+                else kind
+            if self._compression_params:
+                self._kvstore.set_gradient_compression(
+                    self._compression_params)
+            for i, param in enumerate(self._params):
+                if param.grad_req != "null":
+                    self._kvstore.init(i, param.list_data()[0])
+        self._kv_initialized = True
+
     def allreduce_grads(self):
-        """Sum gradients across devices: nothing to do on one."""
+        """Sum each parameter's gradient copies through the store and
+        write the sum into every copy."""
+        if not self._kv_initialized:
+            self._init_kvstore()
+        if self._kvstore is None:
+            return
+        for i, param in enumerate(self._params):
+            if param.grad_req != "null":
+                grads = param.list_grad()
+                self._kvstore.push(i, grads)
+                self._kvstore.pull(i, out=grads)
 
     def step(self, batch_size, ignore_stale_grad=False):
         """Normalize the gradients by ``batch_size`` (``rescale_grad =
-        scale / batch_size``) and update every parameter."""
+        scale / batch_size``), sum them across contexts and update every
+        parameter."""
         self._optimizer.rescale_grad = self._scale / batch_size
         self.allreduce_grads()
         self._update(ignore_stale_grad)
 
     def update(self, batch_size, ignore_stale_grad=False):
         """:meth:`step` without the all-reduce."""
+        if not self._kv_initialized:
+            self._init_kvstore()
         self._optimizer.rescale_grad = self._scale / batch_size
         self._update(ignore_stale_grad)
 

@@ -4,11 +4,13 @@
 ``save_checkpoint``/``load_checkpoint`` write and read
 ``prefix-symbol.json`` and ``prefix-%04d.params`` (``arg:``/``aux:``
 names in the reference's ``.params`` bytes), so checkpoints move between
-the two packages both ways. ``_create_kvstore`` takes ``"local"``,
-``"device"`` or None, one device's stores: there is no store to run on,
-and the update runs in the ``Module``; a ``dist*`` or ``nccl`` store is
-ROADMAP Queue A item 10. ``FeedForward``, the pre-``Module`` estimator,
-drives a :class:`~mxnet_tpu_torch.module.Module`.
+the two packages both ways. ``_create_kvstore`` makes the store a
+``Module`` sums its contexts' gradients through: none over one device
+(unless a ``dist*`` store is named, a world of one in this process), else
+the named one (``local``, ``device``, ``nccl``) or the store given; the
+update runs in the ``Module``. ``FeedForward``, the pre-``Module``
+estimator, drives a :class:`~mxnet_tpu_torch.module.Module` (over every
+context of ``ctx``).
 """
 from __future__ import annotations
 
@@ -54,17 +56,19 @@ def load_checkpoint(prefix, epoch, ctx=None):
 
 
 def _create_kvstore(kvstore, num_device, arg_params):
-    """``(kvstore, update_on_kvstore)``: None and False on one device for
-    ``"local"``, ``"device"`` or None."""
-    if kvstore is None or kvstore in ("local", "device"):
-        return None, False
-    if isinstance(kvstore, str) and (kvstore.startswith("dist") or
-                                     kvstore == "nccl"):
-        raise NotImplementedError(
-            "kvstore %r is not ported yet (ROADMAP Queue A item 10, "
-            "distribution); the port trains on one device" % kvstore)
-    raise ValueError("kvstore must be 'local', 'device' or None on one "
-                     "device, got %r" % (kvstore,))
+    """``(kvstore, update_on_kvstore)``: no store over one device for a
+    non-``dist`` name; the update never runs on the store."""
+    from . import kvstore as kvs
+    if kvstore is None:
+        kv = None
+    elif isinstance(kvstore, kvs.KVStore):
+        kv = kvstore
+    elif isinstance(kvstore, str):
+        kv = None if num_device == 1 and "dist" not in kvstore \
+            else kvs.create(kvstore)
+    else:
+        raise TypeError("kvstore must be KVStore, str or None")
+    return kv, False
 
 
 class FeedForward:

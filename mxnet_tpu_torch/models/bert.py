@@ -23,7 +23,7 @@ from ..context import default_device
 from ..gluon.block import HybridBlock
 from ..gluon.nn import Dense, Dropout, Embedding, LayerNorm
 from ..ops import nn as _ops
-from .transformer import MultiHeadAttention
+from .transformer import MultiHeadAttention, tp_rules  # noqa: F401
 
 __all__ = ["BERTModel", "BERTEncoder", "bert_tiny", "bert_base",
            "BERTPretrainingLoss", "PretrainStep", "PretrainLoss",

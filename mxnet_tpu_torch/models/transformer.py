@@ -287,6 +287,23 @@ class TransformerLM(HybridBlock):
         return self.head(x.reshape(B, self._units)), cache
 
 
+def tp_rules():
+    """Megatron-style tensor-parallel rules for ``TransformerLM`` (and
+    BERT) parameters, by their reference names: ``[(regex,
+    PartitionSpec)]`` for ``ShardedTrainer(param_rules=...)``. A device
+    holds 1/tp of each parameter they name; the compute is not split yet
+    (ROADMAP lead: Megatron column and row parallel)."""
+    from ..parallel.mesh import PartitionSpec as P
+    return [
+        (r"qkv_weight$", P("tp", None)),       # column parallel (out, in)
+        (r"ffn_up_weight$", P("tp", None)),
+        (r"proj_weight$", P(None, "tp")),      # row parallel
+        (r"ffn_down_weight$", P(None, "tp")),
+        (r"embed_weight$", P(None, "tp")),
+        (r"head_weight$", P("tp", None)),
+    ]
+
+
 def transformer_lm_tiny(vocab_size=1024, **kwargs):
     return TransformerLM(vocab_size, units=64, num_layers=2, num_heads=4,
                          max_len=256, **kwargs)

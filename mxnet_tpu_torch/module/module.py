@@ -12,36 +12,45 @@ batch_size``, the batch size read on the data layout's batch axis.
 updater to each parameter's gradient in place. The data take a gradient
 only with ``inputs_need_grad``, and the labels never, as in MXNet 1.6.
 
-The executor runs on one device: ``context`` (the current context when
-None: the card unless a ``with mx.cpu():`` scope is open, where the
-reference takes the CPU). A list of more than one context is data
-parallelism, ROADMAP Queue A item 10, as are ``dist*`` kvstores.
-``save_optimizer_states`` writes the port's own updater pickle (torch
-tensors; moving such files between the packages is ROADMAP item 5b).
+The executor runs on ``context`` (the current context when None: the
+card unless a ``with mx.cpu():`` scope is open, where the reference takes
+the CPU). A list of contexts is data parallelism: one executor a context,
+each bound for its equal slice of the batch (along the batch axis); a
+forward splits the batch over them, ``get_outputs`` concatenates their
+outputs, and ``update`` sums each parameter's gradients through the store
+of ``init_optimizer`` (``local``, ``device``, ``nccl``, a ``dist*`` one
+as a world of one; summed in context order without one), updates the
+first context's parameters and copies them to the others. The reference
+runs the whole batch as one program, so both give one device's step.
+``group2ctxs`` (a dict, or a list of them of which the first is taken)
+places the symbol's ``ctx_group`` groups at bind (``Executor``).
+``save_optimizer_states`` writes the reference's ``.states`` format.
 """
 from __future__ import annotations
 
 import logging
+
+import torch
 
 from .. import initializer as init_mod
 from .. import optimizer as opt_mod
 from ..context import current_context
 from ..io.io import DataDesc
 from ..model import _create_kvstore
+from ..ndarray.ndarray import NDArray
 from .base_module import BaseModule
 
 __all__ = ["Module"]
 
 
+def _contexts(context):
+    ctxs = list(context) if isinstance(context, (list, tuple)) \
+        else [context]
+    return [current_context() if c is None else c for c in ctxs or [None]]
+
+
 def _one_context(context):
-    if isinstance(context, (list, tuple)):
-        if len(context) > 1:
-            raise NotImplementedError(
-                "a Module over %d contexts is not ported yet (ROADMAP Queue "
-                "A item 10, distribution); it runs on one device"
-                % len(context))
-        context = context[0]
-    return current_context() if context is None else context
+    return _contexts(context)[0]
 
 
 def _shapes(descs):
@@ -56,7 +65,13 @@ class Module(BaseModule):
                  state_names=None, group2ctxs=None,
                  compression_params=None):
         super().__init__(logger=logger)
-        self._context = _one_context(context)
+        self._contexts = _contexts(context)
+        self._context = self._contexts[0]
+        if isinstance(group2ctxs, (list, tuple)):
+            group2ctxs = group2ctxs[0] if group2ctxs else None
+        self._group2ctxs = group2ctxs
+        self._execs = []
+        self._kvstore = None
         self._symbol = symbol
         self._data_names = list(data_names or [])
         self._label_names = list(label_names or [])
@@ -134,7 +149,7 @@ class Module(BaseModule):
         assert self.binded
         if self._exec.outputs:
             return [(n, tuple(o.shape)) for n, o in
-                    zip(self._output_names, self._exec.outputs)]
+                    zip(self._output_names, self.get_outputs())]
         _, out_shapes, _ = self._symbol.infer_shape(
             **dict(self._data_shapes + self._label_shapes))
         return list(zip(self._output_names, map(tuple, out_shapes)))
@@ -169,7 +184,42 @@ class Module(BaseModule):
                     arr[:] = held[name]
                 else:
                     initializer(init_mod.InitDesc(name), arr._data)
+        self._broadcast(aux=True)
         self.params_initialized = True
+
+    def _broadcast(self, aux=False):
+        """The first context's parameters (and aux states) into every
+        other context's executor."""
+        first = self._exec
+        for ex in self._execs[1:]:
+            for n in self._param_names:
+                ex.arg_dict[n][:] = first.arg_dict[n]
+            for n in self._aux_names if aux else ():
+                ex.aux_dict[n][:] = first.aux_dict[n]
+
+    def _slice_shapes(self, shapes):
+        """Each context's input shapes: the batch axis split evenly."""
+        n = len(self._contexts)
+        if n == 1:
+            return dict(shapes)
+        out = {}
+        ax = self._batch_axis
+        for name, shape in shapes.items():
+            shape = tuple(shape)
+            if shape[ax] % n:
+                raise ValueError(
+                    "batch of %d (%s) does not split evenly over %d "
+                    "contexts" % (shape[ax], name, n))
+            out[name] = shape[:ax] + (shape[ax] // n,) + shape[ax + 1:]
+        return out
+
+    def _split(self, value):
+        """``value`` (an NDArray) in one equal slice a context."""
+        n = len(self._contexts)
+        if n == 1:
+            return [value]
+        t = value._data if hasattr(value, "_data") else value
+        return [NDArray(c) for c in torch.chunk(t, n, self._batch_axis)]
 
     # ---- bind -------------------------------------------------------------
     def bind(self, data_shapes, label_shapes=None, for_training=True,
@@ -200,25 +250,32 @@ class Module(BaseModule):
                 reqs[n] = grad_req if inputs_need_grad else "null"
             else:
                 reqs[n] = grad_req
-        self._exec = self._symbol.simple_bind(
-            self._context, grad_req=reqs,
-            **dict(self._data_shapes + self._label_shapes))
+        shapes = self._slice_shapes(
+            dict(self._data_shapes + self._label_shapes))
+        self._execs = [self._symbol.simple_bind(
+            ctx, grad_req=reqs, group2ctx=self._group2ctxs, **shapes)
+            for ctx in self._contexts]
+        self._exec = self._execs[0]
         if shared_module is not None:
-            shared = shared_module._exec
-            for mine, theirs in ((self._exec.arg_dict, shared.arg_dict),
-                                 (self._exec.aux_dict, shared.aux_dict)):
-                for n in list(mine):
-                    if n not in self._data_names + self._label_names and \
-                            n in theirs and theirs[n].shape == mine[n].shape:
-                        mine[n] = theirs[n]
+            for ex, shared in zip(self._execs, shared_module._execs):
+                for mine, theirs in ((ex.arg_dict, shared.arg_dict),
+                                     (ex.aux_dict, shared.aux_dict)):
+                    for n in list(mine):
+                        if n not in self._data_names + self._label_names \
+                                and n in theirs \
+                                and theirs[n].shape == mine[n].shape:
+                            mine[n] = theirs[n]
         self.binded = True
-        if held is not None:
-            self._exec.copy_params_from(*held, allow_extra_params=True)
-        elif self.params_initialized and self._arg_params is not None:
-            self._exec.copy_params_from(self._arg_params, self._aux_params,
-                                        allow_extra_params=True)
+        given = held if held is not None else \
+            (self._arg_params, self._aux_params) \
+            if self.params_initialized and self._arg_params is not None \
+            else None
+        if given is not None:
+            for ex in self._execs:
+                ex.copy_params_from(*given, allow_extra_params=True)
         if self._monitor is not None:
-            self._monitor.install(self._exec)
+            for ex in self._execs:
+                self._monitor.install(ex)
 
     def reshape(self, data_shapes, label_shapes=None):
         """Rebind for new input shapes, sharing the parameters."""
@@ -228,9 +285,12 @@ class Module(BaseModule):
         self._reshape(dict(self._data_shapes + self._label_shapes))
 
     def _reshape(self, shapes):
-        self._exec = self._exec.reshape(**shapes)
+        shapes = self._slice_shapes(shapes)
+        self._execs = [ex.reshape(**shapes) for ex in self._execs]
+        self._exec = self._execs[0]
         if self._monitor is not None:
-            self._monitor.install(self._exec)
+            for ex in self._execs:
+                self._monitor.install(ex)
 
     # ---- optimizer --------------------------------------------------------
     def init_optimizer(self, kvstore="local", optimizer="sgd",
@@ -242,7 +302,11 @@ class Module(BaseModule):
         assert self.binded and self.params_initialized
         if self.optimizer_initialized and not force_init:
             return
-        _create_kvstore(kvstore, 1, None)
+        self._kvstore, _ = _create_kvstore(kvstore, len(self._contexts),
+                                           None)
+        if self._kvstore is not None:
+            for i, name in enumerate(self._param_names):
+                self._kvstore.init(i, self._exec.arg_dict[name])
         batch_size = self._data_shapes[0][1][self._batch_axis] \
             if self._data_shapes else 1
         rescale_grad = 1.0 / max(batch_size, 1)
@@ -273,14 +337,28 @@ class Module(BaseModule):
         feed = dict(zip(self._data_names, data_batch.data))
         if data_batch.label is not None and self._label_names:
             feed.update(zip(self._label_names, data_batch.label))
-        if any(self._exec.arg_dict[n].shape != tuple(v.shape)
-               for n, v in feed.items()):
+        sliced = self._slice_shapes({n: tuple(v.shape)
+                                     for n, v in feed.items()})
+        if any(self._exec.arg_dict[n].shape != s for n, s in sliced.items()):
             self._reshape({n: tuple(v.shape) for n, v in feed.items()})
-        self._exec.forward(is_train=is_train, **feed)
+        parts = {n: self._split(v) for n, v in feed.items()}
+        for i, ex in enumerate(self._execs):
+            ex.forward(is_train=is_train,
+                       **{n: p[i] for n, p in parts.items()})
 
     def backward(self, out_grads=None):
         assert self.binded and self.params_initialized
-        self._exec.backward(out_grads=out_grads)
+        if len(self._execs) == 1:
+            self._exec.backward(out_grads=out_grads)
+            return
+        if out_grads is not None and not isinstance(out_grads, (list,
+                                                                tuple)):
+            out_grads = [out_grads]
+        parts = None if out_grads is None else \
+            [self._split(g) for g in out_grads]
+        for i, ex in enumerate(self._execs):
+            ex.backward(out_grads=None if parts is None
+                        else [p[i] for p in parts])
 
     def update(self):
         """Apply the updater to every parameter that is not fixed, by its
@@ -288,31 +366,56 @@ class Module(BaseModule):
         assert self.binded and self.params_initialized and \
             self.optimizer_initialized
         for i, name in enumerate(self._param_names):
-            g = self._exec.grad_dict.get(name)
-            if name in self._fixed_param_names or g is None:
+            grads = [ex.grad_dict.get(name) for ex in self._execs]
+            if name in self._fixed_param_names or grads[0] is None:
                 continue
-            self._updater(i, g._data, self._exec.arg_dict[name]._data)
+            if len(grads) > 1:
+                if self._kvstore is not None:
+                    self._kvstore.push(i, grads)
+                    self._kvstore.pull(i, out=grads[:1])
+                else:
+                    with torch.no_grad():
+                        for g in grads[1:]:
+                            grads[0]._data.add_(g._data.to(
+                                grads[0]._data.device))
+            self._updater(i, grads[0]._data, self._exec.arg_dict[name]._data)
+        self._broadcast()
+
+    def _merged(self, per_exec, merge):
+        """Per-context lists of arrays: concatenated along the batch axis
+        (``merge``), else one list a position of each context's."""
+        if len(per_exec) == 1:
+            return per_exec[0]
+        by_pos = [list(arrs) for arrs in zip(*per_exec)]
+        if not merge:
+            return by_pos
+        dev = self._exec._device
+        return [NDArray(torch.cat([a._data.to(dev) for a in arrs],
+                                  self._batch_axis)) for arrs in by_pos]
 
     def get_outputs(self, merge_multi_context=True):
         assert self.binded and self.params_initialized
-        return self._exec.outputs
+        return self._merged([ex.outputs for ex in self._execs],
+                            merge_multi_context)
 
     def get_input_grads(self, merge_multi_context=True):
         assert self.binded and self.params_initialized and \
             self.inputs_need_grad
-        return [self._exec.grad_dict.get(n) for n in self._data_names]
+        return self._merged([[ex.grad_dict.get(n) for n in self._data_names]
+                             for ex in self._execs], merge_multi_context)
 
     def update_metric(self, eval_metric, labels, pre_sliced=False):
         eval_metric.update_dict(
             dict(zip(self._label_names, labels)),
-            dict(zip(self._output_names, self._exec.outputs)))
+            dict(zip(self._output_names, self.get_outputs())))
 
     def install_monitor(self, mon):
-        """Install the ``Monitor`` on the executor, and on each executor a
-        rebind makes."""
+        """Install the ``Monitor`` on every executor, and on each executor
+        a rebind makes."""
         assert self.binded
         self._monitor = mon
-        mon.install(self._exec)
+        for ex in self._execs:
+            mon.install(ex)
 
     def save_optimizer_states(self, fname):
         assert self.optimizer_initialized

@@ -80,12 +80,13 @@ class NDArray:
     """Multi-dimensional array on a device context."""
 
     __slots__ = ("_data", "_grad", "_grad_req", "_leaf", "_bound",
-                 "_pass_grad", "_stype", "__weakref__")
+                 "_pass_grad", "_stype", "_ctx", "__weakref__")
 
     def __init__(self, data, ctx=None, dtype=None, stype="default"):
         if isinstance(data, NDArray):
             data = data._data
         self._data = _tensor(data, ctx, dtype)
+        self._ctx = ctx
         self._grad = None
         self._grad_req = "null"
         self._leaf = False
@@ -130,6 +131,12 @@ class NDArray:
 
     @property
     def ctx(self) -> Context:
+        """The array's context: the one it was made on (a logical device
+        such as ``cpu(1)`` keeps its id) while the data stays on that
+        context's device, else its device's."""
+        made = getattr(self, "_ctx", None)
+        if made is not None and made.torch_device == self._data.device:
+            return made
         return Context.from_device(self._data.device)
 
     context = ctx
@@ -198,7 +205,7 @@ class NDArray:
     def copyto(self, other):
         if isinstance(other, Context):
             return NDArray(self._data.detach().to(other.torch_device,
-                                                  copy=True))
+                                                  copy=True), ctx=other)
         if isinstance(other, NDArray):
             other._rebind_out(self._data.to(other._data.device,
                                             other._data.dtype))

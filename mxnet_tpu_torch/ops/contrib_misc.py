@@ -9,8 +9,8 @@ coordinates), ``group_adagrad_update`` (row-wise AdaGrad), ``hawkesll``
 kernel, a loop over the events batched over the sequences, where the
 reference scans them), and ``moe_ffn`` on one device: Switch-style top-1
 routing with static capacity, the math of the reference's
-``parallel/moe.py`` ``moe_ffn`` copied here (its expert-parallel form is
-ROADMAP item 10).
+``parallel/moe.py`` ``moe_ffn`` copied here (the port's
+``parallel/moe.py`` uses it, and holds the expert-parallel form).
 """
 from __future__ import annotations
 

@@ -29,7 +29,8 @@ no gradient, as in the reference's ``custom_vjp``.
   the same zero rows, pre-dropout normaliser and lowbias32 keep bits) and
   :func:`flash_attention_bwd_plain` (the reference's backward formulas, not
   autograd).
-- Each wrapper counts its kernel launches in ``<wrapper>.launches``.
+- Each wrapper counts its kernel launches in ``<wrapper>.launches``; the
+  two backward ones also by layout, in ``.launches_by_layout``.
 """
 from __future__ import annotations
 
@@ -373,6 +374,7 @@ def flash_attention_bwd_dq(q, k, v, g, lse, delta, kv_mask=None, seed=None,
     dq = _bwd_launch("flash_attn_bwd_dq", q, k, v, g, lse, delta, kv_mask,
                      seed, causal, dropout, layout)
     flash_attention_bwd_dq.launches += 1
+    flash_attention_bwd_dq.launches_by_layout[layout] += 1
     return dq
 
 
@@ -386,6 +388,7 @@ def flash_attention_bwd_dkv(q, k, v, g, lse, delta, kv_mask=None, seed=None,
     dkv = _bwd_launch("flash_attn_bwd_dkv", q, k, v, g, lse, delta, kv_mask,
                       seed, causal, dropout, layout)
     flash_attention_bwd_dkv.launches += 1
+    flash_attention_bwd_dkv.launches_by_layout[layout] += 1
     return dkv
 
 
@@ -467,11 +470,16 @@ def flash_attention(q, k, v, kv_mask=None, seed=None, causal=False,
 
 _WRAPPERS = (flash_attention_bshd, flash_attention, flash_attention_bwd_dq,
              flash_attention_bwd_dkv)
-for _w in _WRAPPERS:
-    _w.launches = 0
+_BWD_WRAPPERS = (flash_attention_bwd_dq, flash_attention_bwd_dkv)
 
 
 def reset_launches():
-    """Set every kernel wrapper's launch count to 0."""
+    """Set every kernel wrapper's launch count to 0 (the backward ones'
+    counts by layout too)."""
     for w in _WRAPPERS:
         w.launches = 0
+    for w in _BWD_WRAPPERS:
+        w.launches_by_layout = {"BSHD": 0, "BHSD": 0}
+
+
+reset_launches()

@@ -54,6 +54,7 @@ import torch.nn.functional as F
 
 from .. import config as _config
 from .. import random as _random
+from . import _collective
 from . import core as _core
 from .core import _const
 from .registry import bind_key, bind_train, register, register_alias
@@ -571,7 +572,9 @@ def BatchNorm(data, gamma, beta, moving_mean, moving_var, eps=1e-3,
     ``(x - mean) * inv * gamma + beta`` is computed in it (``gamma`` = 1
     under ``fix_gamma``). The moving statistics are not updated here: the
     ``BatchNorm`` layer writes them. ``output_mean_var`` also returns the
-    mean and variance."""
+    mean and variance. Inside a mesh step (``ShardedTrainer`` over data
+    axes) the two moments are averaged over the step's replicas, so they
+    are the global batch's, as in the reference's SPMD program."""
     dims = tuple(i for i in range(data.dim()) if i != axis % data.dim())
     shape = [1] * data.dim()
     shape[axis] = data.shape[axis]
@@ -581,7 +584,10 @@ def BatchNorm(data, gamma, beta, moving_mean, moving_var, eps=1e-3,
     else:
         xf = data.float()
         mean = xf.mean(dim=dims)
-        var = torch.clamp_min((xf * xf).mean(dim=dims) - mean * mean, 0.0)
+        sq = (xf * xf).mean(dim=dims)
+        # in a mesh step's replica: the moments of the global batch
+        mean, sq = _collective.batch_mean((mean, sq))
+        var = torch.clamp_min(sq - mean * mean, 0.0)
         mean = mean.to(moving_mean.dtype)
         var = var.to(moving_var.dtype)
     dt = data.dtype

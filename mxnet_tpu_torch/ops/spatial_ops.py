@@ -9,9 +9,10 @@ together), ``Crop``, ``SVMOutput`` (identity forward; backward injects
 the one-vs-all hinge gradient and ignores the incoming one, as the
 reference), ``Correlation`` (FlowNet), ``fft``/``ifft`` (the last axis,
 complex values interleaved ``[re, im, ...]``; the inverse unnormalised:
-``ifft(fft(x)) = d x``), ``count_sketch`` and ``SyncBatchNorm`` (on one
-device: BatchNorm's batch statistics, ``E[x^2] - E[x]^2``; across devices
-ROADMAP item 10).
+``ifft(fft(x)) = d x``), ``count_sketch`` and ``SyncBatchNorm``
+(BatchNorm's batch statistics, ``E[x^2] - E[x]^2``, averaged over
+``comm_axis`` when it runs inside a mesh step whose data axes hold that
+axis, local otherwise).
 
 Sampling is four gathers with piecewise-linear weights, added in the
 reference's order, so autograd gives the data and grid gradients.
@@ -21,6 +22,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from . import _collective
 from .registry import register
 from .tensor_extra import _spaced
 
@@ -237,7 +239,9 @@ def SyncBatchNorm(data, gamma, beta, moving_mean, moving_var, eps=1e-3,
     else:
         axes = (0,) + tuple(range(2, data.dim()))
         mean = torch.mean(data, dim=axes)
-        var = torch.mean(torch.square(data), dim=axes) - torch.square(mean)
+        sq = torch.mean(torch.square(data), dim=axes)
+        mean, sq = _collective.batch_mean((mean, sq), axis=comm_axis)
+        var = sq - torch.square(mean)
     out = (data - mean.reshape(sh)) * (
         g.reshape(sh) / torch.sqrt(var.reshape(sh) + eps)) + beta.reshape(sh)
     if output_mean_var:

@@ -22,8 +22,11 @@ an error:
   to a later batch while the consumer's kernels still read it.
 
 Elsewhere (``device="cpu"``) the feed copies each array to the device it
-is given. Meshes and sharding plans (``mesh``, ``plan``) wait for the
-distribution slice (ROADMAP Queue A item 10) and raise.
+is given. With a ``mesh`` (or a ``plan``: its mesh and data axes) every
+array of a batch is staged once onto the mesh's first device and then
+placed as a :class:`~.mesh.ShardedTensor` with its leading axis split over
+the data axes (``batch_axes``), each position's rows in its own buffer,
+which is what :class:`~.trainer.ShardedTrainer`'s replicas take.
 
 Counters (:func:`feed_stats`, and the profiler rows
 ``datafeed.<name>.batches``, ``.bytes_staged``, ``.stage_wait_ms``,
@@ -34,6 +37,7 @@ the pipeline exists to hold at 0 after warm-up. Knob:
 """
 from __future__ import annotations
 
+import contextlib
 import queue
 import threading
 import time
@@ -47,6 +51,7 @@ from ..context import default_device
 from ..ndarray.ndarray import NDArray
 from ..observability import tracer as _trace
 from ..resilience._stats import Registry, export_rows
+from .mesh import ShardedTensor, batch_sharding
 
 __all__ = ["DeviceFeed", "feed_stats"]
 
@@ -177,20 +182,30 @@ class DeviceFeed:
     device : torch.device or str, optional
         Where batches go (CUDA when None; raises without one).
     mesh, batch_axes, plan
-        The reference's sharded staging; ``mesh`` and ``plan`` raise
-        :class:`NotImplementedError` (ROADMAP Queue A item 10).
+        Sharded staging over a :class:`~.mesh.Mesh`: the leading axis split
+        over ``batch_axes`` (a plan's ``data_axes``; a plan without a mesh
+        takes ``plan.n_devices`` positions on ``device``). Only with
+        ``output="arrays"``.
     """
 
     def __init__(self, source, mesh=None, batch_axes=("dp",), depth=None,
                  output="arrays", timeout=120.0, name="default", plan=None,
                  device=None):
-        if mesh is not None or plan is not None:
-            raise NotImplementedError(
-                "DeviceFeed: meshes and sharding plans are not ported yet "
-                "(ROADMAP Queue A item 10); the port stages to one device")
         if output not in ("arrays", "batch"):
             raise ValueError("output must be 'arrays' or 'batch', got %r"
                              % (output,))
+        if plan is not None:
+            if mesh is None:
+                mesh = plan.mesh(devices=None if device is None else
+                                 [device] * plan.n_devices)
+            batch_axes = plan.data_axes
+        self._sharding = None
+        if mesh is not None:
+            if output != "arrays":
+                raise ValueError("DeviceFeed: a mesh stages arrays only "
+                                 "(output='arrays')")
+            self._sharding = batch_sharding(mesh, tuple(batch_axes))
+            device = mesh.device(0)
         if depth is None:
             from .. import config as _config
             depth = _config.get("MXNET_DATAFEED_DEPTH")
@@ -299,12 +314,31 @@ class DeviceFeed:
                 staged = (tuple(self._put_one(x, slot, next(counter))
                                 for x in xs),
                           self._put_one(y, slot, next(counter)))
+                if self._sharding is not None:
+                    staged = self._shard(staged)
             event = None
             if self._cuda:
                 event = torch.cuda.Event()
                 event.record(self._stream)
                 slot.event = event
             return staged, event
+
+    def _shard(self, staged):
+        """The staged arrays placed over the mesh (on the stager's stream,
+        after their copies)."""
+        xs, y = staged
+        place = ShardedTensor.place
+        with torch.cuda.stream(self._stream) if self._cuda else \
+                contextlib.nullcontext():
+            out = (tuple(place(x, self._sharding) for x in xs),
+                   place(y, self._sharding))
+        if self._cuda and any(t.device != self._device
+                              for t in out[1].shards):
+            # shards on other GPUs: their copies are done before the
+            # batch is handed on (the consumer's stream waits on this
+            # device's stream only)
+            self._stream.synchronize()
+        return out
 
     def _stage_structure(self, item, slot, counter):
         """``output="batch"``: the same structure, with device NDArray
@@ -357,7 +391,9 @@ class DeviceFeed:
 
         def mark(v):
             t = v._data if isinstance(v, NDArray) else v
-            if isinstance(t, torch.Tensor) and t.is_cuda:
+            if isinstance(t, ShardedTensor):
+                mark(t.shards)
+            elif isinstance(t, torch.Tensor) and t.device == self._device:
                 t.record_stream(stream)
             elif isinstance(v, (list, tuple)):
                 for x in v:

@@ -2,6 +2,8 @@
 pairs: counterparts of ``functionalize`` and ``functional_optimizer`` in
 ``mxnet_tpu/parallel/functional.py``.
 
+``shard_params`` turns regex rules into shardings over a mesh.
+
 ``functionalize(block, train)`` gives the reference's
 ``pure(rng_key, param_vals, *inputs) -> (outputs, aux_values)``: the
 block runs on the given values in place of its parameters
@@ -10,6 +12,8 @@ statistics in training) are returned instead of written.
 """
 from __future__ import annotations
 
+import re
+
 import torch
 from torch.func import functional_call
 
@@ -17,7 +21,7 @@ from .. import _tape
 from .. import random as _random
 from ..optimizer import optimizer as _opt
 
-__all__ = ["functionalize", "functional_optimizer"]
+__all__ = ["functionalize", "functional_optimizer", "shard_params"]
 
 
 def functionalize(block, train=True):
@@ -130,3 +134,21 @@ def functional_optimizer(name, **hyper):
         return init, update
     raise ValueError("functional optimizer %r not supported (use sgd, nag, "
                      "adam, lamb)" % name)
+
+
+def shard_params(params, mesh, rules=None):
+    """A :class:`~.mesh.NamedSharding` per parameter (a name, or anything
+    with ``.name``) from ``[(regex, PartitionSpec), ...]`` rules: the first
+    rule whose regex ``re.search``-es the name wins; an unmatched parameter
+    is replicated (the reference's ``group2ctx`` placement as specs)."""
+    from .mesh import NamedSharding, PartitionSpec
+    out = []
+    for p in params:
+        name = p if isinstance(p, str) else p.name
+        spec = PartitionSpec()
+        for pat, s in rules or ():
+            if re.search(pat, name):
+                spec = s
+                break
+        out.append(NamedSharding(mesh, spec))
+    return out

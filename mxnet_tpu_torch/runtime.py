@@ -2,9 +2,9 @@
 
 The reference's feature names, with the port's values: ``CUDA`` (a CUDA
 device is present), ``CUDNN`` and ``NCCL`` with it, ``TRITON`` where the
-package imports; ``TPU``, ``PALLAS``, ``XLA`` and ``JIT`` never, and the
-distribution features (``DIST_KVSTORE``, ``RING_ATTENTION``) not until
-they are ported (ROADMAP Queue A item 10).
+package imports; ``RING_ATTENTION`` (``parallel.ring_attention``);
+``TPU``, ``PALLAS``, ``XLA`` and ``JIT`` never, and ``DIST_KVSTORE``
+(kvstores across processes) not until it is ported (ROADMAP item 10b).
 """
 from __future__ import annotations
 
@@ -39,7 +39,7 @@ def _detect():
         "BF16": True,
         "INT64_TENSOR_SIZE": True,
         "DIST_KVSTORE": False,
-        "RING_ATTENTION": False,
+        "RING_ATTENTION": True,
         "PALLAS": False,
         "TRITON": _has("triton"),
         "CUDA": cuda,

@@ -1,8 +1,9 @@
 """The ``sym`` namespace (counterpart of ``mxnet_tpu.symbol``):
-:class:`Symbol`, ``var``, ``Group``, ``load`` and a symbolic constructor
-for every registered op, generated from the registry as the ``nd``
-namespace is."""
-from . import contrib  # noqa: F401
+:class:`Symbol`, ``var``, ``Group``, ``load``, ``AttrScope``, the
+subgraph backends (``subgraph``) and a symbolic constructor for every
+registered op, generated from the registry as the ``nd`` namespace
+is."""
+from . import contrib, subgraph  # noqa: F401
 from .executor import Executor
 from .symbol import (AttrScope, Group, Symbol, Variable, arange, load,
                      load_json, ones, var, zeros)

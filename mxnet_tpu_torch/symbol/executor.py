@@ -24,8 +24,13 @@ training too (ROADMAP "Standing hazards"). The training flag is
 ``is_train`` while a forward runs, so a ``Custom`` op's ``forward`` sees
 it, as in the reference. ``set_monitor_callback`` hands
 every operator's output (every node's, with ``monitor_all``) to the
-callback after a forward. ``group2ctx`` over more than one device is
-ROADMAP Queue A item 10.
+callback after a forward.
+
+``group2ctx`` (the reference's model-parallel placement) maps
+``ctx_group`` names (``AttrScope(ctx_group=...)``) to contexts: a node of
+a mapped group runs on its group's device (``_placement``: node id ->
+context), its tensor arguments copied there first, so a forward copies
+activations across devices and a backward copies their gradients back.
 """
 from __future__ import annotations
 
@@ -62,11 +67,14 @@ def _as_dict(value, names):
 class Executor:
     def __init__(self, symbol, ctx, args, args_grad=None, grad_req="write",
                  aux_states=None, group2ctx=None):
-        if group2ctx and any(c != ctx for c in group2ctx.values()):
-            raise NotImplementedError(
-                "group2ctx over more than one device is not ported yet "
-                "(ROADMAP Queue A item 10, distribution)")
         self._symbol = symbol
+        self._group2ctx = dict(group2ctx) if group2ctx else None
+        self._placement = {}
+        for node in symbol._toposort() if group2ctx else ():
+            grp = node._attr.get("ctx_group") or \
+                node._attr.get("__ctx_group__")
+            if grp is not None and grp in group2ctx:
+                self._placement[id(node)] = group2ctx[grp]
         self._ctx = ctx
         self._device = ctx.torch_device
         self._arg_names = symbol.list_arguments()
@@ -98,6 +106,12 @@ class Executor:
         b = {n: a._data for n, a in self.arg_dict.items()}
         b.update((n, a._data) for n, a in self.aux_dict.items())
         return b
+
+    def _devices(self):
+        """``_placement`` as torch devices (None without one)."""
+        if not self._placement:
+            return None
+        return {k: c.torch_device for k, c in self._placement.items()}
 
     def _wanted(self):
         return [n for n in self._arg_names
@@ -132,7 +146,8 @@ class Executor:
             binds[n] = leaf
             leaves.append(leaf)
         with torch.enable_grad():
-            outs = evaluate_graph(self._symbol, binds)
+            outs = evaluate_graph(self._symbol, binds,
+                                  placement=self._devices())
         self._train_state = (outs, leaves, wanted)
         return outs
 
@@ -146,12 +161,12 @@ class Executor:
         key = (fed, tuple(t.data_ptr() for _, t in rest))
         op = self._cached_ops.get(key)
         if op is None:
-            symbol = self._symbol
+            symbol, placement = self._symbol, self._devices()
 
             def run(*vals):
                 binds = dict(rest)
                 binds.update((n, v._data) for n, v in zip(fed, vals))
-                return evaluate_graph(symbol, binds)
+                return evaluate_graph(symbol, binds, placement=placement)
 
             op = self._cached_ops[key] = CachedOp(run, name="Executor")
         return op(*[self.arg_dict[n] for n in fed])
@@ -235,7 +250,8 @@ class Executor:
         return Executor(self._symbol, self._ctx,
                         keep(self.arg_dict, self._arg_names, arg_shapes),
                         grads, self._grad_req,
-                        keep(self.aux_dict, self._aux_names, aux_shapes))
+                        keep(self.aux_dict, self._aux_names, aux_shapes),
+                        group2ctx=self._group2ctx)
 
     # ---- debugging --------------------------------------------------------
     def set_monitor_callback(self, callback, monitor_all=False):
@@ -250,7 +266,8 @@ class Executor:
         skip = set() if self._monitor_all else \
             set(self._arg_names) | set(self._aux_names)
         with torch.no_grad():
-            values = evaluate_graph(internals, self._bindings())
+            values = evaluate_graph(internals, self._bindings(),
+                                    placement=self._devices())
         for n, v in zip(internals.list_outputs(), values):
             if n not in skip:
                 self._monitor(n, NDArray(v))

@@ -25,7 +25,8 @@ as the reference does:
   nnvm's (plain-string attrs, 3-element entries);
 - ``bind``/``simple_bind``/``eval`` give an :class:`~.executor.Executor`
   on the context asked for (the current one when None: the card unless a
-  ``with mx.cpu():`` scope is open).
+  ``with mx.cpu():`` scope is open); ``group2ctx`` places each
+  ``ctx_group`` (``AttrScope``) on its context.
 
 A ``Symbol`` also answers the torch functions that the port's composite
 blocks call in their ``forward`` (``torch.relu``, ``torch.cat``,
@@ -34,8 +35,11 @@ there (``__torch_function__``), so ``block(mx.sym.var("data"))``
 composes a zoo model into a graph; any other torch function raises and
 names itself.
 
-Subgraph backends (``get_backend_symbol``, ``MXNET_SUBGRAPH_BACKEND``)
-are not ported (ROADMAP Queue A item 9's remainder).
+``get_backend_symbol(backend)`` partitions the graph with a registered
+subgraph backend (:mod:`.subgraph`), and a bind partitions with the
+``MXNET_SUBGRAPH_BACKEND`` knob's backend (once per symbol and backend,
+so a rebind reuses the region ops); positional argument lists are read
+in the unpartitioned symbol's order.
 """
 from __future__ import annotations
 
@@ -245,8 +249,45 @@ class Symbol:
     def bind(self, ctx, args, args_grad=None, grad_req="write",
              aux_states=None, group2ctx=None, shared_exec=None):
         from .executor import Executor
-        return Executor(self, ctx, args, args_grad, grad_req, aux_states,
-                        group2ctx=group2ctx)
+        # positional lists name this symbol's arguments (a partitioned
+        # graph may list them in another order)
+        names = self.list_arguments()
+        if isinstance(args, (list, tuple)):
+            args = dict(zip(names, args))
+        if isinstance(args_grad, (list, tuple)):
+            args_grad = dict(zip(names, args_grad))
+        if isinstance(grad_req, (list, tuple)):
+            grad_req = dict(zip(names, grad_req))
+        if isinstance(aux_states, (list, tuple)):
+            aux_states = dict(zip(self.list_auxiliary_states(), aux_states))
+        return Executor(self._env_partitioned(), ctx, args, args_grad,
+                        grad_req, aux_states, group2ctx=group2ctx)
+
+    def _env_partitioned(self):
+        """This symbol partitioned by ``MXNET_SUBGRAPH_BACKEND``'s backend
+        (memoized per backend), or itself."""
+        from .. import config as _config
+        backend = _config.get("MXNET_SUBGRAPH_BACKEND")
+        if not backend or backend == "NONE":
+            return self
+        from .subgraph import _BACKENDS, partition
+        if backend not in _BACKENDS:
+            import logging
+            logging.warning(
+                "MXNET_SUBGRAPH_BACKEND=%r is not a registered subgraph "
+                "backend (registered: %s); binding unpartitioned",
+                backend, sorted(_BACKENDS))
+            return self
+        cache = self.__dict__.setdefault("_partition_cache", {})
+        if backend not in cache:
+            cache[backend] = partition(self, backend)
+        return cache[backend]
+
+    def get_backend_symbol(self, backend):
+        """This symbol partitioned by the registered subgraph backend
+        ``backend`` (:func:`.subgraph.partition`)."""
+        from .subgraph import partition
+        return partition(self, backend)
 
     def simple_bind(self, ctx, grad_req="write", type_dict=None,
                     stype_dict=None, group2ctx=None, shared_arg_names=None,
@@ -274,8 +315,8 @@ class Symbol:
                  if reqs.get(n, "null") != "null"}
         aux = {n: _nd.zeros(s, ctx=ctx, dtype=types.get(n))
                for n, s in zip(self.list_auxiliary_states(), aux_shapes)}
-        return Executor(self, ctx, args, grads, grad_req, aux,
-                        group2ctx=group2ctx)
+        return Executor(self._env_partitioned(), ctx, args, grads,
+                        grad_req, aux, group2ctx=group2ctx)
 
     # ---- serialization ----------------------------------------------------
     def tojson(self):
@@ -502,9 +543,12 @@ def _node_args(node, values):
     return args
 
 
-def evaluate_graph(root, bindings, bind_state=False):
+def evaluate_graph(root, bindings, bind_state=False, placement=None):
     """Run ``root``'s graph on tensors: ``bindings`` maps each variable's
-    name to its tensor; returns the output tensors.
+    name to its tensor; returns the output tensors. ``placement`` maps a
+    node's id to the ``torch.device`` its op runs on (``group2ctx``): its
+    tensor arguments are copied there first (differentiably, so a
+    backward copies the gradients back).
 
     Each node calls its op's function with the node's attrs. With
     ``bind_state`` the op's state binders (the training flag, the dropout
@@ -525,7 +569,12 @@ def evaluate_graph(root, bindings, bind_state=False):
             for kname, binder in node._op.state_binders.items():
                 if kname not in kwargs:
                     kwargs[kname] = binder()
-        out = node._op.fn(*_node_args(node, values), **kwargs)
+        args = _node_args(node, values)
+        dev = placement.get(id(node)) if placement else None
+        if dev is not None:
+            args = [a.to(dev) if isinstance(a, torch.Tensor) else a
+                    for a in args]
+        out = node._op.fn(*args, **kwargs)
         if isinstance(out, (tuple, list)):
             for i, v in enumerate(out):
                 values[_out_key(node, i)] = v

@@ -9,8 +9,8 @@ against the JAX package's.
   consumer never waits on it; a source's error reaches the consumer; the
   feed restarts, resets, refuses use after ``close()``, leaves the stats
   registry when collected, keeps namedtuple batches, shows in the
-  profiler rows and in ``/metrics``, and refuses meshes and plans
-  (ROADMAP Queue A item 10).
+  profiler rows and in ``/metrics``, and stages over a mesh or a plan's
+  data axes (a ``ShardedTensor`` each array, ROADMAP item 10a).
 - ``step_stream`` gives the losses and parameters of ``step()`` calls over
   the same batches, bitwise, in chunks of 4 + 2; on a small conv-BatchNorm
   net it also follows the reference's ``step_stream`` (losses within 1e-5
@@ -203,9 +203,21 @@ def test_feed_batch_output_keeps_structure_and_refuses_meshes():
         _feed([], depth=0)
     with pytest.raises(ValueError):
         _feed([], output="tensors")
-    for kw in ({"mesh": object()}, {"plan": object()}):
-        with pytest.raises(NotImplementedError, match="Queue A item 10"):
-            _feed([], **kw)
+    # a mesh or a plan stages each array sharded over the data axes
+    from mxnet_tpu_torch.parallel.planner import ShardingPlan
+    mesh = tmx.parallel.make_mesh(dp=4, devices=[tmx.cpu(i)
+                                                 for i in range(4)])
+    xs = np.random.randn(8, 4).astype("float32")
+    for kw in ({"mesh": mesh}, {"plan": ShardingPlan(dp=2, ep=2)}):
+        with _feed([(xs, np.arange(8.0))], **kw) as feed:
+            (x,), y = next(iter(feed))
+        assert len(x.shards) == 4 and x.shards[1].shape == (2, 4)
+        assert tuple(x.spec)[0] == (("dp",) if "mesh" in kw
+                                    else ("dp", "ep"))
+        np.testing.assert_array_equal(x.numpy(), xs)
+        np.testing.assert_array_equal(y.numpy(), np.arange(8.0))
+    with pytest.raises(ValueError, match="arrays only"):
+        _feed([], mesh=mesh, output="batch")
 
 
 def test_pinned_dataloader_stages_and_abandoned_feed_retires():

@@ -201,7 +201,7 @@ def _two_passes_match(req, jnet, tnet, params):
             assert torch.equal(own, second[k]), k
 
 
-def test_null_grad_req_is_not_updated_and_refusals():
+def test_null_grad_req_is_not_updated_and_refusals(monkeypatch):
     _, tnet, params = _pair()
     frozen = next(k for k in params.keys() if k.endswith("_embed_weight"))
     params[frozen].grad_req = "null"
@@ -213,8 +213,17 @@ def test_null_grad_req_is_not_updated_and_refusals():
     assert torch.equal(params[frozen].tensor(), before)
     with pytest.raises(RuntimeError, match="grad_req='null'"):
         params[frozen].grad()
-    with pytest.raises(NotImplementedError, match="Queue A item 10"):
-        Trainer(params, "sgd", kvstore="dist_sync")
+    # a dist_sync store in one process is a world of one; over several
+    # processes it is ROADMAP item 10b
+    dist = Trainer(params, "sgd", {"learning_rate": 0.1},
+                   kvstore="dist_sync")
+    _own_step(tnet, params, dist, SoftmaxCrossEntropyLoss(), x, y)
+    assert dist._kvstore.type == "dist_sync" and \
+        dist._kvstore.num_workers == 1
+    assert torch.equal(params[frozen].tensor(), before)
+    monkeypatch.setenv("DMLC_NUM_WORKER", "2")
+    with pytest.raises(NotImplementedError, match="item 10b"):
+        Trainer(params, "sgd", kvstore="dist_sync").allreduce_grads()
     with pytest.raises(ValueError, match="list or dict of Parameters"):
         Trainer(3, "sgd")
 

@@ -26,10 +26,12 @@ the CPU, as ``tests/test_module.py`` drives the reference.
   reference's ``BatchNorm`` op is pure and its executor binds no training
   state), so a conv + BatchNorm net's parameters after 2 steps equal the
   reference's and its moving statistics equal their initial values.
-- The kvstore and context checks: ``dist*``/``nccl`` stores, lists of
-  several contexts and ``group2ctx`` over several devices raise
-  ``NotImplementedError`` naming ROADMAP item 10, and the contrib
-  control flow naming item 8.
+- Several contexts and stores: a Module over two contexts (data
+  parallel through a local store) ends where one context ends (1e-6)
+  and where the reference's two-context Module ends; ``group2ctx``
+  binds; ``dist_sync``/``nccl`` stores work as a world of one and raise
+  ``NotImplementedError`` naming ROADMAP item 10b over several
+  processes; the contrib control flow is ported.
 """
 import contextlib
 import io as _io
@@ -352,20 +354,45 @@ def test_print_summary_text_equals_reference():
         assert dot.source.count("->") == 6      # data -> conv1 -> ... -> softmax
 
 
-def test_multi_device_and_dist_stores_raise():
-    with pytest.raises(NotImplementedError, match="item 10"):
-        tmx.mod.Module(_mlp(tmx.sym), context=[CPU, CPU])
-    with pytest.raises(NotImplementedError, match="item 10"):
-        _mlp(tmx.sym).simple_bind(CPU, group2ctx={"dev1": tmx.gpu(1)},
-                                  data=(4, 10), softmax_label=(4,))
+def test_multi_device_and_dist_stores_raise(monkeypatch):
+    # a list of contexts is data parallelism (item 10a): two contexts
+    # through a local store end where one context ends, and where the
+    # reference's two-context Module ends
+    x, y = _data(n=24)
+    mods = {}
+    for name, pkg, ctx in (("ref", mx, [mx.cpu(0), mx.cpu(1)]),
+                           ("one", tmx, CPU),
+                           ("two", tmx, [tmx.cpu(0), tmx.cpu(1)])):
+        np.random.seed(1)
+        mod = pkg.mod.Module(_mlp(pkg.sym), context=ctx)
+        mod.fit(pkg.io.NDArrayIter(x, y, batch_size=8), num_epoch=2,
+                initializer=pkg.init.Xavier(), optimizer="sgd",
+                optimizer_params={"learning_rate": 0.1, "momentum": 0.9})
+        mods[name] = mod
+    assert len(mods["two"]._execs) == 2
+    assert mods["two"].get_outputs()[0].shape == (8, 4)
+    assert len(mods["two"].get_outputs(merge_multi_context=False)[0]) == 2
+    _assert_params_equal(mods["two"], mods["one"], tol=1e-6)
+    _assert_params_equal(mods["two"], mods["ref"])
+    # group2ctx binds (this graph has no ctx_group: nothing is placed)
+    ex = _mlp(tmx.sym).simple_bind(CPU, group2ctx={"dev1": tmx.cpu(1)},
+                                   data=(4, 10), softmax_label=(4,))
+    assert ex._placement == {}
     # the control-flow trio is ported (item 8, step 2): the NDArray functions
     assert tmx.sym.contrib.foreach is tmx.nd.contrib.foreach
     mod = tmx.mod.Module(_mlp(tmx.sym), context=CPU)
     mod.bind(data_shapes=[("data", (4, 10))],
              label_shapes=[("softmax_label", (4,))])
     mod.init_params()
-    for store in ("dist_sync", "nccl"):
-        with pytest.raises(NotImplementedError, match="item 10"):
-            mod.init_optimizer(kvstore=store, force_init=True)
+    # one process is a world of one; several are ROADMAP item 10b
+    mod.init_optimizer(kvstore="dist_sync", force_init=True)
+    assert mod._kvstore.type == "dist_sync" and \
+        mod._kvstore.num_workers == 1
+    mod.init_optimizer(kvstore="nccl", force_init=True)
+    assert mod._kvstore is None         # one device: no store to sum in
+    monkeypatch.setenv("DMLC_NUM_WORKER", "2")
+    with pytest.raises(NotImplementedError, match="item 10b"):
+        mod.init_optimizer(kvstore="dist_sync", force_init=True)
+    monkeypatch.delenv("DMLC_NUM_WORKER")
     mod.init_optimizer(kvstore="device")
     assert mod._optimizer.rescale_grad == 0.25

@@ -170,9 +170,17 @@ def test_arange_values_bitwise(args, repeat):
         own, np.asarray(jregistry.get_op("_arange").fn(*args, repeat=repeat)))
 
 
+def _static_names(registry):
+    """The registry's names but the subgraph regions a partition
+    registers at run time (``_subgraph_<backend>_<n>``, made by
+    ``symbol/subgraph.py`` in whichever package partitioned)."""
+    return {n for n in registry.list_ops() if not getattr(
+        registry.get_op(n).fn, "__module__", "").endswith("symbol.subgraph")}
+
+
 def test_registry_names_are_reference_names():
-    own = set(tregistry.list_ops())
-    ref = set(jregistry.list_ops())
+    own = _static_names(tregistry)
+    ref = _static_names(jregistry)
     assert "_arange" in own and "_contrib_arange" in own
     assert "arange" not in own
     assert own - ref == set()
@@ -200,7 +208,7 @@ def test_missing_snapshot_names_are_the_listed_ones():
 
 def test_every_reference_name_resolves_in_the_port():
     # the package's own names (tests register ops of their own modules)
-    ref = {n for n in jregistry.list_ops() if getattr(
+    ref = {n for n in _static_names(jregistry) if getattr(
         jregistry.get_op(n).fn, "__module__", "").startswith("mxnet_tpu.")}
     assert len(ref) == 878
     assert ref - set(tregistry.list_ops()) == set()

@@ -310,9 +310,12 @@ def test_trainer_bf16_state_step_many_and_refusals():
         tr.step([x], y)
     tr.set_learning_rate(0.5)
     assert tr.learning_rate == 0.5
-    with pytest.raises(NotImplementedError, match="Queue A step 11"):
-        ShardedTrainer(net, SoftmaxCrossEntropyLoss(), "adam", plan=object(),
-                       device="cpu")
+    # a sharding plan trains over a mesh (ROADMAP item 10a)
+    from mxnet_tpu_torch.parallel.planner import ShardingPlan
+    planned = ShardedTrainer(net, SoftmaxCrossEntropyLoss(), "adam",
+                             plan=ShardingPlan(dp=2), device="cpu")
+    assert planned.mesh.size == 2 and planned.plan.dp == 2
+    assert bool(torch.isfinite(planned.step(x, y)))
 
 
 def test_trainer_dropout_steps_repeat_under_one_seed():
