@@ -484,6 +484,41 @@ Builds the package's CUDA kernels from the sources in this checkout
     kvstore with ``2bit`` compression (threshold 0.05, two (1024, 1024)
     copies a push, 4 pushes) on the card equals the same on the CPU bit
     for bit. The phase prints ``torch.cuda.device_count()``.
+21. **Dist phase: several processes and training resilience (items 10b,
+    11a).** (a) The launcher (``python -m mxnet_tpu_torch.tools.launch -n
+    2``) starts two workers (this script with ``--dist-worker``) on
+    ``cuda:0``; the backend rule gives gloo (two ranks share the card).
+    Each trains ``transformer_lm_base`` (768 x 12, vocab 32000, max_len
+    512; the mesh phase's weights) in fp32 with ``gluon.Trainer(...,
+    "adam", MESH_ADAM, kvstore="dist_sync")`` on its b16 x 512 half of
+    each of 4 global b32 batches, ``step(32)``. Rank 0's losses, parameters
+    and Adam moments are held against one process that takes the two
+    halves in turn and sums their gradients (bit for bit: a two-operand
+    sum commutes) and against one context at b32 (``DIST_*`` limits); the
+    ranks' parameters must be bitwise equal. Two planted controls run in
+    the same workers (rank 1's push left out; the cross-process sum
+    doubled) and must break the b32 limits. Each worker reports its step
+    ms, the all-reduce's ms and bytes a step and its own launches of each
+    (B, S, H, D) flash kernel (12 a step). (b) Before (a) the workers run
+    ``tests/dist_torch/dist_sync_kvstore_worker.py``'s invariants on CUDA
+    tensors. (c) ``--supervise -n 2``: full replicas of a 768-wide 2-layer
+    LM (b8 x 512, 6 steps, a checkpoint every 2; ``tests/dist_torch/
+    elastic_worker.py``); rank 1 dies with ``host_loss`` (exit 137) at step
+    3, the supervisor evicts it and generation 1 resumes through
+    ``elastic_fit``, bitwise equal to a restore-and-replay of the same
+    checkpoint in a fresh process and to an uninterrupted run; beside it,
+    a real SIGTERM to rank 1 gives an emergency checkpoint in the grace
+    window and exit 75, and the restart ends bitwise equal to the
+    uninterrupted run. (d) ``GuardedStep`` over ``ShardedTrainer`` at
+    ``transformer_lm_base`` b32 x 512 fp32 Adam with dynamic scaling from
+    2^15, 6 steps, step 3's batch poisoned (``trainer.grads``, ``nan``):
+    step 3 leaves parameters, moments and the optimizer's step bitwise,
+    halves the scale and counts one skip; steps 1-2 and 4-6 equal an
+    unguarded run over batches 1, 2, 4, 5, 6 bit for bit; under
+    ``torch.cuda.set_sync_debug_mode("warn")`` a guarded step warns no
+    more than an unguarded one. (e) ``parallel.initialize`` with NCCL, a
+    world of one: the store's all-reduce and a barrier through it (NCCL
+    between ranks needs a second card).
 
 The predict phase's bf16 pass (8.) holds the kernel path to the plain
 path by ``PREDICT_BF16_FACTOR``, each path's distance from the fp32 path:
@@ -505,7 +540,7 @@ share, its kernel count and its top kernels.
 
 Prints the serving, serving v2, training, BERT, surface, predict,
 autograd, registry-op, vision, data, rnn, symbol, ops, np, detection,
-quant, sparse and mesh numbers, one
+quant, sparse, mesh and dist numbers, one
 ``{"kernels": [...]}`` line with an
 entry per TPU kernel (the three (B, S, H, D) ones with the numbers of the
 training shape in fp32, under ``*_bf16`` keys in bf16, and under ``bert``
@@ -513,11 +548,12 @@ those of the BERT shape; the three (B, H, S, D) ones with the numbers of
 the registry op's shape; every kernel's launches also under ``vision``,
 ``data``, ``rnn``, ``ops``, ``np``, ``detection``, ``quant`` and
 ``sparse``, where none runs,
-``symbol``, and ``mesh``: the (a) mesh run's),
+``symbol``, ``mesh``: the (a) mesh run's, and ``dist``: the dist
+phase's (a) workers' and (d) runs'),
 the
 card's name
 and power limit,
-and last ``{"ok": true, "device": {...}}``.
+the whole script's seconds, and last ``{"ok": true, "device": {...}}``.
 Any failure exits non-zero before that line. Without CUDA it exits 2.
 """
 from __future__ import annotations
@@ -527,6 +563,7 @@ import gc
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import threading
@@ -8209,16 +8246,17 @@ MESH_MOE_PLAN = "dp=2,pp=1,ep=2"
 MESH_KV_SHAPE, MESH_KV_PUSHES = (1024, 1024), 4
 
 
-def _mesh_lm(args, torch):
+def _mesh_lm(args, torch, batches=True):
     from mxnet_tpu_torch import convert
     from mxnet_tpu_torch.models import transformer_lm_base
     model = transformer_lm_base(vocab_size=32000, max_len=TRAIN_SEQ,
                                 device=torch.device("cuda"))
     convert.load_mxnet_params(model, random_params(model, args.seed))
-    batches = [tuple(torch.from_numpy(a).cuda()
-                     for a in lm_batch(args.seed + 40 + i))
-               for i in range(MESH_STEPS)]
-    return model, batches
+    if not batches:
+        return model, None
+    return model, [tuple(torch.from_numpy(a).cuda()
+                         for a in lm_batch(args.seed + 40 + i))
+                   for i in range(MESH_STEPS)]
 
 
 def _mesh_steps(torch, tr, batches, first=0):
@@ -8646,9 +8684,803 @@ def print_mesh(res, card):
               k["levels"], res["wall_s"], card), flush=True)
 
 
+DIST_RANKS = 2
+DIST_DEVICE = "cuda"
+DIST_STEPS = 4
+DIST_CONTROLS = ("rank_1_push_left_out", "cross_process_sum_doubled")
+# (a) against one context at b32: the same sums in another order (each
+# rank's half-batch gradient, then their sum), fp32, TF32 off. The limits
+# come from the readings on an H100 (PERF.md §6): losses 4.54e-8 relative,
+# parameters 1.78e-6, moments 1.11e-5 of each moment's largest magnitude,
+# as the mesh phase read them; both planted controls must break them.
+DIST_LOSS_RTOL = 1e-6
+DIST_PARAM_ATOL = 1e-5
+DIST_STATE_RTOL = 1e-4
+# (c): the elastic drills' replicas
+DIST_EL_LAYERS, DIST_EL_STEPS, DIST_EL_EVERY, DIST_EL_FAIL = 2, 6, 2, 3
+# the SIGTERM drill's steps; every drill step lasts at least
+# DIST_EL_SLOW_MS, so the survivor is mid-run when its peer goes
+DIST_EL_TERM_STEPS, DIST_EL_SLOW_MS = 8, 300
+DIST_EL_MODEL = "lm"
+# the grace of a SIGTERM, both the supervisor's before its SIGKILL and the
+# workers' emergency checkpoint (a 768 MB checkpoint beside another drill)
+DIST_EL_GRACE_MS = 60000
+# (d)
+DIST_GUARD_STEPS, DIST_GUARD_POISON, DIST_GUARD_SCALE = 6, 3, 2.0 ** 15
+DIST_TIMEOUT_S = 600
+
+
+def _repo():
+    return os.path.dirname(os.path.abspath(__file__))
+
+
+def _dist_env(**extra):
+    env = dict(os.environ)
+    env["PYTHONPATH"] = _repo() + os.pathsep + env.get("PYTHONPATH", "")
+    env.update({k: str(v) for k, v in extra.items()})
+    return env
+
+
+def _launches_by_layout():
+    """Every flash wrapper's launches, the backward ones by layout."""
+    from mxnet_tpu_torch.ops import flash_attention as fa
+    out = kernel_launches()
+    for name, w in (("flash_attn_bwd_dq", fa.flash_attention_bwd_dq),
+                    ("flash_attn_bwd_dkv", fa.flash_attention_bwd_dkv)):
+        out[name + "_bhsd"] = w.launches_by_layout["BHSD"]
+        out[name] = w.launches_by_layout["BSHD"]
+    return out
+
+
+def _dist_lm(args, torch, kvstore):
+    """(a)'s model (the mesh phase's weights) and its ``gluon.Trainer``."""
+    from mxnet_tpu_torch.gluon import Trainer, collect_params
+    model, _ = _mesh_lm(args, torch, batches=False)
+    params = list(collect_params(model).values())
+    return model, params, Trainer(params, "adam", dict(MESH_ADAM),
+                                  kvstore=kvstore)
+
+
+def _dist_loss(torch, model, x, y):
+    from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+    losses = SoftmaxCrossEntropyLoss()(model(x), y)
+    losses.backward(torch.ones_like(losses))
+    return float(losses.detach().float().mean())
+
+
+def _dist_state(tr, params, device="cpu"):
+    """The trained values and Adam moments by parameter name, copied to
+    ``device``."""
+    states = tr._updaters[0].states
+    return {"params": {p.name: p.tensor().detach().to(device, copy=True)
+                       for p in params},
+            "moments": {p.name: tuple(m.detach().to(device, copy=True)
+                                      for m in states[i])
+                        for i, p in enumerate(params)}}
+
+
+def _dist_digest(state):
+    import hashlib
+    h = hashlib.sha256()
+    for n in sorted(state["params"]):
+        h.update(state["params"][n].numpy().tobytes())
+        for m in state["moments"][n]:
+            h.update(m.numpy().tobytes())
+    return h.hexdigest()
+
+
+def dist_worker(args, torch):
+    """One rank of the dist phase's (b) and (a), started by the launcher:
+    the kvstore invariants on CUDA tensors, then (a)'s run and its two
+    planted controls. Writes ``$DIST_OUT/rank<r>.json`` and, on rank 0,
+    each run's parameters and moments (``<run>.pt``)."""
+    from mxnet_tpu_torch import kvstore as kvs
+    from mxnet_tpu_torch.ops import flash_attention as fa
+    from mxnet_tpu_torch.parallel import _process
+    out_dir = os.environ["DIST_OUT"]
+    rank = int(os.environ["MXTPU_PROCESS_ID"])
+    os.environ["DIST_DEVICE"] = DIST_DEVICE
+    sys.path.insert(0, os.path.join(_repo(), "tests", "dist_torch"))
+    import dist_sync_kvstore_worker
+    t0 = time.perf_counter()
+    dist_sync_kvstore_worker.main()        # joins the launcher's job
+    res = {"rank": rank, "world": _process.size(),
+           "backend": _process.backend(), "kvstore_s":
+           time.perf_counter() - t0, "runs": {}}
+    half = TRAIN_BATCH // DIST_RANKS
+    rows = slice(rank * half, (rank + 1) * half)
+    batches = [tuple(torch.from_numpy(a[rows]).to(DIST_DEVICE) for a in
+                     lm_batch(args.seed + 40 + i)) for i in range(DIST_STEPS)]
+    real = kvs._cross_process_allreduce
+    plants = {"sum": real,
+              "rank_1_push_left_out":
+                  lambda x: real(torch.zeros_like(x) if rank == 1 else x),
+              "cross_process_sum_doubled": lambda x: real(x) * 2}
+    for run in ("sum",) + DIST_CONTROLS:
+        kvs._cross_process_allreduce = plants[run]
+        model, params, tr = _dist_lm(args, torch, "dist_sync")
+        fa.reset_launches()
+        losses, ms, ar_ms, ar_bytes = [], [], [], []
+        for x, y in batches:
+            torch.cuda.synchronize()
+            s0, t0 = _process.stats(), time.perf_counter()
+            losses.append(_dist_loss(torch, model, x, y))
+            tr.step(TRAIN_BATCH)
+            torch.cuda.synchronize()
+            s1 = _process.stats()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            ar_ms.append((s1["allreduce_s"] - s0["allreduce_s"]) * 1e3)
+            ar_bytes.append(s1["allreduce_bytes"] - s0["allreduce_bytes"])
+        state = _dist_state(tr, params)
+        res["runs"][run] = {"losses": losses, "step_ms": ms,
+                            "allreduce_ms": ar_ms,
+                            "allreduce_bytes": ar_bytes,
+                            "launches": _launches_by_layout(),
+                            "digest": _dist_digest(state),
+                            "kvstore": tr._kvstore.type,
+                            "num_workers": tr._kvstore.num_workers}
+        if rank == 0:
+            torch.save(state, os.path.join(out_dir, "%s.pt" % run))
+        del model, params, tr, state
+        gc.collect()
+        torch.cuda.empty_cache()
+    kvs._cross_process_allreduce = real
+    _process.barrier()
+    with open(os.path.join(out_dir, "rank%d.json" % rank), "w") as f:
+        json.dump(res, f)
+    print("dist worker rank %d OK" % rank, flush=True)
+    return 0
+
+
+def _dist_gaps(got, want, losses, want_losses):
+    """(a)'s comparison with the b32 run: the losses' largest relative gap,
+    each parameter's largest absolute gap, each Adam moment's largest gap
+    over the b32 moment's largest magnitude; the limits broken (a gap that
+    is not finite breaks its limit)."""
+    loss = max(abs(a - b) / abs(b) for a, b in zip(losses, want_losses))
+    param = {n: (got["params"][n] - v).abs().max().item()
+             for n, v in want["params"].items()}
+    state = {}
+    for n, moments in want["moments"].items():
+        for k, (g, ref) in enumerate(zip(got["moments"][n], moments)):
+            scale = ref.abs().max().item() or 1.0
+            state["%s[%d]" % (n, k)] = \
+                (g - ref).abs().max().item() / scale
+    worst_p = max(param, key=lambda n: (np.isnan(param[n]), param[n]))
+    worst_s = max(state, key=lambda n: (np.isnan(state[n]), state[n]))
+    gaps = {"loss_rel_gap": loss, "param_max_gap": param[worst_p],
+            "param_max_gap_name": worst_p,
+            "param_median_gap": float(np.median(list(param.values()))),
+            "state_max_rel_gap": state[worst_s],
+            "state_max_rel_gap_name": worst_s,
+            "state_median_rel_gap": float(np.median(list(state.values())))}
+    broken = []
+    if not loss <= DIST_LOSS_RTOL:
+        broken.append("losses %.3g > %g" % (loss, DIST_LOSS_RTOL))
+    if not param[worst_p] <= DIST_PARAM_ATOL:
+        broken.append("parameter %s %.3g > %g"
+                      % (worst_p, param[worst_p], DIST_PARAM_ATOL))
+    if not state[worst_s] <= DIST_STATE_RTOL:
+        broken.append("Adam moment %s %.3g > %g"
+                      % (worst_s, state[worst_s], DIST_STATE_RTOL))
+    return gaps, broken
+
+
+def _dist_bitwise(got, want):
+    """The names whose parameter or moments differ in any bit."""
+    def equal(a, b):
+        return a.shape == b.shape and bool((a == b).all()) and \
+            a.dtype == b.dtype
+
+    out = [n for n, v in want["params"].items()
+           if not equal(got["params"][n], v)]
+    out += ["%s[moments]" % n for n, ms in want["moments"].items()
+            if not all(equal(a, b) for a, b in zip(got["moments"][n], ms))]
+    return out
+
+
+def _dist_oracles(args, torch):
+    """(a)'s two one-process runs: the halves in turn (their gradients
+    summed rank 0's plus rank 1's) and one context at b32; each's
+    losses (per half, and the b32 mean), step ms and final state."""
+    half = TRAIN_BATCH // DIST_RANKS
+    full = [tuple(torch.from_numpy(a).to(DIST_DEVICE) for a in
+                  lm_batch(args.seed + 40 + i)) for i in range(DIST_STEPS)]
+    out = {}
+    model, params, tr = _dist_lm(args, torch, None)
+    losses, ms = [], []
+    for x, y in full:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pair = []
+        for r in range(DIST_RANKS):
+            rows = slice(r * half, (r + 1) * half)
+            pair.append(_dist_loss(torch, model, x[rows], y[rows]))
+            if r == 0:
+                g0 = [p.grad_tensor().clone() for p in params]
+        with torch.no_grad():
+            for p, g in zip(params, g0):
+                grad = p.grad_tensor()
+                grad.copy_(g + grad)
+        tr.step(TRAIN_BATCH)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(pair)
+    out["in_turn"] = {"losses": losses, "step_ms": ms,
+                      "state": _dist_state(tr, params, DIST_DEVICE)}
+    del model, params, tr
+    torch.cuda.empty_cache()
+    model, params, tr = _dist_lm(args, torch, None)
+    losses, ms = [], []
+    for x, y in full:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(_dist_loss(torch, model, x, y))
+        tr.step(TRAIN_BATCH)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    out["b32"] = {"losses": losses, "step_ms": ms,
+                  "state": _dist_state(tr, params, DIST_DEVICE)}
+    del model, params, tr
+    torch.cuda.empty_cache()
+    return out
+
+
+def _dist_workers(args, tmp):
+    """(a) and (b)'s workers: two ranks through the launcher; their
+    results."""
+    cmd = [sys.executable, "-m", "mxnet_tpu_torch.tools.launch", "-n",
+           str(DIST_RANKS), "--coordinator", "127.0.0.1:%d" % _free_port(),
+           sys.executable, os.path.abspath(__file__), "--dist-worker",
+           "--seed", str(args.seed)]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, env=_dist_env(DIST_OUT=tmp), cwd=_repo(),
+                          capture_output=True, text=True,
+                          timeout=DIST_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        fail("dist (a)/(b): the workers failed (rc %d):\n%s\n%s"
+             % (proc.returncode, proc.stdout[-4000:], proc.stderr[-4000:]))
+    ranks = []
+    for r in range(DIST_RANKS):
+        with open(os.path.join(tmp, "rank%d.json" % r)) as f:
+            ranks.append(json.load(f))
+    return {"workers_wall_s": wall, "ranks_raw": ranks,
+            "backend_line": [ln for ln in proc.stdout.splitlines()
+                             if ln.startswith("parallel.initialize")]}
+
+
+def _dist_training(torch, tmp, workers, oracles):
+    """(a)'s checks: the workers' results against the in-turn and b32
+    runs, the controls, the launches."""
+    ranks = workers.pop("ranks_raw")
+    out = dict(workers, backend=ranks[0]["backend"],
+               kvstore_checks_s=[w["kvstore_s"] for w in ranks])
+    if [w["backend"] for w in ranks] != ["gloo"] * DIST_RANKS or \
+            any(w["world"] != DIST_RANKS for w in ranks):
+        fail("dist (a): not a gloo world of %d: %r" % (DIST_RANKS, ranks))
+    for w in ranks:
+        run = w["runs"]["sum"]
+        if run["kvstore"] != "dist_sync" or \
+                run["num_workers"] != DIST_RANKS:
+            fail("dist (a): rank %d's store %r" % (w["rank"], run))
+    if ranks[0]["runs"]["sum"]["digest"] != ranks[1]["runs"]["sum"]["digest"]:
+        fail("dist (a): the two ranks' parameters and moments differ")
+    turn, b32 = oracles["in_turn"], oracles["b32"]
+    got = torch.load(os.path.join(tmp, "sum.pt"), map_location=DIST_DEVICE)
+    r0 = ranks[0]["runs"]["sum"]
+    out["in_turn_bitwise_mismatches"] = _dist_bitwise(got, turn["state"])
+    out["in_turn_losses_equal"] = r0["losses"] == [p[0] for p in
+                                                   turn["losses"]]
+    if out["in_turn_bitwise_mismatches"] or not out["in_turn_losses_equal"]:
+        fail("dist (a): rank 0 differs from the in-turn run: %s; losses "
+             "%r vs %r" % (out["in_turn_bitwise_mismatches"][:8],
+                           r0["losses"], turn["losses"]))
+    mean = [(a + b) / 2 for a, b in zip(ranks[0]["runs"]["sum"]["losses"],
+                                        ranks[1]["runs"]["sum"]["losses"])]
+    gaps, broken = _dist_gaps(got, b32["state"], mean, b32["losses"])
+    out.update(b32_gaps=gaps, loss_rtol=DIST_LOSS_RTOL,
+               param_atol=DIST_PARAM_ATOL, state_rtol=DIST_STATE_RTOL)
+    if broken:
+        fail("dist (a): the 2-process run differs from one context at b32: "
+             "%s" % "; ".join(broken))
+    del got
+    out["controls"] = {}
+    for name in DIST_CONTROLS:
+        c = torch.load(os.path.join(tmp, "%s.pt" % name),
+                       map_location=DIST_DEVICE)
+        cm = [(a + b) / 2 for a, b in zip(ranks[0]["runs"][name]["losses"],
+                                          ranks[1]["runs"][name]["losses"])]
+        cg, cb = _dist_gaps(c, b32["state"], cm, b32["losses"])
+        if not cb:
+            fail("dist (a) control %s passed the comparison: %r" % (name, cg))
+        out["controls"][name] = dict(cg, broken=cb,
+                                     in_turn_bitwise_mismatches=len(
+                                         _dist_bitwise(c, turn["state"])))
+        del c
+    layers = 12
+    for w in ranks:
+        launches = w["runs"]["sum"]["launches"]
+        for k in ("flash_attn_fwd", "flash_attn_bwd_dq",
+                  "flash_attn_bwd_dkv"):
+            if launches[k] != DIST_STEPS * layers:
+                fail("dist (a): rank %d launched %s %d times, not %d steps "
+                     "x %d layers" % (w["rank"], k, launches[k], DIST_STEPS,
+                                      layers))
+        if any(launches[k] for k in ("flash_attn_fwd_bhsd",
+                                     "flash_attn_bwd_dq_bhsd",
+                                     "flash_attn_bwd_dkv_bhsd")):
+            fail("dist (a): rank %d launched a (B, H, S, D) kernel: %r"
+                 % (w["rank"], launches))
+    out["ranks"] = [{"rank": w["rank"], "launches": w["runs"]["sum"][
+        "launches"], "step_ms": w["runs"]["sum"]["step_ms"],
+        "allreduce_ms": w["runs"]["sum"]["allreduce_ms"],
+        "allreduce_bytes": w["runs"]["sum"]["allreduce_bytes"],
+        "losses": w["runs"]["sum"]["losses"]} for w in ranks]
+    out["launches"] = {k: sum(w["runs"]["sum"]["launches"][k] for w in ranks)
+                       for k in ranks[0]["runs"]["sum"]["launches"]}
+    out["step_ms_2proc"] = float(np.mean(r0["step_ms"][1:]))
+    out["step_ms_in_turn"] = float(np.mean(turn["step_ms"][1:]))
+    out["step_ms_b32"] = float(np.mean(b32["step_ms"][1:]))
+    out["allreduce_ms"] = float(np.mean(r0["allreduce_ms"][1:]))
+    out["allreduce_bytes"] = r0["allreduce_bytes"][-1]
+    out["losses_b32"] = b32["losses"]
+    out["losses_2proc_mean"] = mean
+    return out
+
+
+def _free_port():
+    import socket
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def _kill_rank1(rdzv, box):
+    """(c)'s eviction notice: SIGTERM to rank 1 once both ranks made 2
+    steps (rank 0 then holds a checkpoint to resume from)."""
+    import signal
+
+    def record(rank):
+        try:
+            with open(os.path.join(rdzv, "member-%05d.json" % rank)) as f:
+                return json.load(f)
+        except (OSError, ValueError):
+            return {}
+    deadline = time.monotonic() + DIST_TIMEOUT_S
+    while time.monotonic() < deadline:
+        r0, r1 = record(0), record(1)
+        if r1.get("status") == "up" and r1.get("step", 0) >= 2 and \
+                r0.get("step", 0) >= 2:
+            os.kill(r1["pid"], signal.SIGTERM)
+            box["pid"] = r1["pid"]
+            return
+        time.sleep(0.05)
+
+
+def _dist_uninterrupted(torch):
+    """(c)'s reference: the replica trained straight through, in this
+    process (losses, and the parameters' digest after each drill's
+    steps)."""
+    sys.path.insert(0, os.path.join(_repo(), "tests", "dist_torch"))
+    import elastic_worker
+    from mxnet_tpu_torch import random as trandom
+    trainer, batches, _ = elastic_worker.build(DIST_EL_MODEL, DIST_EL_LAYERS)
+    losses, digests = [], {}
+    for x, y in batches(DIST_EL_TERM_STEPS):
+        trandom.seed(trainer._t + 1)
+        losses.append(float(trainer.step(x, y)))
+        if trainer._t in (DIST_EL_STEPS, DIST_EL_TERM_STEPS):
+            digests[trainer._t] = elastic_worker.digest(trainer)
+    out = {"losses": losses, "params_sha256": digests}
+    del trainer
+    torch.cuda.empty_cache()
+    return out
+
+
+def _drill_env(**extra):
+    return _dist_env(ELASTIC_MODEL=DIST_EL_MODEL,
+                     ELASTIC_LM_LAYERS=DIST_EL_LAYERS,
+                     ELASTIC_CKPT_EVERY=DIST_EL_EVERY,
+                     ELASTIC_STEP_SLOW_MS=DIST_EL_SLOW_MS,
+                     MXNET_ELASTIC_GRACE_MS=DIST_EL_GRACE_MS, **extra)
+
+
+def _dist_drills_start(tmp):
+    """(c): the host-loss and SIGTERM drills, started at once (they run
+    while this process checks (a))."""
+    worker = os.path.join(_repo(), "tests", "dist_torch", "elastic_worker.py")
+    drills = {"host_loss": dict(ELASTIC_FAIL_RANK=1,
+                                ELASTIC_FAIL_STEP=DIST_EL_FAIL,
+                                ELASTIC_FAIL_KIND="host_loss",
+                                ELASTIC_FAIL_AFTER_PEER=1,
+                                ELASTIC_STEPS=DIST_EL_STEPS),
+              "sigterm": dict(ELASTIC_STEPS=DIST_EL_TERM_STEPS)}
+    procs = {}
+    for name, extra in drills.items():
+        work = os.path.join(tmp, name)
+        os.makedirs(os.path.join(work, "rdzv"))
+        procs[name] = subprocess.Popen(
+            [sys.executable, "-m", "mxnet_tpu_torch.tools.launch", "-n",
+             "2", "--supervise", "--max-restarts", "0", "--rdzv-dir",
+             os.path.join(work, "rdzv"), "--event-log",
+             os.path.join(work, "events.jsonl"), "--grace-ms",
+             str(DIST_EL_GRACE_MS), sys.executable, worker],
+            env=_drill_env(ELASTIC_WORKDIR=work, **extra), cwd=_repo(),
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    box = {}
+    killer = threading.Thread(target=_kill_rank1, daemon=True, args=(
+        os.path.join(tmp, "sigterm", "rdzv"), box))
+    killer.start()
+    return {"tmp": tmp, "worker": worker, "drills": drills, "procs": procs,
+            "box": box, "killer": killer, "t0": time.perf_counter()}
+
+
+def _stop_drills(d):
+    """Stop every supervisor still running (SIGTERM: it tears its workers
+    down), then kill what is left."""
+    import signal
+    for p in d["procs"].values():
+        if p.poll() is None:
+            p.send_signal(signal.SIGTERM)
+    for p in d["procs"].values():
+        try:
+            p.communicate(timeout=DIST_EL_GRACE_MS / 1e3 + 10)
+        except subprocess.TimeoutExpired:
+            p.kill()
+            p.communicate()
+
+
+def _drill_result(name, rc, stdout, stderr, d):
+    if rc != 0:
+        fail("dist (c) %s: the supervised run failed (rc %d):\n%s\n%s"
+             % (name, rc, stdout[-3000:], stderr[-3000:]))
+    work = os.path.join(d["tmp"], name)
+    with open(os.path.join(work, "events.jsonl")) as f:
+        evs = [json.loads(ln) for ln in f]
+    failed = next((e for e in evs if e["event"] == "worker_failed"), None)
+    if failed is None:
+        fail("dist (c) %s: no worker failed: %r\n%s" % (
+            name, [e["event"] for e in evs], stdout[-3000:]))
+    with open(os.path.join(work, "out", "result_gen1_rank0.json")) as f:
+        res = json.load(f)
+    out = {"worker_failed": failed,
+           "evicted": next(e for e in evs if e["event"] == "evicted"),
+           "events": [e["event"] for e in evs], "gen1": res,
+           "preempted_lines": [ln for ln in stdout.splitlines()
+                               if "preempted at step" in ln]}
+    want = (1, 137, "host_loss") if name == "host_loss" else \
+        (1, 75, "preempted")
+    got = (failed["rank"], failed["rc"], failed["reason"])
+    if got != want or "run_complete" not in out["events"] or \
+            res["world"] != 1 or \
+            res["end_step"] != d["drills"][name]["ELASTIC_STEPS"]:
+        fail("dist (c) %s: %r, events %r, generation 1 %r"
+             % (name, got, out["events"], res))
+    return out
+
+
+def _dist_drills_finish(torch, d):
+    """(c)'s checks: each drill's run; a fresh process's replay of the
+    host-loss run's restored checkpoint (started as soon as that drill
+    ends); an uninterrupted run in this process."""
+    tmp, out, replay = d["tmp"], {}, None
+    try:
+        pending = dict(d["procs"])
+        deadline = time.monotonic() + DIST_TIMEOUT_S
+        while pending and time.monotonic() < deadline:
+            for name, p in list(pending.items()):
+                if p.poll() is None:
+                    continue
+                stdout, stderr = p.communicate()
+                del pending[name]
+                out[name] = _drill_result(name, p.returncode, stdout,
+                                          stderr, d)
+                if name == "host_loss":
+                    ref = os.path.join(tmp, "replay")
+                    os.makedirs(os.path.join(ref, "ckpt-rank0"))
+                    shutil.copytree(os.path.join(tmp, "host_loss", "out",
+                                                 "restored_gen1_rank0"),
+                                    os.path.join(ref, "ckpt-rank0",
+                                                 "resume_ckpt"))
+                    replay = subprocess.Popen(
+                        [sys.executable, d["worker"]], cwd=_repo(),
+                        env=_drill_env(ELASTIC_WORKDIR=ref,
+                                       MXTPU_GENERATION=1,
+                                       ELASTIC_STEPS=DIST_EL_STEPS),
+                        stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                        text=True)
+            time.sleep(0.1)
+        if pending:
+            fail("dist (c): the drills %s did not end in %d s"
+                 % (sorted(pending), DIST_TIMEOUT_S))
+        out["drills_wall_s"] = time.perf_counter() - d["t0"]
+        _, rerr = replay.communicate(timeout=DIST_TIMEOUT_S)
+        if replay.returncode != 0:
+            fail("dist (c): the replay failed:\n%s" % rerr[-3000:])
+    finally:
+        _stop_drills(d)
+        if replay is not None and replay.poll() is None:
+            replay.kill()
+            replay.communicate()
+    d["killer"].join(5)
+    out["sigterm_pid"] = d["box"].get("pid")
+    if out["sigterm_pid"] is None:
+        fail("dist (c): rank 1 of the SIGTERM drill never made 2 steps")
+    lines = out["sigterm"]["preempted_lines"]
+    left = [float(ln.split("(")[1].split(" ms")[0]) for ln in lines
+            if "ms of grace left" in ln]
+    if not left or min(left) <= 0:
+        fail("dist (c) sigterm: no emergency checkpoint inside the grace "
+             "window: %r" % lines)
+    out["sigterm"]["grace_left_ms"] = left
+    with open(os.path.join(tmp, "replay", "out",
+                           "result_gen1_rank0.json")) as f:
+        out["replay"] = json.load(f)
+    out["replay_wall_s"] = time.perf_counter() - d["t0"] - \
+        out["drills_wall_s"]
+    straight = _dist_uninterrupted(torch)
+    out["uninterrupted"] = straight
+    res, rep = out["host_loss"]["gen1"], out["replay"]
+    if (rep["start_step"], rep["losses"], rep["params_sha256"]) \
+            != (res["start_step"], res["losses"], res["params_sha256"]):
+        fail("dist (c) host_loss: generation 1 %r differs from the replay "
+             "%r" % (res, rep))
+    for name in d["drills"]:
+        res = out[name]["gen1"]
+        start, end = res["start_step"], res["end_step"]
+        if not 0 < start < end or \
+                res["losses"] != straight["losses"][start:end] or \
+                res["params_sha256"] != straight["params_sha256"][end]:
+            fail("dist (c) %s: generation 1 from step %d %r differs from "
+                 "the uninterrupted run %r" % (name, start, res, straight))
+    return out
+
+
+def _dist_guarded(args, torch):
+    """(d)."""
+    import warnings
+    from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+    from mxnet_tpu_torch.parallel import ShardedTrainer
+    from mxnet_tpu_torch.resilience import chaos
+    from mxnet_tpu_torch.resilience.guardrails import GuardedStep
+    model, _ = _mesh_lm(args, torch, batches=False)
+    start = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    batches = [tuple(torch.from_numpy(a).to(DIST_DEVICE) for a in
+                     lm_batch(args.seed + 60 + i))
+               for i in range(DIST_GUARD_STEPS)]
+    batches = [(x, y.float()) for x, y in batches]   # a float label: the
+    # nan kind poisons it (an integer token stream cannot hold a NaN)
+
+    def snapshot(tr, opt_t=None):
+        return ({n: v.detach().clone() for n, v in tr.values.items()},
+                {n: tuple(m.clone() for m in st)
+                 for n, st in tr.states.items()}, opt_t)
+
+    def same(a, b):
+        return all(torch.equal(v, b[0][n]) for n, v in a[0].items()) and \
+            all(torch.equal(m, o) for n, st in a[1].items()
+                for m, o in zip(st, b[1][n]))
+
+    where = []
+
+    def counted(fn):
+        """``fn``'s synchronizing calls (their code lines kept in
+        ``where``), by sync debug mode's warning for each (not its notice
+        that the mode is a prototype)."""
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                fn()
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        hits = [w for w in caught
+                if "synchronizing CUDA operation" in str(w.message)]
+        where.extend("%s:%d" % (os.path.basename(w.filename), w.lineno)
+                     for w in hits)
+        return len(hits)
+
+    from mxnet_tpu_torch.ops import flash_attention as fa
+    fa.reset_launches()
+    tr = ShardedTrainer(model, SoftmaxCrossEntropyLoss(), "adam",
+                        dict(MESH_ADAM), device=torch.device(DIST_DEVICE))
+    g = GuardedStep(tr, dynamic_scale=True, init_scale=DIST_GUARD_SCALE,
+                    detector=False, name="dist_guard")
+    losses, ms, syncs, snaps, scales = [], [], [], {}, []
+    chaos.clear()
+    chaos.arm("trainer.grads", "nan", at=DIST_GUARD_POISON)
+    try:
+        for i, (x, y) in enumerate(batches):
+            e0, e1 = torch.cuda.Event(enable_timing=True), \
+                torch.cuda.Event(enable_timing=True)
+            box = {}
+            e0.record()
+            syncs.append(counted(lambda: box.setdefault("l", g.step(x, y))))
+            e1.record()
+            torch.cuda.synchronize()
+            ms.append(e0.elapsed_time(e1))
+            losses.append(float(box["l"]))
+            g.flush()
+            scales.append(g.loss_scale)
+            if i + 1 in (DIST_GUARD_POISON - 1, DIST_GUARD_POISON):
+                snaps[i + 1] = snapshot(tr, int(g.opt_step))
+    finally:
+        chaos.clear()
+    skips = g.skipped_steps
+    g.close()
+    guarded = snapshot(tr, int(g.opt_step))
+    del tr, g
+    torch.cuda.empty_cache()
+    model.load_state_dict(start)
+    ref = ShardedTrainer(model, SoftmaxCrossEntropyLoss(), "adam",
+                         dict(MESH_ADAM), device=torch.device(DIST_DEVICE))
+    keep = [i for i in range(DIST_GUARD_STEPS) if i + 1 != DIST_GUARD_POISON]
+    ref_losses, ref_ms, ref_syncs = [], [], []
+    for k, i in enumerate(keep):
+        x, y = batches[i]
+        e0, e1 = torch.cuda.Event(enable_timing=True), \
+            torch.cuda.Event(enable_timing=True)
+        box = {}
+        e0.record()
+        ref_syncs.append(counted(lambda: box.setdefault("l", ref.step(x, y))))
+        e1.record()
+        torch.cuda.synchronize()
+        ref_ms.append(e0.elapsed_time(e1))
+        ref_losses.append(float(box["l"]))
+        if k + 1 == DIST_GUARD_POISON - 1:
+            ref_snap = snapshot(ref)
+    unguarded = snapshot(ref)
+    launches = _launches_by_layout()
+    del ref
+    torch.cuda.empty_cache()
+    p = DIST_GUARD_POISON
+    out = {"steps": DIST_GUARD_STEPS, "poisoned_step": p,
+           "init_scale": DIST_GUARD_SCALE, "losses": losses,
+           "losses_unguarded": ref_losses, "scales": scales, "skips": skips,
+           "syncs_guarded": syncs, "syncs_unguarded": ref_syncs,
+           "step_ms_guarded": float(np.mean([m for i, m in enumerate(ms)
+                                             if i not in (0, p - 1)])),
+           "step_ms_unguarded": float(np.mean(ref_ms[1:])),
+           "launches": launches}
+    checks = {
+        "skipped_step_bitwise": same(snaps[p], snaps[p - 1])
+        and snaps[p][2] == snaps[p - 1][2] == p - 1,
+        "scale_halved": scales[p - 1] == scales[p - 2] / 2,
+        "one_skip": skips == 1,
+        "steps_1_2_bitwise": same(snaps[p - 1], ref_snap),
+        "steps_4_6_bitwise": same(guarded, unguarded)
+        and guarded[2] == DIST_GUARD_STEPS - 1,
+        "losses_bitwise": [l for i, l in enumerate(losses) if i != p - 1]
+        == ref_losses and not np.isfinite(losses[p - 1]),
+        "no_added_sync": all(
+            g <= u for g, u in zip([n for i, n in enumerate(syncs)
+                                    if i != p - 1], ref_syncs))
+        and syncs[p - 1] <= max(ref_syncs)}
+    out["checks"] = checks
+    out["sync_sites"] = where
+    if not all(checks.values()):
+        fail("dist (d): %r; %r" % (checks, {k: out[k] for k in (
+            "losses", "losses_unguarded", "scales", "skips",
+            "syncs_guarded", "syncs_unguarded", "sync_sites")}))
+    del model, start, snaps, guarded, unguarded, ref_snap
+    torch.cuda.empty_cache()
+    return out
+
+
+def _dist_nccl(torch):
+    """(e): NCCL in a world of one."""
+    from mxnet_tpu_torch import kvstore as kvs
+    from mxnet_tpu_torch import parallel
+    from mxnet_tpu_torch.parallel import _process
+    backend = parallel.initialize("127.0.0.1:%d" % _free_port(), 1, 0)
+    try:
+        x = torch.arange(1 << 20, dtype=torch.float32, device="cuda")
+        y = kvs._cross_process_allreduce(x)
+        kv = kvs.create("dist_sync")
+        kv.barrier()
+        _process.barrier()
+        ok = backend == "nccl" and torch.equal(x, y) and \
+            kv.num_workers == 1 and parallel.backend() == "nccl"
+    finally:
+        _process.destroy()
+    if not ok:
+        fail("dist (e): NCCL world of one: backend %s" % backend)
+    return {"backend": backend, "all_reduce_bytes": x.numel() * 4,
+            "between_ranks": "not run: one card (NCCL refuses two ranks on "
+                             "one device)"}
+
+
+def dist_phase(args, torch):
+    """(a)-(e): several processes and training resilience on the card.
+    The drills of (c) run while (a)'s results are checked."""
+    import tempfile
+    t0 = time.perf_counter()
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        workers = _dist_workers(args, tmp)
+        oracles = _dist_oracles(args, torch)
+        drills = _dist_drills_start(os.path.join(tmp, "el"))
+        try:
+            out["training"] = _dist_training(torch, tmp, workers, oracles)
+            del oracles
+            gc.collect()
+            torch.cuda.empty_cache()
+            out["elastic"] = _dist_drills_finish(torch, drills)
+        finally:
+            _stop_drills(drills)
+    out["guarded"] = _dist_guarded(args, torch)
+    out["nccl"] = _dist_nccl(torch)
+    out["launches"] = {k: out["training"]["launches"][k]
+                       + out["guarded"]["launches"][k]
+                       for k in out["training"]["launches"]}
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["wall_s"] = time.perf_counter() - t0
+    return out
+
+
+def print_dist(res, card):
+    """The dist phase's lines of the output."""
+    a, c, d, e = res["training"], res["elastic"], res["guarded"], \
+        res["nccl"]
+    print("dist: (a) %s; 2 processes x transformer_lm_base b%d s%d fp32 "
+          "gluon.Trainer Adam over dist_sync: %.2f ms a step (in turn in "
+          "one process %.2f ms, one context b%d %.2f ms); all-reduce %.2f "
+          "ms and %d bytes a step; rank 0 == the in-turn run bit for bit "
+          "(params, moments, losses); vs b%d: losses %.3g (rtol %g), params "
+          "%.3g (%s, atol %g), moments %.3g (%s, rtol %g); launches by rank "
+          "%s; losses %s vs b%d %s [%s]" % (
+              "; ".join(a["backend_line"]), TRAIN_BATCH // DIST_RANKS,
+              TRAIN_SEQ, a["step_ms_2proc"], a["step_ms_in_turn"],
+              TRAIN_BATCH, a["step_ms_b32"], a["allreduce_ms"],
+              a["allreduce_bytes"], TRAIN_BATCH,
+              a["b32_gaps"]["loss_rel_gap"], a["loss_rtol"],
+              a["b32_gaps"]["param_max_gap"],
+              a["b32_gaps"]["param_max_gap_name"], a["param_atol"],
+              a["b32_gaps"]["state_max_rel_gap"],
+              a["b32_gaps"]["state_max_rel_gap_name"], a["state_rtol"],
+              [r["launches"] for r in a["ranks"]],
+              ", ".join("%.5f" % v for v in a["losses_2proc_mean"]),
+              TRAIN_BATCH, ", ".join("%.5f" % v for v in a["losses_b32"]),
+              card), flush=True)
+    for name, k in a["controls"].items():
+        print("dist: (a) control %s: loss gap %.3g, params %.3g (%s), "
+              "moments %.3g (%s); broke: %s [%s]" % (
+                  name, k["loss_rel_gap"], k["param_max_gap"],
+                  k["param_max_gap_name"], k["state_max_rel_gap"],
+                  k["state_max_rel_gap_name"], "; ".join(k["broken"]),
+                  card), flush=True)
+    print("dist: (b) dist_sync kvstore invariants on CUDA tensors over 2 "
+          "processes: ok (%s s); (c) host_loss: %s, generation 1 from step "
+          "%d == replay in a fresh process == uninterrupted (bitwise); "
+          "SIGTERM: %s, emergency checkpoint with %s ms of grace left, "
+          "generation 1 from step %d == uninterrupted (bitwise); drills "
+          "%.1f s" % (
+              ", ".join("%.1f" % v for v in a["kvstore_checks_s"]),
+              c["host_loss"]["worker_failed"],
+              c["host_loss"]["gen1"]["start_step"],
+              c["sigterm"]["worker_failed"],
+              ", ".join("%.0f" % v for v in c["sigterm"]["grace_left_ms"]),
+              c["sigterm"]["gen1"]["start_step"], c["drills_wall_s"]),
+          flush=True)
+    print("dist: (d) GuardedStep transformer_lm_base b%d fp32 Adam, scale "
+          "from %g, step %d poisoned: %s; scales %s; %.2f ms a guarded step "
+          "vs %.2f unguarded; syncs a step %s vs %s; (e) %s world of one: "
+          "all-reduce and barrier ok; NCCL between ranks %s; dist %.1f s "
+          "[%s]" % (
+              TRAIN_BATCH, d["init_scale"], d["poisoned_step"],
+              d["checks"], d["scales"], d["step_ms_guarded"],
+              d["step_ms_unguarded"], d["syncs_guarded"],
+              d["syncs_unguarded"], e["backend"], e["between_ranks"],
+              res["wall_s"], card), flush=True)
+
+
 def kernel_entries(serving, v2, training, bert, surface, core, vision,
                    data, rnn, symbol, ops, np_res, det, quant, sparse,
-                   mesh, fwd_cases, bwd_cases):
+                   mesh, dist, fwd_cases, bwd_cases):
     """The ``{"kernels": [...]}`` entries, one per TPU kernel. The three
     ``(B, S, H, D)`` ones: numbers of the main path's training shape (B 32,
     S 512, H 12, D 64, causal) in fp32, and under ``*_bf16`` keys in bf16;
@@ -8720,7 +9552,8 @@ def kernel_entries(serving, v2, training, bert, surface, core, vision,
              "detection": det["launches"]["flash_attn_fwd"],
              "quant": quant["launches"]["flash_attn_fwd"],
              "sparse": sparse["launches"]["flash_attn_fwd"],
-             "mesh": mesh["launches"]["flash_attn_fwd"]}
+             "mesh": mesh["launches"]["flash_attn_fwd"],
+             "dist": dist["launches"]["flash_attn_fwd"]}
     train_timed = "B=%d S=%d H=12 D=64 BSHD causal, float32 (*_bf16: " \
         "bfloat16)" % (TRAIN_BATCH, TRAIN_SEQ)
     reg_timed = "B=8 S=512 H=12 D=64 BHSD causal with a key mask, float32 " \
@@ -8753,7 +9586,8 @@ def kernel_entries(serving, v2, training, bert, surface, core, vision,
                           "quant": quant["launches"]["flash_attn_fwd_bhsd"],
                           "sparse":
                               sparse["launches"]["flash_attn_fwd_bhsd"],
-                          "mesh": mesh["launches"]["flash_attn_fwd_bhsd"]},
+                          "mesh": mesh["launches"]["flash_attn_fwd_bhsd"],
+                          "dist": dist["launches"]["flash_attn_fwd_bhsd"]},
         **timed(pick(fwd_cases, B=8, layout="BHSD"),
                 pick(fwd_cases, "bfloat16", B=8, layout="BHSD"))))
     for name, part, line, line_bhsd in (
@@ -8774,7 +9608,8 @@ def kernel_entries(serving, v2, training, bert, surface, core, vision,
               "detection": det["launches"][name],
               "quant": quant["launches"][name],
               "sparse": sparse["launches"][name],
-              "mesh": mesh["launches_bwd_by_layout"][name]["BSHD"]}
+              "mesh": mesh["launches_bwd_by_layout"][name]["BSHD"],
+              "dist": dist["launches"][name]}
         for layout, ln in (("BSHD", line), ("BHSD", line_bhsd)):
             errs = [c["max_abs_err"][n] for c in bwd_cases
                     if c["layout"] == layout
@@ -8803,7 +9638,9 @@ def kernel_entries(serving, v2, training, bert, surface, core, vision,
                                                sparse["launches"][name],
                                            "mesh": mesh[
                                                "launches_bwd_by_layout"][
-                                               name]["BHSD"]},
+                                               name]["BHSD"],
+                                           "dist": dist["launches"][
+                                               name + "_bhsd"]},
                          **timed(pick(bwd_cases, B=8, layout="BHSD"),
                                  pick(bwd_cases, "bfloat16", B=8,
                                       layout="BHSD"), part))
@@ -8962,7 +9799,11 @@ def main():
                          "and two bf16 training steps (and the other "
                          "phases' profiled parts) under torch.profiler and "
                          "print the device's busy share")
+    ap.add_argument("--dist-worker", action="store_true",
+                    help="run as one rank of the dist phase's (a) and (b) "
+                         "(the dist phase starts two through the launcher)")
     args = ap.parse_args()
+    t_main = time.perf_counter()
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -8970,6 +9811,8 @@ def main():
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if args.dist_worker:
+        return dist_worker(args, torch)
     from mxnet_tpu_torch import _build
     t0 = time.perf_counter()
     _build.build(SOURCES)
@@ -9188,6 +10031,8 @@ def main():
     print_sparse(sparse, card)
     mesh = mesh_phase(args, torch)
     print_mesh(mesh, card)
+    dist = dist_phase(args, torch)
+    print_dist(dist, card)
 
     for tag, prof in (("serving burst", serving["profile"]),
                       ("2 fp32 training steps",
@@ -9247,7 +10092,7 @@ def main():
                           c["max_err_rel_to_max"].values())))
     entries = kernel_entries(serving, v2, training, bert, surface, core,
                              vision, data, rnn, symbol, ops, np_res, det,
-                             quant, sparse, mesh, fwd_cases, bwd_cases)
+                             quant, sparse, mesh, dist, fwd_cases, bwd_cases)
     if args.out:
         with open(args.out, "w") as f:
             json.dump({"serving": serving, "serving_v2": v2,
@@ -9258,9 +10103,12 @@ def main():
                        "data": data, "rnn": rnn, "symbol": symbol,
                        "ops": ops, "np": np_res, "detection": det,
                        "quant": quant, "sparse": sparse, "mesh": mesh,
+                       "dist": dist,
                        "kernels": entries,
                        "card": card,
                        "build_s": build_s}, f, indent=1)
+    print("chip_smoke: %.1f s in all (the build included)"
+          % (time.perf_counter() - t_main))
     print(json.dumps({"kernels": [{k: v for k, v in e.items()
                                    if k != "cases"} for e in entries]}))
     print(card)

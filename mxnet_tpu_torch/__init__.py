@@ -60,12 +60,19 @@ What the port carries so far:
   storage (``nd.sparse``: ``CSRNDArray``, ``RowSparseNDArray``, ``dot``,
   SGD's lazy update) and ``contrib.graph``;
 - distribution inside one process: ``kvstore``/``kv`` (``local``,
-  ``device``, ``nccl``, ``dist_sync`` as a world of one), and
-  ``parallel``'s meshes of logical devices, ``ShardedTrainer`` over a
-  mesh (``tp_rules``, sharding plans), ring attention, the MoE FFN, the
-  pipeline, the planner and checkpoints (``models.MoETransformerLM``);
-  ``gluon.Trainer``, ``Module`` and ``model.FeedForward`` over several
-  contexts; ``sym``'s subgraph backends and ``group2ctx``.
+  ``device``), and ``parallel``'s meshes of logical devices,
+  ``ShardedTrainer`` over a mesh (``tp_rules``, sharding plans), ring
+  attention, the MoE FFN, the pipeline, the planner and checkpoints
+  (``models.MoETransformerLM``); ``gluon.Trainer``, ``Module`` and
+  ``model.FeedForward`` over several contexts; ``sym``'s subgraph
+  backends and ``group2ctx``;
+- a job of several processes: ``parallel.initialize``/``rank``/``size``
+  over ``torch.distributed`` (NCCL or gloo by rule), the ``dist_*`` and
+  ``nccl`` kvstores summing across processes, and the launcher
+  (``python -m mxnet_tpu_torch.tools.launch``, with ``--supervise``);
+- training resilience: ``resilience.resume`` (``resumable_fit``),
+  ``resilience.guardrails`` (``GuardedStep``) and ``resilience.elastic``
+  (preemption, membership, ``elastic_fit``, the collective watchdog).
 """
 from . import (autograd, base, callback, config, context, contrib, convert,
                engine, gluon, image, initializer, io, kvstore, lr_scheduler,

@@ -62,7 +62,7 @@ inlines a nested trace into the outer program. Aux-state writes
 written back to their handles after each replay.
 
 ``flops_per_call``/``bytes_per_call`` (the reference's XLA cost analysis)
-wait for the attribution module (ROADMAP Queue A item 11);
+wait for the attribution module (ROADMAP Queue A item 11b);
 ``serialize``/``deserialize`` wait for AOT artifacts (item 12).
 """
 from __future__ import annotations

@@ -102,6 +102,51 @@ KNOBS = dict([
        "serving circuit breaker: open-state hold before half-open probes"),
     _k("MXNET_BREAKER_HALF_OPEN_PROBES", 1, int,
        "serving circuit breaker: successful probes required to close"),
+    _k("MXNET_RESUME_EVERY", 10, int,
+       "resumable_fit checkpoint cadence in steps (resilience/resume.py)"),
+    _k("MXNET_GUARDRAILS_CLIP_NORM", 0.0, float,
+       "GuardedStep global-norm gradient clip inside the step "
+       "(resilience/guardrails.py; 0 = off)"),
+    _k("MXNET_GUARDRAILS_DYNAMIC_SCALE", 0, int,
+       "GuardedStep dynamic loss scaling as device state (grow/halve; "
+       "needed for true fp16, off for bf16/f32)"),
+    _k("MXNET_GUARDRAILS_INIT_SCALE", 2.0 ** 16, float,
+       "initial loss scale when dynamic scaling is on (the reference AMP "
+       "LossScaler default)"),
+    _k("MXNET_GUARDRAILS_SCALE_FACTOR", 2.0, float,
+       "loss-scale grow/halve factor (a power of 2 keeps fp32 exact)"),
+    _k("MXNET_GUARDRAILS_SCALE_WINDOW", 2000, int,
+       "consecutive clean steps before the loss scale grows"),
+    _k("MXNET_GUARDRAILS_DEADLINE_MS", 0.0, float,
+       "GuardedStep watchdog: flag steps whose results are not ready "
+       "within this many ms (0 = no watchdog)"),
+    _k("MXNET_GUARDRAILS_STORM_WINDOW", 20, int,
+       "AnomalyDetector NaN-storm window (recent steps considered)"),
+    _k("MXNET_GUARDRAILS_STORM_SKIPS", 5, int,
+       "skipped steps within the storm window that declare a NaN storm "
+       "(raises AnomalyFault -> resumable_fit restore-and-replay)"),
+    _k("MXNET_ELASTIC_HEARTBEAT_MS", 1000.0, float,
+       "ElasticMember background-beater cadence (resilience/elastic.py); "
+       "per-step beats fire regardless"),
+    _k("MXNET_ELASTIC_DEADLINE_MS", 15000.0, float,
+       "missed-beat deadline after which the coordinator/supervisor "
+       "declares a host dead"),
+    _k("MXNET_ELASTIC_GRACE_MS", 10000.0, float,
+       "SIGTERM->eviction grace window: the emergency checkpoint must "
+       "publish within this budget (PreemptionHandler)"),
+    _k("MXNET_ELASTIC_MAX_RESTARTS", 2, int,
+       "launcher --supervise: consecutive crash-restarts per worker "
+       "before it is evicted and the world re-forms at world-1"),
+    _k("MXNET_ELASTIC_BACKOFF_MS", 500.0, float,
+       "launcher --supervise: first restart backoff (doubles per "
+       "consecutive failure of the same worker)"),
+    _k("MXNET_ELASTIC_MIN_WORLD", 1, int,
+       "launcher --supervise: smallest world size worth re-forming to; "
+       "below it the run fails"),
+    _k("MXNET_ELASTIC_COLLECTIVE_DEADLINE_MS", 0.0, float,
+       "collective watchdog: abort a kvstore all-reduce/barrier or a "
+       "guarded dispatch still blocked after this many ms (hung peer -> "
+       "CollectiveTimeout; 0 = off)"),
     _k("MXNET_TRACE_ENABLE", 0, int,
        "record host-side spans from import (observability/tracer.py)"),
     _k("MXNET_TRACE_BUFFER", 65536, int,

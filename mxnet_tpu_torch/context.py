@@ -16,7 +16,7 @@ import threading
 import torch
 
 __all__ = ["Context", "cpu", "gpu", "cpu_pinned", "current_context",
-           "num_gpus", "default_device"]
+           "num_gpus", "num_local_cpus", "default_device"]
 
 _thread_local = threading.local()
 
@@ -110,6 +110,14 @@ def gpu(device_id=0):
 
 def num_gpus():
     return torch.cuda.device_count() if torch.cuda.is_available() else 0
+
+
+def num_local_cpus():
+    """The logical CPU devices this process takes for a mesh: the
+    launcher's per-worker share ``MXTPU_LOCAL_DEVICES`` (``--total-devices``
+    re-spread over a supervised world), 0 when it is not set."""
+    import os
+    return int(os.environ.get("MXTPU_LOCAL_DEVICES", "0") or 0)
 
 
 def current_context() -> Context:

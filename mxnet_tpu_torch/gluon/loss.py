@@ -129,7 +129,9 @@ class SoftmaxCrossEntropyLoss(Loss):
     """Softmax cross-entropy along ``axis``.
 
     ``sparse_label``: ``-log_softmax(pred)[label]``; a label below 0 is
-    ignored (it contributes 0), as in the reference. Otherwise ``label``
+    ignored (it contributes 0), as in the reference; a NaN or infinite
+    label gives a NaN loss (the ``nan`` chaos kind poisons an integer
+    token stream's labels so). Otherwise ``label``
     is a distribution of ``pred``'s shape: ``-sum(log_softmax(pred) *
     label)``. ``log_softmax`` is taken op for op as the reference
     (``ops.nn.log_softmax``); ``from_logits`` takes ``pred`` as
@@ -147,9 +149,16 @@ class SoftmaxCrossEntropyLoss(Loss):
             pred = _ops.log_softmax(pred, axis=self._axis)
         if self._sparse_label:
             valid = label >= 0
-            idx = label.clamp_min(0).long().unsqueeze(self._axis)
-            loss = -pred.gather(self._axis, idx)
+            # a non-finite label (a poisoned batch) indexes class 0 and
+            # gives a NaN loss, as its garbage deserves, where a cast of
+            # NaN to an index would read out of bounds
+            finite = torch.isfinite(label)
+            idx = torch.where(valid & finite, label, torch.zeros_like(label))
+            loss = -pred.gather(self._axis, idx.long().unsqueeze(self._axis))
             loss = loss * valid.to(loss.dtype).reshape(loss.shape)
+            if label.is_floating_point():
+                loss = torch.where(finite.reshape(loss.shape), loss,
+                                   torch.full_like(loss, float("nan")))
         else:
             label = label.reshape(pred.shape)
             loss = -torch.sum(pred * label, dim=self._axis, keepdim=True)

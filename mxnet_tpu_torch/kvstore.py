@@ -1,31 +1,43 @@
-"""KVStore: gradient aggregation and parameter sync in one process;
-counterpart of ``mxnet_tpu/kvstore.py``.
+"""KVStore: gradient aggregation and parameter sync; counterpart of
+``mxnet_tpu/kvstore.py``.
 
-``create`` makes the reference's stores: ``local``, ``device`` and
-``nccl`` aggregate the device copies pushed under a key (the role of
-``CommDevice::Reduce``), and ``dist_sync``/``dist_device_sync``/
-``dist_tpu_sync`` are one worker of a world of one (``rank`` 0,
-``num_workers`` 1, ``barrier`` a no-op). A world of several processes is
-ROADMAP item 10b; ``dist_async`` raises :class:`~.base.MXNetError`, as in
-the reference.
+``create`` makes the reference's stores: ``local`` and ``device``
+aggregate the device copies pushed under a key (the role of
+``CommDevice::Reduce``); ``dist_sync``, ``dist_device_sync``,
+``dist_tpu_sync``, ``nccl`` and ``dist`` first sum the local copies, then
+all-reduce the sum over the job's processes (``parallel._process``:
+``torch.distributed``, NCCL or gloo by its rule), under the elastic
+collective watchdog (``MXNET_ELASTIC_COLLECTIVE_DEADLINE_MS``). ``rank``
+and ``num_workers`` come from the process group (0 and 1 outside a job);
+``barrier`` waits for every process; ``num_dead_node`` counts the ranks a
+supervised generation's rendezvous records lost. A dist store made in a
+process the launcher started (``MXTPU_COORDINATOR``, ``MXTPU_NUM_PROCESSES``
+> 1) joins the job (``parallel.initialize``) when no group exists yet, as
+MXNet's store joins the job its launcher declared; ``DMLC_NUM_WORKER`` > 1
+without a launcher's coordinator raises. ``dist_async`` raises
+:class:`~.base.MXNetError`, as in the reference.
 
 - ``push`` sums the pushed copies in list order, on the first copy's
-  device; with an updater (``set_updater``, ``set_optimizer``) the sum
-  updates the stored value, without one it replaces it (the reference's
-  ``local = merged``). ``pull`` copies the stored value into every out
-  (each its own buffer); ``pushpull`` is both; ``broadcast`` is
-  ``init`` then ``pull``; ``row_sparse_pull`` gathers the named rows into
-  a ``RowSparseNDArray`` out (a dense out gets the whole value).
+  device (each copy compressed first, with its own residual, when
+  compression is set), then across processes; with an updater
+  (``set_updater``, ``set_optimizer``) the sum updates the stored value,
+  without one it replaces it (the reference's ``local = merged``). A push
+  to a key never initialized raises :class:`~.base.MXNetError`. ``pull``
+  copies the stored value into every out (each its own buffer);
+  ``pushpull`` is both; ``broadcast`` is ``init`` then ``pull``;
+  ``row_sparse_pull`` gathers the named rows (each process its own row
+  set) into a ``RowSparseNDArray`` out (a dense out gets the whole value).
 - Gradient compression (``set_gradient_compression``), applied to each
-  pushed copy with error feedback (a residual per key and copy):
-  ``{"type": "2bit", "threshold": t}`` quantizes to ``{-t, 0, +t}``;
+  pushed copy with error feedback (a residual per key and copy) before any
+  sum: ``{"type": "2bit", "threshold": t}`` quantizes to ``{-t, 0, +t}``;
   ``{"type": "int8"}`` is symmetric per tensor (scale ``max|x| / 127``).
   The reference's validation: unknown types and ``t <= 0`` raise.
 - ``save_optimizer_states``/``load_optimizer_states`` write and read the
   reference's ``.states`` format (the updater's).
 - Transient faults of a push or a pull (the ``kvstore.push`` and
   ``kvstore.pull`` chaos points) are retried by the ``retry.kvstore``
-  policy (``retry_policy=False`` turns it off).
+  policy (``retry_policy=False`` turns it off); a
+  :class:`~.resilience.elastic.CollectiveTimeout` is never retried.
 """
 from __future__ import annotations
 
@@ -39,7 +51,7 @@ from .resilience import retry as _retry
 
 __all__ = ["KVStore", "create"]
 
-_DIST = ("dist_tpu_sync", "dist_sync", "dist_device_sync", "dist")
+_DIST = ("dist_tpu_sync", "dist_sync", "dist_device_sync", "dist", "nccl")
 
 
 def _tensor(v):
@@ -64,6 +76,7 @@ class KVStore:
         self._optimizer = None
         self._compression_params = None
         self._residuals = {}
+        self._is_dist = kind in _DIST
         if retry_policy is None:
             retry_policy = _retry.named_policy("retry.kvstore")
         self._retry = retry_policy or None
@@ -75,11 +88,17 @@ class KVStore:
 
     @property
     def rank(self):
-        return 0
+        from .parallel import _process
+        return _process.rank() if self._is_dist else 0
 
     @property
     def num_workers(self):
-        return 1
+        from .parallel import _process
+        return _process.size() if self._is_dist else 1
+
+    def _across(self):
+        from .parallel import _process
+        return self._is_dist and _process.size() > 1
 
     # ---- init/push/pull ---------------------------------------------------
     def init(self, key, value):
@@ -90,13 +109,20 @@ class KVStore:
             for rk in [rk for rk in self._residuals if rk[0] == k]:
                 del self._residuals[rk]
 
-    @staticmethod
-    def _reduce(values):
-        """The pushed copies' sum, in list order, on the first's device."""
+    def _reduce(self, values):
+        """The pushed copies' sum, in list order, on the first's device;
+        then, for a dist store in a job, the sum over the processes."""
         dev = values[0].device
         acc = values[0]
         for v in values[1:]:
             acc = acc + v.to(dev)
+        if self._across():
+            # a peer lost mid-all-reduce blocks here: the watchdog turns
+            # the wedge into a CollectiveTimeout (off unless the deadline
+            # knob is set)
+            from .resilience.elastic import guard_collective
+            acc = guard_collective(_cross_process_allreduce, acc,
+                                   op="kvstore.allreduce")
         return acc
 
     def push(self, key, value, priority=0):
@@ -250,9 +276,15 @@ class KVStore:
 
     # ---- control ----------------------------------------------------------
     def barrier(self):
-        """Every worker of this world (one process) is here."""
+        """Every worker of the job is here (a no-op outside one), under the
+        collective watchdog."""
+        if self._across():
+            from .parallel import _process
+            from .resilience.elastic import guard_collective
+            guard_collective(_process.barrier, op="kvstore.barrier")
 
-    _barrier = barrier
+    def _barrier(self):
+        self.barrier()
 
     def send_command_to_servers(self, head, body):
         """No server processes."""
@@ -271,7 +303,19 @@ class KVStore:
 
     @property
     def num_dead_node(self):
-        return 0
+        """Ranks of this supervised generation whose heartbeats stopped
+        (0 outside ``--supervise``)."""
+        if not self._is_dist:
+            return 0
+        from .resilience.elastic import dead_in_job
+        return len(dead_in_job())
+
+
+def _cross_process_allreduce(x):
+    """The sum of ``x`` over the job's processes (one collective; gloo
+    stages a CUDA tensor through the host)."""
+    from .parallel import _process
+    return _process.all_reduce(x)
 
 
 def _key_int(k):
@@ -297,14 +341,25 @@ def _key_value(key, value):
     return keys, values
 
 
-def _world_size():
-    """The workers a launcher or ``torch.distributed`` declares."""
+def _join_job(name):
+    """A dist store's process group: joined from the launcher's environment
+    when none exists; a ``DMLC_NUM_WORKER`` of several workers without
+    one raises."""
     import os
+    from .parallel import _process
+    if _process.is_initialized():
+        return
+    if int(os.environ.get("MXTPU_NUM_PROCESSES", "1") or 1) > 1 and \
+            os.environ.get("MXTPU_COORDINATOR"):
+        _process.initialize()
+        return
     n = int(os.environ.get("DMLC_NUM_WORKER", "1") or 1)
-    if torch.distributed.is_available() and \
-            torch.distributed.is_initialized():
-        n = max(n, torch.distributed.get_world_size())
-    return n
+    if n > 1:
+        raise MXNetError(
+            "kvstore %r: DMLC_NUM_WORKER declares %d workers but this "
+            "process has joined no job: start the workers with python -m "
+            "mxnet_tpu_torch.tools.launch, or call parallel.initialize() "
+            "first" % (name, n))
 
 
 def create(name="local"):
@@ -312,14 +367,11 @@ def create(name="local"):
     if not isinstance(name, str):
         raise TypeError("name must be a string")
     name = name.lower()
-    if name in _DIST and _world_size() > 1:
-        raise NotImplementedError(
-            "kvstore %r over %d processes is ROADMAP item 10b; one process "
-            "is a world of one" % (name, _world_size()))
     if name in ("local", "local_update_cpu", "local_allreduce_cpu",
-                "local_allreduce_device", "device", "nccl"):
+                "local_allreduce_device", "device"):
         return KVStore(name)
     if name in _DIST:
+        _join_job(name)
         return KVStore("dist_tpu_sync" if name == "dist" else name)
     if name == "dist_async":
         raise MXNetError(

@@ -7,7 +7,8 @@
 parameters (given arrays, else the initializer's draws, in
 ``list_arguments`` order, as the reference draws them), and
 ``init_optimizer`` makes the optimizer with ``rescale_grad = 1 /
-batch_size``, the batch size read on the data layout's batch axis.
+batch_size``, the batch size read on the data layout's batch axis (times
+a dist store's ``num_workers``: the global batch).
 ``forward``/``backward``/``update`` run the executor and apply the
 updater to each parameter's gradient in place. The data take a gradient
 only with ``inputs_need_grad``, and the labels never, as in MXNet 1.6.
@@ -309,6 +310,15 @@ class Module(BaseModule):
                 self._kvstore.init(i, self._exec.arg_dict[name])
         batch_size = self._data_shapes[0][1][self._batch_axis] \
             if self._data_shapes else 1
+        # a dist store sums the gradients of every worker's batch: the
+        # global batch is num_workers times the bound one (the reference's
+        # module.py:222-226, MXNet's module.py:505)
+        kv = self._kvstore
+        if kv is None and isinstance(kvstore, str) and kvstore:
+            from .. import kvstore as kvs
+            kv = kvs.create(kvstore)
+        if kv is not None:
+            batch_size *= kv.num_workers
         rescale_grad = 1.0 / max(batch_size, 1)
         if isinstance(optimizer, str):
             optimizer_params = dict(optimizer_params)
@@ -362,22 +372,25 @@ class Module(BaseModule):
 
     def update(self):
         """Apply the updater to every parameter that is not fixed, by its
-        index in the parameter list."""
+        index in the parameter list, to the gradient summed over the
+        contexts (through the store when there is one: a dist store sums
+        over the workers too)."""
         assert self.binded and self.params_initialized and \
             self.optimizer_initialized
         for i, name in enumerate(self._param_names):
             grads = [ex.grad_dict.get(name) for ex in self._execs]
             if name in self._fixed_param_names or grads[0] is None:
                 continue
-            if len(grads) > 1:
-                if self._kvstore is not None:
-                    self._kvstore.push(i, grads)
-                    self._kvstore.pull(i, out=grads[:1])
-                else:
-                    with torch.no_grad():
-                        for g in grads[1:]:
-                            grads[0]._data.add_(g._data.to(
-                                grads[0]._data.device))
+            if self._kvstore is not None:
+                # the store sums the contexts' gradients and, for a dist
+                # store, every worker's (MXNet's _update_params)
+                self._kvstore.push(i, grads)
+                self._kvstore.pull(i, out=grads[:1])
+            elif len(grads) > 1:
+                with torch.no_grad():
+                    for g in grads[1:]:
+                        grads[0]._data.add_(g._data.to(
+                            grads[0]._data.device))
             self._updater(i, grads[0]._data, self._exec.arg_dict[name]._data)
         self._broadcast()
 

@@ -275,10 +275,18 @@ def _adam(w, m, v, g, lr, wd, b1, b2, eps, rescale, clip, t):
     """Adam at step ``t`` (1-based) with the bias correction folded into
     the rate, ``lr_t = lr * sqrt(1 - b2^t) / (1 - b1^t)`` (a host scalar);
     then ``w -= lr_t * m / (sqrt(v) + eps)``. Returns ``(w, m, v)``."""
+    return _adam_at(w, m, v, g, lr * math.sqrt(1 - b2 ** t) / (1 - b1 ** t),
+                    wd, b1, b2, eps, rescale, clip)
+
+
+@torch.no_grad()
+def _adam_at(w, m, v, g, lr_t, wd, b1, b2, eps, rescale, clip):
+    """Adam with the bias-corrected rate ``lr_t`` given: a host scalar, or
+    a 0-dim float32 tensor holding that scalar rounded as a host scalar
+    is (the same products, bit for bit)."""
     g = _clip(g, rescale, clip) + wd * w
     m.mul_(b1).add_((1 - b1) * g)
     v.mul_(b2).add_((1 - b2) * g.square())
-    lr_t = lr * math.sqrt(1 - b2 ** t) / (1 - b1 ** t)
     w.sub_(lr_t * m / (v.sqrt() + eps))
     return w, m, v
 

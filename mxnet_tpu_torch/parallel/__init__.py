@@ -3,8 +3,10 @@
 ``ShardedTrainer`` on one device or over a mesh (``step_stream``,
 ``shard_params``, sharding plans), ``DeviceFeed``, ring attention, the
 expert-parallel MoE FFN, the pipeline, the sharding planner and
-checkpoints. Several processes (``initialize``, ``rank``, ``size``, the
-``dist_*`` stores) are ROADMAP item 10b."""
+checkpoints; and a job of several processes (``initialize``, ``rank``,
+``size``, ``backend``: ``_process.py``, which the ``dist_*`` kvstores and
+the launcher use)."""
+from ._process import backend, initialize, rank, size
 from .checkpoint import restore_checkpoint, save_checkpoint
 from .datafeed import DeviceFeed, feed_stats
 from .functional import functional_optimizer, functionalize, shard_params
@@ -28,5 +30,6 @@ __all__ = ["ShardedTrainer", "functional_optimizer", "functionalize",
            "ring_attention", "ring_attention_sharded", "pipeline_apply",
            "pipeline_spmd", "moe_ffn", "moe_ffn_sharded", "init_moe_params",
            "ModelProfile", "PlanError", "PlanMismatchError", "ShardingPlan",
-           "plan_sharding", "plan_serving"]
+           "plan_sharding", "plan_serving", "initialize", "rank", "size",
+           "backend"]
 

@@ -8,8 +8,10 @@ reference writes it with Orbax; the port keeps formats of its own that
 need no package beyond torch:
 
 - ``manifest.json``: step, world, names, shapes, dtypes, the number of
-  state tensors of each parameter, and the plan (``plan.to_dict()`` or
-  null);
+  state tensors of each parameter, the plan (``plan.to_dict()`` or
+  null), and a wrapper's own state (``_checkpoint_extra``: a
+  ``GuardedStep``'s loss scale, counters and optimizer step) under
+  ``extra``;
 - ``values.params``: every value whole, in the reference's ``.params``
   binary format (names ``p0000``, ``p0001``, ... by position, as the
   reference keys its tree: auto-generated names differ between otherwise
@@ -25,7 +27,10 @@ between, as in the reference, so a crash leaves the last good checkpoint.
 trainer's own shardings, whatever mesh or plan saved them; a value whose
 shape cannot land there raises :class:`~.planner.PlanMismatchError`
 naming both placements (a plain ``ValueError`` when neither side has a
-plan). Reading the reference's Orbax directories is not ported (ROADMAP).
+plan). A restore onto another world (mesh size) counts in
+``resilience.elastic``'s ``resharded_restores``, onto another plan in its
+``replans``. Reading the reference's Orbax directories is not ported
+(ROADMAP).
 """
 from __future__ import annotations
 
@@ -102,6 +107,11 @@ def _save(trainer, path, force):
                            for v in values],
                 "n_states": n_states,
                 "plan": None if plan is None else plan.to_dict()}
+    if hasattr(trainer, "_checkpoint_extra"):
+        # a wrapper's own state (GuardedStep: loss scale, counters, the
+        # optimizer's step), as exact host numbers
+        manifest["extra"] = {k: torch.as_tensor(v).item()
+                             for k, v in trainer._checkpoint_extra().items()}
     with open(os.path.join(tmp, "manifest.json"), "w") as f:
         json.dump(manifest, f, indent=1)
     _chaos.point("checkpoint.save")
@@ -159,6 +169,26 @@ def _restore(trainer, path):
             trainer._states[n] = tuple(
                 _into(cur, s) for cur, s in zip(st, states[i]))
     trainer._t = int(manifest["step"])
+    if "extra" in manifest and hasattr(trainer, "_restore_extra"):
+        trainer._restore_extra(manifest["extra"])
+    elif hasattr(trainer, "_restore_plain"):
+        trainer._restore_plain()
+    from ..resilience import elastic as _elastic
+    now_world = _world(trainer)
+    if int(manifest["world"]) != now_world:
+        # the elastic reshard: state written on one topology landed on
+        # another
+        _elastic._count("resharded_restores")
+        _trace.instant("elastic.reshard", saved_world=manifest["world"],
+                       world=now_world, step=trainer._t)
+    cur = trainer.plan
+    if saved_plan is not None and cur is not None and \
+            saved_plan != cur.to_dict():
+        # the elastic re-plan: a placement written under one plan landed
+        # on another
+        _elastic._count("replans")
+        _trace.instant("elastic.replan", saved=saved_plan,
+                       current=cur.to_dict(), step=trainer._t)
     return trainer
 
 

@@ -31,7 +31,7 @@ from collections import OrderedDict
 import numpy as np
 import torch
 
-from ..context import Context, _no_cuda, gpu
+from ..context import Context, _no_cuda, cpu, gpu, num_local_cpus
 
 __all__ = ["MeshConfig", "Mesh", "make_mesh", "current_mesh", "set_mesh",
            "replicated", "batch_sharding", "PartitionSpec", "NamedSharding",
@@ -177,11 +177,15 @@ class Mesh:
 def make_mesh(dp=-1, pp=1, ep=1, tp=1, sp=1, devices=None):
     """A :class:`Mesh` over ``devices`` (contexts or torch devices; one
     may repeat), axes ``(dp, pp, ep, tp, sp)``; every visible GPU, one
-    position each, when None (raises without CUDA)."""
+    position each, when None (without CUDA: the launcher's
+    ``MXTPU_LOCAL_DEVICES`` logical CPU devices, else it raises)."""
     if devices is None:
-        if not torch.cuda.is_available():
+        if torch.cuda.is_available():
+            devices = [gpu(i) for i in range(torch.cuda.device_count())]
+        elif num_local_cpus():
+            devices = [cpu(i) for i in range(num_local_cpus())]
+        else:
             raise _no_cuda()
-        devices = [gpu(i) for i in range(torch.cuda.device_count())]
     devices = [_context(d) for d in devices]
     shape = MeshConfig(dp, pp, ep, tp, sp).resolve(len(devices))
     arr = np.empty(len(devices), dtype=object)

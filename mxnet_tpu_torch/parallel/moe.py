@@ -85,7 +85,11 @@ def moe_ffn_sharded(x, gate_w, w1, w2, mesh, capacity_factor=1.25,
                                back[p].reshape(E, C, D)))
         auxes.append(aux)
     y = ShardedTensor(ys, rows, xt.shape, xt.dtype).full(x.device)
-    return y.reshape(x.shape), _mean_over(auxes, mesh, axis, x.device)
+    out = (y.reshape(x.shape), _mean_over(auxes, mesh, axis, x.device))
+    # a lost ep peer would wedge the all-to-all: the collective watchdog
+    # bounds the wait (free unless its deadline knob is set)
+    from ..resilience.elastic import guard_wait
+    return guard_wait(out, op="moe.dispatch")
 
 
 def _mean_over(values, mesh, axis, device):

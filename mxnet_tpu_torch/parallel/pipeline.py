@@ -69,4 +69,8 @@ def pipeline_spmd(fn, stacked_params, batch, mesh, n_micro, axis_name="pp"):
              for p, s in enumerate(pos_stage)]
     batches = [batch.to(mesh.device(p), copy=True)
                for p in range(mesh.size)]
-    return pipeline_apply(fn, local, batches, n_micro, mesh, axis_name)[0]
+    out = pipeline_apply(fn, local, batches, n_micro, mesh, axis_name)[0]
+    # a lost stage would wedge the ppermute ring: the collective watchdog
+    # bounds the wait (free unless its deadline knob is set)
+    from ..resilience.elastic import guard_wait
+    return guard_wait(out, op="pipeline.dispatch")

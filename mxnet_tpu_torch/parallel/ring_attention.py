@@ -82,4 +82,8 @@ def ring_attention_sharded(q, k, v, mesh, axis_name="sp", causal=False,
     qs, ks, vs = (ShardedTensor.place(t, sharding) for t in (q, k, v))
     outs = ring_attention(qs.shards, ks.shards, vs.shards, mesh,
                           axis_name=axis_name, causal=causal)
-    return ShardedTensor(outs, sharding, q.shape, q.dtype).full()
+    out = ShardedTensor(outs, sharding, q.shape, q.dtype).full()
+    # a lost sp peer would wedge the K/V ring: the collective watchdog
+    # bounds the wait (free unless its deadline knob is set)
+    from ..resilience.elastic import guard_wait
+    return guard_wait(out, op="ring.dispatch")

@@ -239,7 +239,11 @@ class ShardedTrainer:
             grad and name in self._states))
             for name, st in self._values.items()} for dev in devices]
 
-    def _mesh_step(self, data, label, lr):
+    def _mesh_grads(self, data, label, scale=None):
+        """The mesh step's forward and backward: ``(loss, grads, sink,
+        values0)`` with ``grads`` the gradient sum of each trainable
+        parameter on the lead device (of the loss times ``scale``, a 0-dim
+        tensor, when given), and replica 0's aux writes."""
         devices = self._replica_devices()
         n = len(devices)
         xs = [self._slices(x, devices) for x in data]
@@ -275,9 +279,9 @@ class ShardedTrainer:
             total = losses[0]
             for loss in losses[1:]:
                 total = total + loss.to(dev0)
-            total.backward()
+            (total if scale is None else total * scale).backward()
         self._t += 1
-        lr = self._lr if lr is None else lr
+        grads = {}
         for name in self._trainable:
             grad = None
             for r in range(n):
@@ -289,13 +293,58 @@ class ShardedTrainer:
             st = self._values[name]
             if grad is None:
                 grad = torch.zeros(st.shape, dtype=st.dtype, device=dev0)
-            self._apply_update(name, grad.to(st.dtype), lr)
-        self._carry_mesh_aux(sinks[0], values[0])
-        return total.detach()
+            grads[name] = grad.to(st.dtype)
+        return total.detach(), grads, sinks[0], values[0]
 
-    def _apply_update(self, name, grad, lr):
+    def _mesh_step(self, data, label, lr):
+        loss, grads, sink, values0 = self._mesh_grads(data, label)
+        self._commit(grads, lr, self._t, (sink, values0))
+        return loss
+
+    def _commit(self, grads, lr, t, aux):
+        """The optimizer update of every trainable parameter with its
+        gradient in ``grads``, at optimizer step ``t``, then the step's aux
+        writes (``_grads``' last item)."""
+        lr = self._lr if lr is None else lr
+        if self._mesh is not None:
+            for name, grad in grads.items():
+                self._apply_update(name, grad, lr, t)
+            self._carry_mesh_aux(*aux)
+            return
+        for name, g in grads.items():
+            self._update(self._values[name], g, self._states[name], t, lr)
+        self._carry_aux(aux)
+
+    def _grads(self, xs, y, scale=None):
+        """One step's loss and gradients, the update not applied: ``(loss,
+        grads, aux)`` (see :meth:`_mesh_grads`); advances ``_t``."""
+        if self._mesh is not None:
+            loss, grads, sink, values0 = self._mesh_grads(xs, y, scale)
+            return loss, grads, (sink, values0)
+        self._t += 1
+        loss, sink = self._forward_backward(xs, y, scale)
+        grads = {}
+        for name in self._states:
+            w = self._values[name]
+            g = w.grad if w.grad is not None else torch.zeros_like(w)
+            grads[name] = g.to(w.dtype)
+        return loss, grads, sink
+
+    def _aux_targets(self, aux):
+        """The tensors a commit of ``aux`` writes besides the values and
+        states (the block's own aux parameters)."""
+        own = dict(self._block.named_parameters())
+        if self._mesh is not None:
+            sink, values0 = aux
+            if not sink:
+                return []
+            name_of = {id(v): n for n, v in values0.items()}
+            return [own[name_of[id(h._data)]] for h, _ in sink]
+        return [own[self._name_of[id(h._data)]] for h, _ in aux]
+
+    def _apply_update(self, name, grad, lr, t):
         """The optimizer update of every position's shard of ``name``
-        with its chunk of the full gradient ``grad``."""
+        with its chunk of the full gradient ``grad``, at step ``t``."""
         st, states = self._values[name], self._states[name]
         mesh = self._mesh
         if self._opt_name in _ELEMENTWISE or st.sharding.is_replicated():
@@ -305,18 +354,17 @@ class ShardedTrainer:
                 p0 = group[0]
                 g = st.chunk_of(grad, p0).to(mesh.device(p0), copy=True)
                 self._update(st.shards[p0], g,
-                             tuple(s.shards[p0] for s in states), self._t,
-                             lr)
+                             tuple(s.shards[p0] for s in states), t, lr)
                 with torch.no_grad():
                     for p in group[1:]:
-                        for t in (st,) + states:
-                            t.shards[p].copy_(t.shards[p0])
+                        for x in (st,) + states:
+                            x.shards[p].copy_(x.shards[p0])
             return
         # a norm-taking update (lamb) of a split parameter: on the whole
         # tensor, then every position takes its chunk
         w = st.full(grad.device)
         state = tuple(s.full(grad.device) for s in states)
-        self._update(w, grad, state, self._t, lr)
+        self._update(w, grad, state, t, lr)
         with torch.no_grad():
             for whole, target in ((w, st),) + tuple(zip(state, states)):
                 for p in range(mesh.size):
@@ -399,27 +447,55 @@ class ShardedTrainer:
         """One step: forward, ``loss_fn(out, label).mean()``, backward and
         the optimizer update. ``data`` is one input, or a TUPLE of model
         inputs; a list is refused as ambiguous. Returns the loss, a 0-dim
-        tensor on the trainer's device."""
+        tensor on the trainer's device. Fires the ``trainer.step`` chaos
+        point before any state changes and the ``trainer.grads`` poison
+        point on the staged batch (``nan``: its floating inputs, or its
+        labels, become NaN; the unguarded trainer absorbs them, a
+        ``resilience.guardrails.GuardedStep`` skips the step)."""
         if isinstance(data, list):
             raise TypeError(
                 "ShardedTrainer.step: pass a TUPLE for multi-input models "
                 "or a single stacked array; a list is ambiguous")
+        _chaos.point("trainer.step")
+        return self._run(data, label, lr, _chaos.poisoned("trainer.grads"))
+
+    def _stage(self, data, label, poison):
+        """The step's inputs and label: placed on the device (one device),
+        as given over a mesh; NaN-poisoned when ``poison``."""
+        xs = self._inputs(data)
+        y = label
+        if self._mesh is None:
+            xs = tuple(self._place(x) for x in xs)
+            y = self._place(label)
+        if poison:
+            from ..resilience.guardrails import poison_nonfinite
+            xs, y = poison_nonfinite(xs, y)
+        return xs, y
+
+    def _run(self, data, label, lr, poison=False):
+        xs, y = self._stage(data, label, poison)
         if self._mesh is not None:
-            return self._mesh_step(self._inputs(data), label, lr)
-        xs = tuple(self._place(x) for x in self._inputs(data))
-        y = self._place(label)
-        if self._preprocess is not None:
-            xs = tuple(self._preprocess(x) for x in xs)
-        self._t += 1
-        loss = self._forward_backward(xs, y)
-        lr = self._lr if lr is None else lr
-        for name, state in self._states.items():
-            w = self._values[name]
-            g = w.grad if w.grad is not None else torch.zeros_like(w)
-            self._update(w, g.to(w.dtype), state, self._t, lr)
+            loss = self._mesh_step(xs, y, lr)
+        else:
+            if self._preprocess is not None:
+                xs = tuple(self._preprocess(x) for x in xs)
+            loss, grads, aux = self._grads(xs, y)
+            self._commit(grads, lr, self._t, aux)
+        self._await_plan((loss, self._values, self._states))
         return loss
 
-    def _forward_backward(self, xs, y):
+    def _await_plan(self, outputs):
+        """A multi-axis plan's step (pp, ep or sp > 1) waits for its work
+        under the collective watchdog (``guard_wait``, op
+        ``trainer.dispatch``): free unless
+        ``MXNET_ELASTIC_COLLECTIVE_DEADLINE_MS`` is set."""
+        if self._plan is not None and self._plan.multi_axis:
+            from ..resilience.elastic import guard_wait
+            guard_wait(outputs, op="trainer.dispatch")
+
+    def _forward_backward(self, xs, y, scale=None):
+        """Forward and backward on one device (of the loss times ``scale``
+        when given): ``(loss, aux_sink)``, the aux writes not carried."""
         block = self._block
         was_training = block.training
         block.train()
@@ -432,15 +508,14 @@ class ShardedTrainer:
                     out = functional_call(block, self._values, xs)
             finally:
                 _tape.pop_aux_sink()
-            self._carry_aux(sink)
             with torch.enable_grad():
                 if isinstance(out, (tuple, list)):
                     out = out[0]
                 loss = self._loss(out, y).mean()
-                loss.backward()
+                (loss if scale is None else loss * scale).backward()
         finally:
             block.train(was_training)
-        return loss.detach()
+        return loss.detach(), sink
 
     def _carry_aux(self, aux):
         """Write a step's aux values into the trainer's values (the
@@ -526,10 +601,14 @@ class ShardedTrainer:
                 "ambiguous")
         multi = isinstance(data, tuple)
         xs = data if multi else (data,)
+        # one chaos fire and one poison draw for the whole span, as the
+        # reference's one staged program
+        _chaos.point("trainer.step")
+        poison = _chaos.poisoned("trainer.grads")
         losses = []
         for i in range(xs[0].shape[0]):
             x = tuple(a[i] for a in xs) if multi else xs[0][i]
-            losses.append(self.step(x, label[i], lr))
+            losses.append(self._run(x, label[i], lr, poison))
         return torch.stack(losses)
 
     def step_stream(self, feed, steps=None, chunk=None, lr=None,
@@ -549,14 +628,14 @@ class ShardedTrainer:
         it whole; here one staged batch ahead is enough, whatever the
         chunk). Returns the losses, shape ``(n_run,)``.
 
-        ``preemption`` handlers and the ``trainer.grads`` poison point wait
-        for the resilience slice (ROADMAP Queue A item 11) and raise
-        :class:`NotImplementedError`."""
+        ``preemption`` (a :class:`~..resilience.elastic.PreemptionHandler`)
+        is read at every chunk boundary: a delivered notice raises
+        :class:`~..resilience.elastic.Preempted` before the next chunk
+        takes from the feed, every finished chunk counted in ``_t`` (the
+        caller writes the emergency checkpoint; ``feed.flush()`` lets go of
+        the batches staged ahead). The ``trainer.grads`` poison point is
+        drawn once a chunk and poisons the chunk's batches."""
         from .datafeed import DeviceFeed
-        if preemption is not None:
-            raise NotImplementedError(
-                "ShardedTrainer.step_stream: preemption handlers are not "
-                "ported yet (ROADMAP Queue A item 11)")
         chunk = int(_config.get("MXNET_DATAFEED_CHUNK") if chunk is None
                     else chunk)
         if chunk < 1:
@@ -574,6 +653,9 @@ class ShardedTrainer:
             remaining = None if steps is None else int(steps)
             chunk_idx = 0
             while remaining is None or remaining > 0:
+                if preemption is not None and preemption.triggered():
+                    from ..resilience.elastic import Preempted
+                    raise Preempted(step=self._t)
                 with _trace.span("trainer.chunk", feed=feed.name,
                                  chunk=chunk_idx, t0=self._t + 1) as sp:
                     try:
@@ -583,21 +665,17 @@ class ShardedTrainer:
                         break
                     try:
                         _chaos.point("trainer.step")
-                        if _chaos.poisoned("trainer.grads"):
-                            raise NotImplementedError(
-                                "ShardedTrainer.step_stream: the "
-                                "trainer.grads poison point is not ported "
-                                "yet (ROADMAP Queue A item 11)")
                     except BaseException:
                         feed._unget(first)
                         raise
+                    poison = _chaos.poisoned("trainer.grads")
                     take = chunk if remaining is None \
                         else min(chunk, remaining)
                     n, batch = 0, first
                     while batch is not None:
                         xs, y = batch
-                        losses.append(self.step(
-                            xs if len(xs) > 1 else xs[0], y, lr))
+                        losses.append(self._run(
+                            xs if len(xs) > 1 else xs[0], y, lr, poison))
                         n += 1
                         batch = None
                         if n < take:

@@ -11,6 +11,19 @@ Injection points wired in this package:
 ``generation.step``       GenerationScheduler decode step or speculative
                           round (per attempt; fails every live sequence
                           when it escapes the retry policy)
+``trainer.step``          ShardedTrainer.step / step_many entry, once a
+                          chunk in step_stream
+``trainer.grads``         training-step input staging (``nan`` kind poisons
+                          the batch so loss and gradients go non-finite)
+``trainer.dispatch``      watchdog-guarded wait of a multi-axis planned
+                          training step (``stall`` models a hung stage)
+``pipeline.dispatch``     guarded dispatch of ``pipeline_spmd``
+``moe.dispatch``          guarded dispatch of ``moe_ffn_sharded``
+``ring.dispatch``         guarded dispatch of ``ring_attention_sharded``
+``kvstore.push``          KVStore.push entry (per attempt)
+``kvstore.pull``          KVStore.pull entry (per attempt)
+``checkpoint.save``       between the staging directory's write and the
+                          atomic publish
 ========================  ==================================================
 
 Arming — programmatic::
@@ -53,9 +66,8 @@ be caught:
   no grace, a kernel panic, a yanked cable);
 - ``preempt`` — the cloud provider's eviction notice: SIGTERM to the own
   process, which an installed
-  installed SIGTERM handler turns into an emergency checkpoint
-  inside the grace window (the reference's ``PreemptionHandler``; not
-  ported).
+  installed :class:`~.elastic.PreemptionHandler` turns into an emergency
+  checkpoint inside the grace window.
 
 Fire/call counters per point are exported to ``_stats.aggregate_rows``
 (rows ``chaos.<point>.calls`` / ``chaos.<point>.fires``).

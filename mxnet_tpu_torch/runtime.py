@@ -3,8 +3,9 @@
 The reference's feature names, with the port's values: ``CUDA`` (a CUDA
 device is present), ``CUDNN`` and ``NCCL`` with it, ``TRITON`` where the
 package imports; ``RING_ATTENTION`` (``parallel.ring_attention``);
-``TPU``, ``PALLAS``, ``XLA`` and ``JIT`` never, and ``DIST_KVSTORE``
-(kvstores across processes) not until it is ported (ROADMAP item 10b).
+``DIST_KVSTORE`` where ``torch.distributed`` is built in (the ``dist_*``
+kvstores across processes); ``TPU``, ``PALLAS``, ``XLA`` and ``JIT``
+never.
 """
 from __future__ import annotations
 
@@ -38,7 +39,7 @@ def _detect():
         "AUTOGRAD": True,
         "BF16": True,
         "INT64_TENSOR_SIZE": True,
-        "DIST_KVSTORE": False,
+        "DIST_KVSTORE": torch.distributed.is_available(),
         "RING_ATTENTION": True,
         "PALLAS": False,
         "TRITON": _has("triton"),

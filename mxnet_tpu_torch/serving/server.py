@@ -392,14 +392,25 @@ class ModelServer:
         return self._draining
 
     def health(self):
-        """``ok`` | ``degraded`` (with the breaker's state) |
-        ``draining``: what a load balancer keys off."""
+        """``ok`` | ``degraded`` (with the breaker's state, or the
+        guardrails' or elastic's reason) | ``draining``: what a load
+        balancer keys off. A co-resident training job's watchdog stall or
+        NaN storm, a pending eviction notice, a wedged collective or lost
+        members degrade this process too."""
+        from ..resilience import elastic as _elastic
+        from ..resilience import guardrails as _guardrails
         if self._draining:
             return {"status": "draining"}
         if self.breaker is not None:
             snap = self.breaker.snapshot()
             if snap["state"] != "closed":
                 return {"status": "degraded", "breaker": snap}
+        g = _guardrails.health()
+        if g["status"] != "ok":
+            return {"status": "degraded", "guardrails": g}
+        e = _elastic.health()
+        if e["status"] != "ok":
+            return {"status": "degraded", "elastic": e}
         return {"status": "ok"}
 
     def metrics_snapshot(self):
@@ -413,6 +424,8 @@ class ModelServer:
                 out["generation"] = self.generator.metrics.snapshot()
         if self.breaker is not None:
             out["breaker"] = self.breaker.snapshot()
+        from ..resilience import elastic as _elastic
+        out["elastic"] = _elastic.membership_gauge()
         return out
 
     @property

@@ -333,8 +333,16 @@ def test_step_stream_chaos_restore_and_replay():
     finally:
         chaos.clear()
     assert rule.calls == 3          # three chunks; the dry tail fires none
-    with pytest.raises(NotImplementedError, match="item 11"):
-        st.step_stream(_batches(2), preemption=object())
+    # an eviction notice stops the stream at a chunk boundary, before
+    # the chunk takes a batch (tests/test_torch_elastic.py has the rest)
+    from mxnet_tpu_torch.resilience.elastic import (Preempted,
+                                                    PreemptionHandler)
+    handler = PreemptionHandler(grace_ms=1000)
+    handler.trigger()
+    t_before = st._t
+    with pytest.raises(Preempted) as caught:
+        st.step_stream(_batches(2), preemption=handler)
+    assert st._t == t_before and caught.value.step == t_before
 
 
 def test_prefetching_iter_relays_errors_and_resets():

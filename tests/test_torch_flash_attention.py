@@ -167,6 +167,11 @@ def _imports(path):
 def test_port_imports_neither_jax_nor_the_jax_package():
     files = sorted((REPO / "mxnet_tpu_torch").rglob("*.py"))
     files.append(REPO / "chip_smoke.py")
+    # the workers of the port's multi-process tests and its launcher
+    workers = sorted((REPO / "tests" / "dist_torch").glob("*.py"))
+    assert len(workers) >= 4
+    assert REPO / "mxnet_tpu_torch" / "tools" / "launch.py" in files
+    files += workers
     assert len(files) > 10
     for path in files:
         for name in _imports(path):

@@ -30,6 +30,7 @@ from mxnet_tpu import autograd as jautograd
 from mxnet_tpu import gluon as jgluon
 from mxnet_tpu import nd
 from mxnet_tpu.models import TransformerLM as JaxLM
+from mxnet_tpu_torch.base import MXNetError
 from mxnet_tpu_torch import initializer as tinit
 from mxnet_tpu_torch import random as trandom
 from mxnet_tpu_torch.gluon import Trainer, collect_params
@@ -213,8 +214,8 @@ def test_null_grad_req_is_not_updated_and_refusals(monkeypatch):
     assert torch.equal(params[frozen].tensor(), before)
     with pytest.raises(RuntimeError, match="grad_req='null'"):
         params[frozen].grad()
-    # a dist_sync store in one process is a world of one; over several
-    # processes it is ROADMAP item 10b
+    # a dist_sync store in one process is a world of one; a job of
+    # several is tests/test_torch_dist.py's
     dist = Trainer(params, "sgd", {"learning_rate": 0.1},
                    kvstore="dist_sync")
     _own_step(tnet, params, dist, SoftmaxCrossEntropyLoss(), x, y)
@@ -222,7 +223,7 @@ def test_null_grad_req_is_not_updated_and_refusals(monkeypatch):
         dist._kvstore.num_workers == 1
     assert torch.equal(params[frozen].tensor(), before)
     monkeypatch.setenv("DMLC_NUM_WORKER", "2")
-    with pytest.raises(NotImplementedError, match="item 10b"):
+    with pytest.raises(MXNetError, match="parallel.initialize"):
         Trainer(params, "sgd", kvstore="dist_sync").allreduce_grads()
     with pytest.raises(ValueError, match="list or dict of Parameters"):
         Trainer(3, "sgd")

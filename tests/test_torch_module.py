@@ -42,6 +42,7 @@ import pytest
 
 import jax
 import mxnet_tpu as mx
+from mxnet_tpu_torch.base import MXNetError
 import mxnet_tpu_torch as tmx
 
 TOL = 1e-5
@@ -384,14 +385,14 @@ def test_multi_device_and_dist_stores_raise(monkeypatch):
     mod.bind(data_shapes=[("data", (4, 10))],
              label_shapes=[("softmax_label", (4,))])
     mod.init_params()
-    # one process is a world of one; several are ROADMAP item 10b
+    # one process is a world of one (several: tests/test_torch_dist.py)
     mod.init_optimizer(kvstore="dist_sync", force_init=True)
     assert mod._kvstore.type == "dist_sync" and \
         mod._kvstore.num_workers == 1
     mod.init_optimizer(kvstore="nccl", force_init=True)
     assert mod._kvstore is None         # one device: no store to sum in
     monkeypatch.setenv("DMLC_NUM_WORKER", "2")
-    with pytest.raises(NotImplementedError, match="item 10b"):
+    with pytest.raises(MXNetError, match="parallel.initialize"):
         mod.init_optimizer(kvstore="dist_sync", force_init=True)
     monkeypatch.delenv("DMLC_NUM_WORKER")
     mod.init_optimizer(kvstore="device")

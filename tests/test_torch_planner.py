@@ -4,8 +4,8 @@ of ``tests/test_planner.py``'s planner, trainer, feed, checkpoint and
 chaos-stall tests. Plans are held equal to the reference's and costs to
 1e-12 relative; trainers built from plans run on logical CPU devices.
 The reference's watchdog and supervisor tests (``GuardedStep``, the
-collective deadline, the replan counter, the supervised 3D job) are
-ROADMAP items 10b and 11."""
+collective deadline, the replan counter, the supervised 3D job) are in
+``tests/test_torch_elastic.py``."""
 import json
 import threading
 import time
